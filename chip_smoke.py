@@ -9,9 +9,14 @@ them caught, so any failure exits non-zero:
 3. hold each kernel against its plain PyTorch version on the card, at the
    inputs the full-width CTI model gives it at batch 1 and 128 (V=50, 44
    real boxes, the last row fully masked), and on ragged large-V inputs;
+   then the forwards and gradients of the three ``autograd.Function``s
+   (K1, K2, K3) against their plain versions and autograd through them, at
+   the model's inputs for batch 256 and on ragged large-V inputs;
 4. time each kernel, its plain version and one PyTorch yardstick with CUDA
    events (median of 30 runs, L2 flushed before each), beside the card's
-   bound for the same work;
+   bound for the same work: K1 and K2 at the serving bucket B=128; K3, the
+   softmax backward, and K1 and K2 forward+backward at the training batch
+   B=256;
 5. serve the full-width CTI model (bench.py's config, seeded weights) over
    HTTP on the card: JSON and npz ``/answer`` and ``/logits`` requests of
    1, 5 and 40 rows; check the answers against the logits, the logits
@@ -19,7 +24,22 @@ them caught, so any failure exits non-zero:
    ``tests/data/torch_cti_golden.npz``, and that every forward launched
    each kernel (once for the attention, once per glimpse for the pool);
 6. time each serving bucket end to end (``session.logits``, host clock) and
-   on the card (feature upload, forward), and the kernels' share of it.
+   on the card (feature upload, forward), and the kernels' share of it;
+   the host time to enqueue K1 and K2 through their ``autograd.Function``s
+   at B=1, against the bare launch;
+7. the logits path: the full-width model's ``t_att`` with
+   ``return_logits=True`` forward and backward through K3 and the softmax
+   backward kernel, against the fused path and against the CPU;
+8. training (bench.py's configuration): (a) three deterministic steps at
+   B=4 from ``numpy_params(cfg, 0)`` against JAX's golden trajectory
+   ``tests/data/torch_cti_train_golden.npz`` and against the port's CPU
+   path; (b) samples/s at B=256 with dropout on, the median step time on
+   CUDA events, the kernels' launches per step and share of the step, and
+   a ``torch.profiler`` table of the ten costliest CUDA ops of a step.
+
+Each of the three paths (serving, logits, training) is driven with the
+launch counts set to 0 just before it and read just after; the kernels'
+``launches`` in the JSON line are their sums.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or outside the repository, it exits non-zero with no result.
@@ -47,7 +67,15 @@ CFG = dict(ntoken=20000, v_dim=2048, num_ans_candidates=3129, model="cti",
 V, REAL_BOXES, Q, A = 50, 44, 12, 3
 K1_TOL = 1e-5       # attention weights are <= 1; f32 sums in another order
 K2_REL_TOL = 2e-4   # pool: error relative to the output's largest magnitude
+K3_TOL = 1e-5       # as K1; the softmax backward is held to it too
+GRAD_REL_TOL = 1e-4  # gradients, relative to the plain gradient's largest
+                     # magnitude: the plain softmax gradient goes through
+                     # autograd of exp, sum and divide, which cancels
+                     # g - sum(g*att) in another order (8.5e-6 seen at B=256)
+CPU_REL_TOL = 1e-4  # card vs CPU through the full-width layers, relative
+TRAIN_TOL = 1e-4    # training trajectories, relative (ROADMAP parity contract)
 SERVE_TOL = 1e-3    # logit-parity target (BASELINE.md)
+TRAIN_B, WARMUP, WINDOWS, ITERS = 256, 3, 5, 20  # bench.py:50-90, fewer windows
 
 # published peaks (NVIDIA data sheets): HBM bytes/s, f32 CUDA-core FLOP/s
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H200": (4.8e12, 67e12),
@@ -108,9 +136,13 @@ def main() -> int:
     from vqatpu_torch.kernels import build
     from vqatpu_torch.kernels import trilinear as K
     from vqatpu_torch.models import build_model
-    from vqatpu_torch.serve import InferenceSession, require_f32_math
+    from vqatpu_torch.numerics import require_f32_math
+    from vqatpu_torch.serve import InferenceSession
     from vqatpu_torch.cli.serve import serve_in_thread
-    from vqatpu_torch.weights import load_jax_params, numpy_batch, numpy_params
+    from vqatpu_torch.config import TrainConfig
+    from vqatpu_torch.train import make_train_state, make_train_step
+    from vqatpu_torch.weights import (jax_params_from_torch, load_jax_params,
+                                      numpy_batch, numpy_params, param_stats)
 
     # -- 1. the card ------------------------------------------------------
     smi = subprocess.run(
@@ -152,11 +184,19 @@ def main() -> int:
             a_s = model.ans_emb(model.wa_emb(torch.from_numpy(batch["a"]).to(dev)))
             v_r, q_r, a_r, T = model.t_att.tc.rank_projections(v, q_s, a_s)
             tqa = K.precontract_qa(q_r, a_r, T)
-            att = K.fused_rank_softmax_ref(v_r, tqa, mask)
+            logits = K.attention_logits_ref(v_r, q_r, a_r, T)
+            att = K.masked_softmax_vqa_ref(logits, mask)
             tn = model.t_net0
-            pool = (tn.v_tucker(v), tn.q_tucker(q_s), tn.a_tucker(a_s),
-                    att[..., 0])
-        return (v_r, tqa, mask), pool
+            d = dict(v_r=v_r, tqa=tqa, mask=mask, logits=logits, att=att,
+                     vt=tn.v_tucker(v), qt=tn.q_tucker(q_s), at=tn.a_tucker(a_s))
+        # plain tensors (not inference tensors), so autograd can take them
+        return {k: x.clone() for k, x in d.items()}
+
+    def k1_of(d):
+        return d["v_r"], d["tqa"], d["mask"]
+
+    def k2_of(d):
+        return d["vt"], d["qt"], d["at"], d["att"][..., 0]
 
     def ragged_inputs(b: int, v_len: int, seed: int):
         g = torch.Generator().manual_seed(seed)
@@ -171,8 +211,11 @@ def main() -> int:
                                     torch.randn(b, Q, D, generator=g),
                                     torch.randn(b, A, D, generator=g))]
         # one glimpse of the attention, strided, as the model passes it
-        pool.append(att.to(dev)[..., 1])
-        return [t.to(dev) for t in (v_r, tqa, mask)], pool
+        att = att.to(dev)
+        pool.append(att[..., 1])
+        logits = 3 * torch.randn(b, v_len, Q, A, G, generator=g)
+        return ([t.to(dev) for t in (v_r, tqa, mask)], pool,
+                (logits.to(dev), mask.to(dev)), att)
 
     def check(label, k1_args, k2_args):
         got = K.fused_rank_softmax(*k1_args)
@@ -195,18 +238,124 @@ def main() -> int:
             raise SystemExit(f"kernel disagrees with its plain version: {label}")
         return e1, e2
 
-    errs = {}
+    def check3(label, logits, mask):
+        """K3 and the softmax backward kernel against their plain versions;
+        fully masked rows must be exact zeros in both."""
+        got = K.masked_softmax_vqa(logits, mask)
+        want = K.masked_softmax_vqa_ref(logits, mask)
+        cot = torch.randn(logits.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(logits.shape[0]))
+        dl = K.softmax_vqa_backward(want, cot)
+        dl_want = K.softmax_vqa_backward_ref(want, cot)
+        torch.cuda.synchronize()
+        e3 = (got - want).abs().max().item()
+        eb = (dl - dl_want).abs().max().item()
+        masked = ~mask.any(1)
+        masked_max = max(got[masked].abs().max().item(),
+                         dl[masked].abs().max().item()) if masked.any() else 0.0
+        print(f"K3 {label}: max_abs_err {e3:.3e}, softmax backward "
+              f"{eb:.3e} (tol {K3_TOL:.0e} both), {int(masked.sum())} fully "
+              f"masked rows, max there {masked_max}")
+        if not (e3 <= K3_TOL and eb <= K3_TOL and masked_max == 0.0
+                and bool(got.isfinite().all()) and bool(dl.isfinite().all())):
+            raise SystemExit(f"K3 disagrees with its plain version: {label}")
+        return e3, eb
+
+    errs, errs3 = {}, {}
+    k1_big, _, k3_big, _ = ragged_inputs(4, 2048, seed=1)
+    _, k2_big, _, att_big = ragged_inputs(4, 293, seed=2)
     with torch.inference_mode():
         for n in (1, 128):
-            k1_args, k2_args = path_inputs(n, seed=10 + n, pad_row=n > 1)
-            errs[n] = check(f"B={n} V={V}", k1_args, k2_args)
-        k1_big, _ = ragged_inputs(4, 2048, seed=1)
-        _, k2_big = ragged_inputs(4, 293, seed=2)
+            d = path_inputs(n, seed=10 + n, pad_row=n > 1)
+            errs[n] = check(f"B={n} V={V}", k1_of(d), k2_of(d))
+            errs3[n] = check3(f"B={n} V={V}", d["logits"], d["mask"])
         check("ragged V=2048 (K1) / V=293 (K2)", k1_big, k2_big)
+        errs3["big"] = check3("ragged V=2048", *k3_big)
 
+    def grad_check(label, names, fn, ref, args, cot, fwd_tol):
+        """The forward and the gradients of ``fn`` (the kernel's
+        autograd.Function) against ``ref`` (the plain version) and autograd
+        through it, on the same inputs; ``fwd_tol(want)`` is the forward's
+        tolerance."""
+        xs = [a.detach().clone().requires_grad_() for a in args]
+        out = fn(*xs)
+        got = torch.autograd.grad(out, xs, cot)
+        xs = [a.detach().clone().requires_grad_() for a in args]
+        out_want = ref(*xs)
+        want = torch.autograd.grad(out_want, xs, cot)
+        torch.cuda.synchronize()
+        err, tol = (out - out_want).abs().max().item(), fwd_tol(out_want)
+        ok = err <= tol and bool(out.isfinite().all())
+        parts = [f"forward {err:.3e} (tol {tol:.3e})"]
+        for name, g, w in zip(names, got, want):
+            err, tol = (g - w).abs().max().item(), GRAD_REL_TOL * w.abs().max().item()
+            ok &= err <= tol and bool(g.isfinite().all())
+            parts.append(f"{name} {err:.3e} (tol {tol:.3e})")
+        print(f"{label}: " + ", ".join(parts))
+        if not ok:
+            raise SystemExit(f"forward or gradient disagrees with its plain "
+                             f"version: {label}")
+
+    def cotangent(shape, seed):
+        return torch.randn(shape, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+
+    def grad_checks(label, v_r, tqa, mask, vt, qt, at, att, glimpse, logits,
+                    logits_mask):
+        B_, V_ = v_r.shape[:2]
+        grad_check(f"K1 {label}", ["dv", "dtqa"],
+                   lambda x, y: K.fused_rank_softmax(x, y, mask),
+                   lambda x, y: K.fused_rank_softmax_ref(x, y, mask),
+                   (v_r, tqa), cotangent((B_, V_, Q, A, tqa.shape[-1]), 1),
+                   lambda want: K1_TOL)
+        grad_check(f"K2 {label}", ["dvt", "dqt", "dat", "datt"],
+                   lambda x, y, z, w: K.trilinear_pool(x, y, z, w[..., glimpse]),
+                   lambda x, y, z, w: K.trilinear_pool_ref(x, y, z, w[..., glimpse]),
+                   (vt, qt, at, att), cotangent(vt.shape[:1] + vt.shape[2:], 2),
+                   lambda want: K2_REL_TOL * want.abs().max().item())
+        grad_check(f"K3 {label}", ["dlogits"],
+                   lambda x: K.masked_softmax_vqa(x, logits_mask),
+                   lambda x: K.masked_softmax_vqa_ref(x, logits_mask),
+                   (logits,), cotangent(logits.shape, 3), lambda want: K3_TOL)
+
+    d = path_inputs(TRAIN_B, seed=256, pad_row=True)
+    grad_checks(f"B={TRAIN_B} V={V}", *k1_of(d), d["vt"], d["qt"], d["at"],
+                d["att"], 0, d["logits"], d["mask"])
+    grad_checks("ragged V=2048 (K1, K3) / V=293 (K2)", *k1_big, *k2_big[:3],
+                att_big, 1, *k3_big)
+    del d, k1_big, k2_big, k3_big, att_big
+
+    def timed(name, label, fn, plain, lib, nbytes, flops, flush, row=None):
+        """Times of ``fn``, its plain version and the library yardstick,
+        beside the card's bound; with ``row`` = (source, replaces, err), the
+        kernel's row of the JSON line."""
+        t_bytes, t_flops = nbytes / peak_bw * 1e3, flops / peak_f32 * 1e3
+        r = {"ms": time_ms(fn, flush), "plain_ms": time_ms(plain, flush),
+             "bound_ms": max(t_bytes, t_flops),
+             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+             "library_ms": time_ms(lib, flush)}
+        print(f"{name} {label}: {r['ms'] * 1e3:.1f} us, plain "
+              f"{r['plain_ms'] * 1e3:.1f} us, library "
+              f"{r['library_ms'] * 1e3:.1f} us, bound "
+              f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        if row is None:
+            return r
+        src, line, err = row
+        return {"name": name, "route": "cuda",
+                "source": f"vqatpu_torch/kernels/csrc/{src}", "replaces": line,
+                "launches": 0, "max_abs_err": err, **r}
+
+    # phase 4's inputs at the training batch, made outside inference mode
+    # for the backward timings of 4c
+    d = path_inputs(TRAIN_B, seed=266, pad_row=True)
+    mask_flat = d["mask"].repeat_interleave(Q * A, 1)[..., None]
+    cot = cotangent(d["att"].shape, 4)
+    flush = torch.empty(128 * 2**20 // 4, device=dev)  # > the 50 MB L2
+    with torch.inference_mode():
         # -- 4. times at the serving bucket B=128 --------------------------
-        k1_args, k2_args = path_inputs(128, seed=138, pad_row=True)
-        flush = torch.empty(128 * 2**20 // 4, device=dev)
+        d128 = path_inputs(128, seed=138, pad_row=True)
+        k1_args, k2_args = k1_of(d128), k2_of(d128)
         v_r, tqa, mask = k1_args
         B, G = v_r.shape[0], tqa.shape[-1]
         RX, QA = v_r.shape[2] * v_r.shape[3], Q * A
@@ -226,34 +375,83 @@ def main() -> int:
         k1_flops = 2 * B * G * V * RX * QA
         k2_bytes = (vt.numel() + qt.numel() + at.numel() + B * V * QA + B * D) * f32
         k2_flops = 2 * B * V * A * (Q + 1) * D + 2 * B * A * D
-        rows = []
-        for name, src, line, fn, plain, lib, nbytes, flops, err in (
-                ("fused_rank_softmax", "vqatpu_torch/kernels/csrc/rank_softmax.cu",
-                 "vqatpu/kernels/trilinear.py:303",
-                 lambda: K.fused_rank_softmax(*k1_args),
-                 lambda: K.fused_rank_softmax_ref(*k1_args), k1_library,
-                 k1_bytes, k1_flops, max(errs[1][0], errs[128][0])),
-                ("trilinear_pool", "vqatpu_torch/kernels/csrc/tri_pool.cu",
-                 "vqatpu/kernels/trilinear.py:369",
-                 lambda: K.trilinear_pool(*k2_args),
-                 lambda: K.trilinear_pool_ref(*k2_args),
-                 lambda: K.trilinear_pool_ref(*k2_args),
-                 k2_bytes, k2_flops, max(errs[1][1], errs[128][1]))):
-            t_bytes, t_flops = nbytes / peak_bw * 1e3, flops / peak_f32 * 1e3
-            rows.append({
-                "name": name, "route": "cuda", "source": src, "replaces": line,
-                "launches": 0, "max_abs_err": err,
-                "ms": time_ms(fn, flush), "plain_ms": time_ms(plain, flush),
-                "bound_ms": max(t_bytes, t_flops),
-                "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-                "library_ms": time_ms(lib, flush)})
-            r = rows[-1]
-            print(f"{name} B={B}: {r['ms'] * 1e3:.1f} us, plain "
-                  f"{r['plain_ms'] * 1e3:.1f} us, library "
-                  f"{r['library_ms'] * 1e3:.1f} us, bound "
-                  f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
-        del flush, k1_args, k2_args, v_r, tqa, mask, vt, qt, at, w
+        rows = [
+            timed("fused_rank_softmax", f"B={B}",
+                  lambda: K.fused_rank_softmax(*k1_args),
+                  lambda: K.fused_rank_softmax_ref(*k1_args), k1_library,
+                  k1_bytes, k1_flops, flush,
+                  row=("rank_softmax.cu", "vqatpu/kernels/trilinear.py:303",
+                       max(errs[1][0], errs[128][0]))),
+            timed("trilinear_pool", f"B={B}",
+                  lambda: K.trilinear_pool(*k2_args),
+                  lambda: K.trilinear_pool_ref(*k2_args),
+                  lambda: K.trilinear_pool_ref(*k2_args),
+                  k2_bytes, k2_flops, flush,
+                  row=("tri_pool.cu", "vqatpu/kernels/trilinear.py:369",
+                       max(errs[1][1], errs[128][1])))]
+        del d128, k1_args, k2_args, v_r, tqa, mask, vt, qt, at, w
+
+        # -- 4b. K3 and the softmax backward at the training batch ---------
+        logits, mask, att = d["logits"], d["mask"], d["att"]
+        B = TRAIN_B
+        n_el = att.numel()
+        rows.append(timed(
+            "masked_softmax_vqa", f"B={B}",
+            lambda: K.masked_softmax_vqa(logits, mask),
+            lambda: K.masked_softmax_vqa_ref(logits, mask),
+            lambda: torch.softmax(logits.reshape(B, V * QA, G).masked_fill(
+                ~mask_flat, float("-inf")), dim=1),
+            2 * n_el * f32 + mask.numel(), 5 * n_el, flush,
+            row=("softmax_vqa.cu", "vqatpu/kernels/trilinear.py:207",
+                 max(e[0] for e in errs3.values()))))
+        rows.append(timed(
+            "softmax_vqa_backward", f"B={B}",
+            lambda: K.softmax_vqa_backward(att, cot),
+            lambda: K.softmax_vqa_backward_ref(att, cot),
+            lambda: torch.ops.aten._softmax_backward_data(
+                cot.reshape(B, V * QA, G), att.reshape(B, V * QA, G), 1,
+                torch.float32),
+            3 * n_el * f32, 4 * n_el, flush,
+            row=("softmax_vqa.cu", "vqatpu/kernels/trilinear.py:237",
+                 max(e[1] for e in errs3.values()))))
+
+    # -- 4c. K1 and K2 forward + backward at the training batch -----------
+    v_r, tqa = (d[k].requires_grad_() for k in ("v_r", "tqa"))
+    vt, qt, at, att = (d[k].requires_grad_() for k in ("vt", "qt", "at", "att"))
+    RX, D, G = v_r.shape[2] * v_r.shape[3], vt.shape[-1], tqa.shape[-1]
+    g1, g2 = cotangent(att.shape, 5), cotangent((B, D), 6)
+
+    def k1_fb(fn):
+        return lambda: torch.autograd.grad(fn(v_r, tqa, mask), (v_r, tqa), g1)
+
+    def k1_bmm_softmax(v_r, tqa, mask):
+        lg = torch.bmm(v_r.reshape(B, V, RX),
+                       tqa.permute(0, 3, 4, 1, 2, 5).reshape(B, RX, QA * G))
+        lg = lg.reshape(B, V * QA, G).masked_fill(~mask_flat, float("-inf"))
+        return torch.softmax(lg, dim=1).reshape(att.shape)
+
+    def k2_fb(fn):
+        return lambda: torch.autograd.grad(fn(vt, qt, at, att[..., 0]),
+                                           (vt, qt, at, att), g2)
+
+    # inputs read once and outputs written once: K1 (v_r, tqa, mask, g) ->
+    # (att, dv, dtqa); K2 (vt, qt, at, w, g) -> (out, gvt, gqt, gat, gw)
+    k1_fb_bytes = 2 * (v_r.numel() + tqa.numel() + n_el) * f32 + mask.numel()
+    k1_fb_flops = 3 * 2 * B * G * V * RX * QA
+    k2_fb_bytes = 2 * (vt.numel() + qt.numel() + at.numel() + B * V * QA
+                       + B * D) * f32
+    k2_fb_flops = (2 * B * V * A * (Q + 1) * D + 3 * 2 * B * V * QA * D
+                   + 6 * B * QA * D)
+    fwd_bwd = {
+        "fused_rank_softmax": timed(
+            "fused_rank_softmax forward+backward", f"B={B}",
+            k1_fb(K.fused_rank_softmax), k1_fb(K.fused_rank_softmax_ref),
+            k1_fb(k1_bmm_softmax), k1_fb_bytes, k1_fb_flops, flush),
+        "trilinear_pool": timed(
+            "trilinear_pool forward+backward", f"B={B} (one glimpse)",
+            k2_fb(K.trilinear_pool), k2_fb(K.trilinear_pool_ref),
+            k2_fb(K.trilinear_pool_ref), k2_fb_bytes, k2_fb_flops, flush)}
+    del flush, d, logits, mask, att, cot, v_r, tqa, vt, qt, at, g1, g2
 
     # -- 5. the main path: HTTP serving at full width ---------------------
     labels = [f"ans{i}" for i in range(cfg.num_ans_candidates)]
@@ -318,8 +516,7 @@ def main() -> int:
     assert session.bucket_calls.get(128), session.bucket_calls
     assert counts["fused_rank_softmax"] == fwd > 0, counts
     assert counts["trilinear_pool"] == cfg.gamma * fwd, counts
-    for r in rows:
-        r["launches"] = counts[r["name"]]
+    path_counts = {"serving": counts}
 
     # -- 6. where the time goes, per bucket -------------------------------
     # session.logits on the host clock (it returns numpy, so the card is
@@ -360,6 +557,201 @@ def main() -> int:
     print(f"bucket {n}: the CUDA kernels take {kernel_ms:.3f} ms of the "
           f"{fwd:.3f} ms forward ({kernel_ms / fwd:.1%}, cold-L2 times)")
 
+    # the host cost of the autograd.Function that serving's launches go
+    # through under inference_mode, against the bare launch, at B=1: the
+    # host's time to enqueue 200 calls (the card is not waited for)
+    def host_us(fn, calls: int = 200) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / calls * 1e6
+
+    d1 = path_inputs(1, seed=601, pad_row=False)
+    with torch.inference_mode():
+        for name, function, bare, args in (
+                ("fused_rank_softmax", K._FusedRankSoftmax,
+                 K._rank_softmax_kernel, k1_of(d1)),
+                ("trilinear_pool", K._TrilinearPool, K._tri_pool_kernel,
+                 k2_of(d1))):
+            print(f"{name} at B=1, host time to enqueue one call (200 "
+                  f"calls): through its autograd.Function "
+                  f"{host_us(lambda: function.apply(*args)):.1f} us, bare "
+                  f"launch {host_us(lambda: bare(*args)):.1f} us")
+    del d1
+
+    # -- 7. the logits path: t_att(return_logits=True) through K3 --------
+    b7 = numpy_batch(cfg, 8, seed=700, boxes=V, real_boxes=REAL_BOXES)
+    cpu_model = cpu.model
+    with torch.no_grad():
+        q7 = cpu_model.q_emb(cpu_model.w_emb(torch.from_numpy(b7["q"])))
+        a7 = cpu_model.ans_emb(cpu_model.wa_emb(torch.from_numpy(b7["a"])))
+    v7 = torch.from_numpy(b7["v"])
+    mask7 = v7.abs().sum(-1) != 0
+    mask7[-1] = False
+    cot7 = torch.randn(8, V, Q, A, cfg.gamma,
+                       generator=torch.Generator().manual_seed(7))
+
+    def logits_path(t_att, device):
+        v, q, a, m, c = (x.to(device) for x in (v7, q7, a7, mask7, cot7))
+        q, a = q.requires_grad_(), a.requires_grad_()
+        att, logits = t_att(v, q, a, m, return_logits=True)
+        wrt = [q, a] + list(t_att.parameters())
+        return att, logits, torch.autograd.grad(att, wrt, c)
+
+    with torch.no_grad():
+        fused, _ = model.t_att(*(x.to(dev) for x in (v7, q7, a7, mask7)))
+    K.reset_launches()
+    att7, logits7, grads7 = logits_path(model.t_att, dev)
+    torch.cuda.synchronize()
+    path_counts["logits"] = counts = dict(K.launches)
+    att_c, logits_c, grads_c = logits_path(cpu_model.t_att, "cpu")
+    e_fused = (att7 - fused).abs().max().item()
+    e_att = (att7.cpu() - att_c).abs().max().item()
+    finite = torch.isfinite(logits_c)
+    same_inf = bool((torch.isfinite(logits7.cpu()) == finite).all())
+    e_logits = ((logits7.cpu() - logits_c)[finite].abs().max()
+                / logits_c[finite].abs().max()).item()
+    e_grads = max(((g.cpu() - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(grads7, grads_c))
+    print(f"logits path (B=8, last row fully masked): att vs the fused path "
+          f"{e_fused:.3e} (tol {K3_TOL:.0e}); vs the CPU path: att {e_att:.3e} "
+          f"(tol {K3_TOL:.0e}), logits {e_logits:.3e} and gradients of "
+          f"{len(grads7)} tensors {e_grads:.3e} relative (tol "
+          f"{CPU_REL_TOL:.0e}); -inf at the same places: {same_inf}; "
+          f"launches {counts}")
+    assert e_fused <= K3_TOL and e_att <= K3_TOL, (e_fused, e_att)
+    assert e_logits <= CPU_REL_TOL and e_grads <= CPU_REL_TOL and same_inf
+    assert counts["masked_softmax_vqa"] == 1, counts
+    assert counts["softmax_vqa_backward"] == 1, counts
+    assert counts["fused_rank_softmax"] == 0, counts
+    del fused, att7, logits7, grads7, att_c, logits_c, grads_c, cpu, session
+
+    # -- 8a. training: the full-width trajectory against JAX's golden -----
+    tg = np.load(ROOT / "tests" / "data" / "torch_cti_train_golden.npz")
+    n8, steps8, lr8 = int(tg["n"]), int(tg["steps"]), float(tg["lr"])
+    batches = [numpy_batch(cfg, n8, seed=int(tg["batch_seed"]) + i, target=True)
+               for i in range(steps8)]
+    golden_stats = {k: tg[f"param_{k}"] for k in ("names", "l2", "sum", "l1")}
+    traj = {}
+    K.reset_launches()
+    for device in ("cuda", "cpu"):
+        state = make_train_state(build_model(cfg), seed=int(tg["param_seed"]),
+                                 device=device)
+        step = make_train_step(state.model,
+                               TrainConfig(update_freq=1, deterministic=True))
+        metrics = [step(state, b, lr8) for b in batches]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            path_counts["training"] = dict(K.launches)
+        traj[device] = ({k: np.array([float(m[k]) for m in metrics])
+                         for k in ("loss", "grad_norm", "batch_score")},
+                        param_stats(jax_params_from_torch(state.model.state_dict())))
+        del state, step, metrics
+
+    def traj_err(got, want):
+        """Largest relative difference of the per-step metrics and of the
+        per-leaf param norms; a leaf's sum relative to its l1 norm."""
+        (m, st), (m_w, st_w) = got, want
+        assert (st["names"] == st_w["names"]).all()
+        e_m = max(float(np.max(np.abs(m[k] - m_w[k]) / np.abs(m_w[k])))
+                  for k in m)
+        e_p = max(float(np.max(np.abs(st[k] - st_w[k]) / st_w[k]))
+                  for k in ("l2", "l1"))
+        e_s = float(np.max(np.abs(st["sum"] - st_w["sum"]) / st_w["l1"]))
+        return max(e_m, e_p, e_s)
+
+    golden_traj = ({k: tg[k] for k in ("loss", "grad_norm", "batch_score")},
+                   golden_stats)
+    e_golden = traj_err(traj["cuda"], golden_traj)
+    e_cpu = traj_err(traj["cuda"], traj["cpu"])
+    print(f"training trajectory ({steps8} steps, B={n8}, lr {lr8}): loss "
+          f"{traj['cuda'][0]['loss'].tolist()}, grad_norm "
+          f"{traj['cuda'][0]['grad_norm'].tolist()}; largest relative error "
+          f"vs JAX's golden {e_golden:.3e}, vs the CPU path {e_cpu:.3e} (tol "
+          f"{TRAIN_TOL:.0e}; per-step metrics, per-leaf norms and sums of "
+          f"{len(golden_stats['names'])} leaves)")
+    assert e_golden <= TRAIN_TOL and e_cpu <= TRAIN_TOL, (e_golden, e_cpu)
+
+    # -- 8b. training throughput at B=256, dropout on (bench.py) -----------
+    batch = numpy_batch(cfg, TRAIN_B, seed=0, target=True)
+    batch["v_mask"] = np.abs(batch["v"]).sum(-1) != 0
+    db = {k: torch.from_numpy(x).to(dev) for k, x in batch.items()}
+    state = make_train_state(build_model(cfg), seed=0, device="cuda")
+    step = make_train_step(state.model, TrainConfig(update_freq=1,
+                                                    batch_size=TRAIN_B))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(WARMUP):
+        m = step(state, db, 1e-3, gen)
+    float(m["loss"])
+    K.reset_launches()
+    thr, events = [], []
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(state, db, 1e-3, gen)
+            end.record()
+            events.append((start, end))
+        loss = float(m["loss"])  # a value readback ends the window
+        thr.append(TRAIN_B * ITERS / (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    counts = dict(K.launches)
+    n_steps = WINDOWS * ITERS
+    for k, v in counts.items():
+        path_counts["training"][k] += v
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    thr.sort()
+    print(f"training B={TRAIN_B}: {thr[-1]:.1f} samples/s best window, "
+          f"{statistics.median(thr):.1f} median ({WINDOWS} windows of {ITERS} "
+          f"steps); median step on CUDA events {step_ms:.3f} ms; last loss "
+          f"{loss:.3f}; launches per step "
+          f"{ {k: v / n_steps for k, v in counts.items()} }")
+    assert np.isfinite(loss), loss
+    assert counts["fused_rank_softmax"] == n_steps, counts
+    assert counts["softmax_vqa_backward"] == n_steps, counts
+    assert counts["trilinear_pool"] == cfg.gamma * n_steps, counts
+    assert counts["masked_softmax_vqa"] == 0, counts
+    k_ms = (fwd_bwd["fused_rank_softmax"]["ms"]
+            + cfg.gamma * fwd_bwd["trilinear_pool"]["ms"])
+    print(f"training B={TRAIN_B}: K1 and K2 forward+backward (1 + {cfg.gamma} "
+          f"per step, phase 4c cold-L2 times) take {k_ms:.3f} ms of the "
+          f"{step_ms:.3f} ms step ({k_ms / step_ms:.1%})")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_steps = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(prof_steps):
+            m = step(state, db, 1e-3, gen)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    print(f"torch.profiler, {prof_steps} training steps at B={TRAIN_B} (times "
+          f"summed over them):")
+    print(averages.table(sort_by="self_device_time_total", row_limit=10))
+    on_card = [e for e in averages if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / prof_steps
+    own = {name: sum(e.self_device_time_total for e in on_card
+                     if name in e.key) / 1e3 / prof_steps
+           for name in ("rank_softmax_kernel", "tri_pool_kernel",
+                        "softmax_backward_kernel")}
+    print(f"profiled step: {busy_ms:.3f} ms of kernels on the card, "
+          f"{busy_ms / step_ms:.1%} of the {step_ms:.3f} ms median step (idle "
+          f"{1 - busy_ms / step_ms:.1%}); the port's CUDA kernels per step "
+          f"(L2 warm): "
+          + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in own.items()))
+    assert all(v > 0 for v in own.values()), own
+    del state, step, db
+
+    for r in rows:
+        r["launches"] = sum(c[r["name"]] for c in path_counts.values())
+    print(f"launches by path: {path_counts}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

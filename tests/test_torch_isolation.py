@@ -24,9 +24,13 @@ CFG = dict(ntoken=30, v_dim=16, num_ans_candidates=7, model="cti",
 RUN = """
 import json, sys
 import numpy as np
+import torch
 import vqatpu_torch, vqatpu_torch.cli.serve, vqatpu_torch.weights
-from vqatpu_torch.config import ModelConfig
+import vqatpu_torch.train, vqatpu_torch.train.optim, vqatpu_torch.train.steps
+import vqatpu_torch.ops.losses, vqatpu_torch.numerics
+from vqatpu_torch.config import ModelConfig, TrainConfig
 from vqatpu_torch.serve import InferenceSession
+from vqatpu_torch.train import make_train_state, make_train_step
 cfg = ModelConfig(**json.loads(sys.argv[2]))
 sess = InferenceSession.from_checkpoint(sys.argv[1], cfg, list("abcdefg"),
                                         device="cpu")
@@ -34,6 +38,13 @@ rs = np.random.RandomState(0)
 out = sess.logits(rs.randn(2, 5, 16).astype(np.float32), None,
                   rs.randint(0, 31, (2, 12)), rs.randint(0, 31, (2, 3)))
 assert out.shape == (2, 7) and np.isfinite(out).all()
+state = make_train_state(sess.model, device="cpu")
+step = make_train_step(state.model, TrainConfig(update_freq=1))
+m = step(state, {"v": rs.randn(2, 5, 16).astype(np.float32),
+                 "q": rs.randint(0, 31, (2, 12)), "a": rs.randint(0, 31, (2, 3)),
+                 "target": rs.rand(2, 7).astype(np.float32)},
+         1e-3, torch.Generator().manual_seed(0))
+assert np.isfinite(m["loss"].item()) and state.step == 1
 print(json.dumps(sorted(sys.modules)))
 """
 

@@ -1,19 +1,25 @@
-"""vqatpu_torch kernels' plain versions against vqatpu's Pallas kernels
-(interpret mode, as tests/test_kernels.py runs them) and XLA math, the
-wrappers' CPU behaviour, and the CUDA kernels against their plain versions
-on the card (marked ``cuda``; skipped without one)."""
+"""vqatpu_torch kernels' plain versions and gradients against vqatpu's
+Pallas kernels and their ``custom_vjp``s (interpret mode, as
+tests/test_kernels.py runs them) and XLA math, the explicit backward
+products against autograd, the wrappers' CPU behaviour, and the CUDA
+kernels against their plain versions on the card (marked ``cuda``; skipped
+without one)."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from vqatpu.kernels.blockwise import precontract_qa as jax_precontract_qa
-from vqatpu.kernels.trilinear import (attention_logits_xla,
+from vqatpu.kernels.trilinear import (_masked_softmax_pallas_vjp,
+                                      attention_logits_xla,
                                       fused_rank_softmax as jax_rank_softmax,
+                                      masked_softmax_vqa_pallas,
                                       masked_softmax_vqa_xla,
+                                      trilinear_attention as jax_tri_attention,
                                       trilinear_pool_pallas, trilinear_pool_xla)
 from vqatpu_torch.kernels import trilinear as K
 
@@ -124,20 +130,149 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing(rng):
     arrays = t(*pool_inputs(rng, 10))
     torch.testing.assert_close(K.trilinear_pool(*arrays),
                                K.trilinear_pool_ref(*arrays), rtol=0, atol=0)
-    assert K.launches == {"fused_rank_softmax": 0, "trilinear_pool": 0}
+    logits = torch.from_numpy(rng.randn(B, 10, Q, A, G).astype(np.float32))
+    mask_t = torch.from_numpy(mask)
+    torch.testing.assert_close(K.masked_softmax_vqa(logits, mask_t),
+                               K.masked_softmax_vqa_ref(logits, mask_t),
+                               rtol=0, atol=0)
+    att = K.masked_softmax_vqa_ref(logits, mask_t)
+    torch.testing.assert_close(K.softmax_vqa_backward(att, logits),
+                               K.softmax_vqa_backward_ref(att, logits),
+                               rtol=0, atol=0)
+    assert K.launches == {"fused_rank_softmax": 0, "trilinear_pool": 0,
+                          "masked_softmax_vqa": 0, "softmax_vqa_backward": 0}
 
 
-def test_wrappers_refuse_grad(rng):
-    arrays = t(*pool_inputs(rng, 10))
-    arrays[0].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        K.trilinear_pool(*arrays)
-    with torch.no_grad():
-        K.trilinear_pool(*arrays)
+# -- gradients ----------------------------------------------------------------
+
+def vjp_jax(fn, args, cotangent):
+    """JAX's VJP of ``fn`` at ``args`` (numpy), Pallas in interpret mode."""
+    with pltpu.force_tpu_interpret_mode():
+        _, pullback = jax.vjp(fn, *map(jnp.asarray, args))
+        return [np.asarray(x) for x in pullback(jnp.asarray(cotangent))]
+
+
+def grads_torch(fn, args, cotangent):
+    """The port's CPU gradients of ``fn`` at ``args`` (numpy)."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in args]
+    return [x.numpy() for x in torch.autograd.grad(
+        fn(*ts), ts, torch.from_numpy(cotangent))]
+
+
+@pytest.mark.parametrize("V,n_real", [(10, 8), (300, 263)])
+def test_fused_rank_softmax_grads_match_jax_custom_vjp(rng, V, n_real):
+    """K1's ``dv`` and ``dtqa`` against ``jax.vjp`` of the Pallas
+    ``custom_vjp``; V=300 > 256 is ragged against any power-of-two tile."""
+    v_r, q_r, a_r, T, mask = attention_inputs(rng, V, n_real)
+    mask[-1] = False
+    tqa = np.array(jax_precontract_qa(*map(jnp.asarray, (q_r, a_r, T))))
+    g = rng.randn(B, V, Q, A, G).astype(np.float32)
+    want = vjp_jax(lambda v, tq: jax_rank_softmax(v, tq, jnp.asarray(mask)),
+                   (v_r, tqa), g)
+    got = grads_torch(lambda v, tq: K.fused_rank_softmax(
+        v, tq, torch.from_numpy(mask)), (v_r, tqa), g)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x, y, atol=1e-5)
+    np.testing.assert_array_equal(got[0][-1], 0.0)  # fully masked sample
+
+
+@pytest.mark.parametrize("V", [10, 293])
+def test_trilinear_pool_grads_match_jax_custom_vjp(rng, V):
+    """K2's four cotangents against ``jax.vjp`` of the Pallas
+    ``custom_vjp``, with ``w`` one strided glimpse as the model passes it."""
+    vt, qt, at, _ = pool_inputs(rng, V)
+    att = rng.rand(B, V, Q, A, G).astype(np.float32)
+    g = rng.randn(B, D).astype(np.float32)
+    want = vjp_jax(lambda a, b, c, w: trilinear_pool_pallas(a, b, c, w[..., 1]),
+                   (vt, qt, at, att), g)
+    got = grads_torch(lambda a, b, c, w: K.trilinear_pool(a, b, c, w[..., 1]),
+                      (vt, qt, at, att), g)
+    for x, y in zip(got, want):
+        scale = np.abs(y).max()
+        np.testing.assert_allclose(x, y, rtol=2e-4, atol=2e-4 * scale)
+    np.testing.assert_array_equal(got[3][..., 0], 0.0)
+
+
+@pytest.mark.parametrize("V,n_real", [(10, 8), (300, 263)])
+def test_masked_softmax_vqa_matches_pallas_forward_and_grad(rng, V, n_real):
+    """K3: the forward against ``masked_softmax_vqa_pallas`` and the
+    gradient against its ``custom_vjp``; the last sample is fully masked
+    and gives zeros and a zero gradient."""
+    logits = (3 * rng.randn(B, V, Q, A, G)).astype(np.float32)
+    mask = np.repeat(np.arange(V)[None] < n_real, B, 0)
+    mask[-1] = False
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(masked_softmax_vqa_pallas(jnp.asarray(logits),
+                                                    jnp.asarray(mask)))
+    got = K.masked_softmax_vqa(torch.from_numpy(logits),
+                               torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_array_equal(got[-1], 0.0)
+    np.testing.assert_array_equal(got[:, n_real:], 0.0)
+    g = rng.randn(*logits.shape).astype(np.float32)
+    (want_g,) = vjp_jax(lambda x: _masked_softmax_pallas_vjp(x, jnp.asarray(mask)),
+                        (logits,), g)
+    (got_g,) = grads_torch(lambda x: K.masked_softmax_vqa(
+        x, torch.from_numpy(mask)), (logits,), g)
+    np.testing.assert_allclose(got_g, want_g, atol=1e-5)
+    np.testing.assert_array_equal(got_g[-1], 0.0)
+
+
+def test_trilinear_attention_matches_jax_pallas_backend(rng):
+    """Logits, then K3: ``trilinear_attention(..., backend="pallas")``."""
     v_r, q_r, a_r, T, mask = attention_inputs(rng, 10, 8)
-    tqa = K.precontract_qa(*t(q_r, a_r, T)).requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        K.fused_rank_softmax(torch.from_numpy(v_r), tqa, torch.from_numpy(mask))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_tri_attention(
+            *map(jnp.asarray, (v_r, q_r, a_r, T, mask)), backend="pallas"))
+    got = K.trilinear_attention(*t(v_r, q_r, a_r, T, mask)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(
+        K.attention_logits_ref(*t(v_r, q_r, a_r, T)).numpy(),
+        np.asarray(attention_logits_xla(*map(jnp.asarray, (v_r, q_r, a_r, T)))),
+        atol=1e-4)
+
+
+def test_rank_contraction_grads_match_autograd(rng):
+    """The two bmm products of K1's backward (``:322-323``) against
+    autograd of the plain contraction."""
+    v_r, q_r, a_r, T, _ = attention_inputs(rng, 11, 11)
+    tqa = K.precontract_qa(*t(q_r, a_r, T)).numpy()
+    dl = rng.randn(B, 11, Q, A, G).astype(np.float32)
+    want = grads_torch(lambda v, tq: torch.einsum("birx,bjlrxg->bijlg", v, tq),
+                       (v_r, tqa), dl)
+    got = K.rank_contraction_grads(*t(dl, v_r, tqa))
+    assert got[1].shape == (B, Q, A, R, X, G)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), y, atol=1e-5)
+
+
+def test_trilinear_pool_grads_match_autograd(rng):
+    """The bmm cotangents of K2's backward (``:415-426``) against autograd
+    of the plain pool."""
+    vt, qt, at, _ = pool_inputs(rng, 13)
+    att = rng.rand(B, 13, Q, A, G).astype(np.float32)
+    g = rng.randn(B, D).astype(np.float32)
+    want = grads_torch(lambda a, b, c, w: K.trilinear_pool_ref(a, b, c, w[..., 0]),
+                       (vt, qt, at, att), g)
+    got = K.trilinear_pool_grads(*t(g, vt, qt, at), torch.from_numpy(att)[..., 0])
+    want[3] = want[3][..., 0]
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), y, rtol=2e-4,
+                                   atol=2e-4 * np.abs(y).max())
+
+
+def test_softmax_vqa_backward_matches_autograd(rng):
+    """``att * (g - sum g*att)`` is the VJP of the masked softmax, zero on
+    masked boxes."""
+    logits = rng.randn(B, 9, Q, A, G).astype(np.float32)
+    mask = np.repeat(np.arange(9)[None] < 7, B, 0)
+    g = rng.randn(*logits.shape).astype(np.float32)
+    (want,) = grads_torch(lambda x: K.masked_softmax_vqa_ref(
+        x, torch.from_numpy(mask)), (logits,), g)
+    att = K.masked_softmax_vqa_ref(*t(logits, mask))
+    got = K.softmax_vqa_backward(att, torch.from_numpy(g)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    np.testing.assert_array_equal(got[:, 7:], 0.0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "mask_dtype", "device"])
@@ -193,3 +328,77 @@ def test_cuda_tri_pool_matches_plain(rng, cuda, V):
     want = K.trilinear_pool_ref(vt, qt, at, w[..., 1])
     torch.testing.assert_close(got, want, rtol=2e-4,
                                atol=2e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "mask_dtype", "device"])
+def test_masked_softmax_checks_its_inputs(rng, bad):
+    logits = torch.from_numpy(rng.randn(B, 10, Q, A, G).astype(np.float32))
+    mask = torch.ones(B, 10, dtype=torch.bool)
+    if bad == "dtype":
+        logits = logits.double()
+    elif bad == "shape":
+        logits = logits[..., 0]
+    elif bad == "mask_dtype":
+        mask = mask.float()
+    else:
+        logits, mask = logits.to("meta"), mask.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        K.masked_softmax_vqa(logits, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,n_real", [(10, 8), (50, 44), (2048, 1999)])
+def test_cuda_masked_softmax_and_backward_match_plain(rng, cuda, V, n_real):
+    logits = torch.from_numpy((3 * rng.randn(B, V, Q, A, G)).astype(np.float32))
+    mask = torch.from_numpy(np.repeat(np.arange(V)[None] < n_real, B, 0))
+    mask[-1] = False
+    g = torch.from_numpy(rng.randn(B, V, Q, A, G).astype(np.float32))
+    logits, mask, g = (x.to(cuda) for x in (logits, mask, g))
+    K.reset_launches()
+    att = K.masked_softmax_vqa(logits, mask)
+    dl = K.softmax_vqa_backward(att, g)
+    assert K.launches["masked_softmax_vqa"] == 1
+    assert K.launches["softmax_vqa_backward"] == 1
+    torch.testing.assert_close(att, K.masked_softmax_vqa_ref(logits, mask),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(dl, K.softmax_vqa_backward_ref(att, g),
+                               rtol=0, atol=1e-5)
+    assert (att[-1] == 0).all() and (dl[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
+def test_cuda_grads_match_plain(rng, cuda, kernel):
+    """Each autograd.Function's gradients against autograd through its
+    plain version, at V=293 (ragged)."""
+    V = 293
+    if kernel == "K1":
+        v_r, q_r, a_r, T, mask = attention_inputs(rng, V, 250)
+        tqa = K.precontract_qa(*t(q_r, a_r, T)).numpy()
+        args, mask = (v_r, tqa), torch.from_numpy(mask).to(cuda)
+        fn, ref = (lambda a, b: K.fused_rank_softmax(a, b, mask),
+                   lambda a, b: K.fused_rank_softmax_ref(a, b, mask))
+        g = rng.randn(B, V, Q, A, G)
+    elif kernel == "K2":
+        args = pool_inputs(rng, V)[:3] + (rng.rand(B, V, Q, A, G).astype(np.float32),)
+        fn, ref = (lambda a, b, c, w: K.trilinear_pool(a, b, c, w[..., 1]),
+                   lambda a, b, c, w: K.trilinear_pool_ref(a, b, c, w[..., 1]))
+        g = rng.randn(B, D)
+    else:
+        args = ((3 * rng.randn(B, V, Q, A, G)).astype(np.float32),)
+        mask = torch.from_numpy(np.arange(V)[None] < 250).repeat(B, 1).to(cuda)
+        fn, ref = (lambda x: K.masked_softmax_vqa(x, mask),
+                   lambda x: K.masked_softmax_vqa_ref(x, mask))
+        g = rng.randn(B, V, Q, A, G)
+    g = torch.from_numpy(g.astype(np.float32)).to(cuda)
+
+    def grads(f):
+        ts = [torch.from_numpy(a).to(cuda).requires_grad_() for a in args]
+        return torch.autograd.grad(f(*ts), ts, g)
+
+    K.reset_launches()
+    got = grads(fn)
+    assert sum(K.launches.values()) >= 2, K.launches
+    for x, y in zip(got, grads(ref)):
+        scale = y.abs().max().item()
+        torch.testing.assert_close(x, y, rtol=2e-4, atol=max(1e-5, 2e-4 * scale))

@@ -1,6 +1,8 @@
 """vqatpu_torch's building blocks against their vqatpu counterparts at
 small width: the same JAX-initialised param tree and the same numpy inputs
-go through both, within 1e-5 (float32 sums in another order)."""
+go through both, within 1e-5 (float32 sums in another order).  Dropout is
+compared under injected masks: a recording mask source draws each mask
+with numpy as the JAX module asks for it, and the port replays them."""
 
 import numpy as np
 import pytest
@@ -17,10 +19,12 @@ from vqatpu.ops import linear as jlin
 from vqatpu.ops import rnn as jrnn
 from vqatpu.ops import trilinear as jtri
 from vqatpu.ops.activation import get_activation as jax_activation
+from vqatpu.ops.module import Ctx as JaxCtx
+from vqatpu.ops.module import dropout as jax_dropout
 from vqatpu_torch.ops import attention, classifier, embedding, linear, rnn
 from vqatpu_torch.ops import trilinear
 from vqatpu_torch.ops.activation import get_activation
-from vqatpu_torch.ops.module import dropout
+from vqatpu_torch.ops.module import Ctx, MaskSource, dropout
 from vqatpu_torch.weights import torch_state_from_jax
 
 TOL = 1e-5
@@ -62,12 +66,82 @@ def test_unknown_activation_raises():
 
 def test_dropout_is_identity_at_eval_and_inverted_in_training(rng):
     x = torch.from_numpy(rng.randn(64, 32).astype(np.float32))
-    assert dropout(x, 0.5, train=False) is x
-    assert dropout(x, 0.0, train=True) is x
-    y = dropout(x, 0.25, train=True, generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    assert dropout(x, 0.5, None) is x
+    assert dropout(x, 0.5, Ctx(train=False, generator=gen)) is x
+    assert dropout(x, 0.0, Ctx(train=True, generator=gen)) is x
+    y = dropout(x, 0.25, Ctx(train=True, generator=gen))
     kept = y != 0
     torch.testing.assert_close(y[kept], x[kept] / 0.75)
     assert 0.6 < kept.float().mean().item() < 0.9
+    # the same generator state gives the same mask
+    a = dropout(x, 0.25, Ctx(True, torch.Generator().manual_seed(3)))
+    b = dropout(x, 0.25, Ctx(True, torch.Generator().manual_seed(3)))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_dropout_in_training_needs_a_generator():
+    x = torch.ones(4, 4)
+    with pytest.raises(ValueError, match="Generator"):
+        dropout(x, 0.5, Ctx(train=True))
+    with pytest.raises(ValueError, match="mask_bits"):
+        Ctx(train=True, mask_bits=8)
+
+
+@pytest.mark.parametrize("rate", [0.2, 0.5, 0.7])
+def test_dropout_mask_bits_16_scales_by_the_realized_keep(rng, rate):
+    """16-bit draws: keep where the draw is below round(keep * 65536), scale
+    by 65536 / that threshold (``vqatpu/ops/module.py:114-118``)."""
+    x = torch.from_numpy(rng.rand(256, 256).astype(np.float32) + 1.0)
+    y = dropout(x, rate, Ctx(True, torch.Generator().manual_seed(1), 16))
+    thresh = round((1.0 - rate) * 65536.0)
+    kept = y != 0
+    torch.testing.assert_close(y[kept], x[kept] * (65536.0 / thresh),
+                               rtol=0, atol=0)
+    assert abs(kept.float().mean().item() - thresh / 65536.0) < 0.01
+
+
+def test_mask_source_is_a_fifo_per_shape(rng):
+    masks = [np.full((2, 3), 1.0), np.zeros((2, 3)), np.ones((4,))]
+    src = MaskSource(masks)
+    x = torch.ones(2, 3)
+    ctx = Ctx(train=True, mask_source=src)
+    torch.testing.assert_close(dropout(x, 0.5, ctx), x * 2)
+    with pytest.raises(AssertionError, match="unconsumed"):
+        src.assert_exhausted()
+    torch.testing.assert_close(dropout(x, 0.5, ctx), x * 0)
+    with pytest.raises(ValueError, match="no injected"):
+        dropout(x, 0.5, ctx)
+    dropout(torch.ones(4), 0.1, ctx)
+    src.assert_exhausted()
+
+
+class Recorder:
+    """A JAX ``MaskSource`` stand-in that draws each mask with numpy as it
+    is asked for, and keeps them in order for the port to replay."""
+
+    def __init__(self, seed=0, keep=0.6):
+        self.rs = np.random.RandomState(seed)
+        self.keep = keep
+        self.masks = []
+
+    def next_mask(self, shape):
+        m = (self.rs.rand(*shape) < self.keep).astype(np.float32)
+        self.masks.append(m)
+        return m
+
+    def replay(self):
+        return Ctx(train=True, mask_source=MaskSource(self.masks))
+
+
+def test_injected_mask_dropout_matches_jax(rng):
+    x = rng.randn(3, 5).astype(np.float32)
+    rec = Recorder()
+    want = jax_dropout(jnp.asarray(x), 0.3, JaxCtx(train=True, mask_source=rec))
+    ctx = rec.replay()
+    got = dropout(torch.from_numpy(x), 0.3, ctx)
+    close(got.numpy(), want)
+    ctx.mask_source.assert_exhausted()
 
 
 @pytest.mark.parametrize("bias", [True, False])
@@ -196,6 +270,61 @@ def test_masked_softmax_matches_jax_and_zeroes_masked_slices(rng):
     close(got, want)
 
 
+def test_dropout_sites_match_jax_under_injected_masks(rng):
+    """FCNet, the word embedding and the classifier in training: each site
+    takes the JAX module's mask, in the JAX order."""
+    sites = [
+        (jlin.FCNet((12, 16, 9), "ReLU", 0.2), linear.FCNet((12, 16, 9), "ReLU", 0.2),
+         rng.randn(4, 12).astype(np.float32)),
+        (jemb.WordEmbedding(20, 300, 0.4, "c"),
+         embedding.WordEmbedding(20, 300, 0.4, "c"), rng.randint(0, 21, (3, 12))),
+        (jcls.SimpleClassifier(16, 32, 7, "relu", 0.5),
+         classifier.SimpleClassifier(16, 32, 7, "relu", 0.5),
+         rng.randn(5, 16).astype(np.float32)),
+    ]
+    for seed, (jm, tm, x) in enumerate(sites):
+        p = init(jm, seed=seed)
+        rec = Recorder(seed)
+        want = jm.apply(p, jnp.asarray(x), JaxCtx(train=True, mask_source=rec))
+        ctx = rec.replay()
+        with torch.no_grad():
+            got = load(tm, p)(torch.from_numpy(x), ctx)
+        close(got.numpy(), want)
+        ctx.mask_source.assert_exhausted()
+
+
+def test_rank_projections_take_one_mask_per_rank_under_injected_masks(rng):
+    """Under a mask source the rank nets take the per-rank path
+    (``vqatpu/ops/trilinear.py:169-177``): 3 tuckers + 3 x rank masks."""
+    jm = jtri.TCNet(**TC)
+    p = init(jm, seed=5)
+    v, q, a = tc_inputs(rng)
+    rec = Recorder(7)
+    want = jm.rank_projections(p, *map(jnp.asarray, (v, q, a)),
+                               ctx=JaxCtx(train=True, mask_source=rec))
+    assert len(rec.masks) == 3 + 3 * TC["rank"]
+    ctx = rec.replay()
+    with torch.no_grad():
+        got = load(trilinear.TCNet(**TC), p).rank_projections(
+            *(torch.from_numpy(x) for x in (v, q, a)), ctx)
+    for g, w in zip(got, want):
+        close(g.detach().numpy(), w)
+    ctx.mask_source.assert_exhausted()
+
+
+def test_rank_nets_share_one_mask_across_ranks_with_a_generator(rng):
+    """With a generator the rank nets draw one mask that every rank shares:
+    the same output as the per-rank path fed that mask R times."""
+    net = trilinear.RankNets(4, 16, 4, "ReLU", 0.5)
+    x = torch.from_numpy(rng.randn(2, 6, 16).astype(np.float32))
+    with torch.no_grad():
+        got = net(x, Ctx(True, torch.Generator().manual_seed(2)))
+        mask = (torch.rand(x.shape, generator=torch.Generator().manual_seed(2))
+                < 0.5).float()
+        want = net(x, Ctx(train=True, mask_source=MaskSource([mask] * 4)))
+    close(got.numpy(), want.numpy())
+
+
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 def test_triattention_matches_jax(rng, backend):
     """The port's one path (fused rank contraction + masked softmax) against
@@ -208,7 +337,11 @@ def test_triattention_matches_jax(rng, backend):
     mask = np.abs(v).sum(-1) != 0
     mask[1] = False
     m = load(attention.TriAttention(**kw), p)
-    got = run(m, v, q, a, mask)
+    with torch.inference_mode():
+        got, logits = m(*(torch.from_numpy(x) for x in (v, q, a, mask)))
+        no_mask, _ = m(*(torch.from_numpy(x) for x in (v, q, a)))
+    assert logits is None
+    got = got.numpy()
     with pltpu.force_tpu_interpret_mode():
         want, _ = jm.apply(p, *map(jnp.asarray, (v, q, a, mask)),
                            return_logits=False)
@@ -216,4 +349,61 @@ def test_triattention_matches_jax(rng, backend):
     np.testing.assert_array_equal(got[1], 0.0)
     close(got, want)
     # without a mask, the box mask is read from the features
-    close(run(m, v, q, a)[0], got[0])
+    close(no_mask.numpy()[0], got[0])
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_triattention_return_logits_matches_jax_apply(rng, backend):
+    """``return_logits=True`` (K3 on the logits) against JAX's ``apply``
+    (its default), attention and masked logits (-inf at masked boxes),
+    and the same attention as the fused path."""
+    kw = dict(v_dim=10, q_dim=8, a_dim=8, h_dim=16, h_out=1, rank=4,
+              glimpse=2, k=1)
+    jm = jatt.TriAttention(**kw, backend=backend)
+    p = init(jm, seed=8)
+    v, q, a = tc_inputs(rng)
+    mask = np.abs(v).sum(-1) != 0
+    mask[1] = False
+    m = load(attention.TriAttention(**kw), p)
+    args = [torch.from_numpy(x) for x in (v, q, a, mask)]
+    with torch.inference_mode():
+        att, logits = m(*args, return_logits=True)
+        fused, _ = m(*args)
+    with pltpu.force_tpu_interpret_mode():
+        want_att, want_logits = jm.apply(p, *map(jnp.asarray, (v, q, a, mask)))
+    close(att.numpy(), want_att)
+    close(fused.numpy(), att.numpy())
+    want_logits = np.asarray(want_logits)
+    assert np.isneginf(want_logits[:, 4:]).all() and np.isneginf(want_logits[1]).all()
+    np.testing.assert_array_equal(np.isneginf(logits.numpy()),
+                                  np.isneginf(want_logits))
+    finite = np.isfinite(want_logits)
+    np.testing.assert_allclose(logits.numpy()[finite], want_logits[finite],
+                               atol=1e-4)
+
+
+def test_cti_dropout_sites_match_jax_under_injected_masks(rng):
+    """The whole CTI forward in training under injected masks: every site
+    of ``vqatpu/models/ffoe.py:241-325`` fires in the JAX order (the
+    per-rank path included), and the logits agree."""
+    from vqatpu.config import ModelConfig as JaxModelConfig
+    from vqatpu.models import build_model as jax_build_model
+    from vqatpu_torch.config import ModelConfig
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.weights import load_jax_params, numpy_batch, numpy_params
+
+    kw = dict(ntoken=50, v_dim=32, num_ans_candidates=17, model="cti",
+              num_hid=32, h_mm=16, rank=4, gamma=2)
+    params = numpy_params(ModelConfig(**kw), seed=3)
+    batch = numpy_batch(ModelConfig(**kw), 2, seed=4, boxes=8, real_boxes=6)
+    rec = Recorder(11)
+    want, _ = jax_build_model(JaxModelConfig(**kw)).apply(
+        jax.tree.map(jnp.asarray, params),
+        {k: jnp.asarray(x) for k, x in batch.items()},
+        JaxCtx(train=True, mask_source=rec))
+    ctx = rec.replay()
+    model = load_jax_params(build_model(ModelConfig(**kw)), params)
+    with torch.no_grad():
+        got, _ = model(*(torch.from_numpy(batch[k]) for k in "vqa"), ctx=ctx)
+    close(got.numpy(), want)
+    ctx.mask_source.assert_exhausted()

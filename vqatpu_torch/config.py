@@ -1,4 +1,5 @@
-"""Model configuration, a copy of ``vqatpu.config.ModelConfig``.
+"""Model and training configuration, copies of ``vqatpu.config.ModelConfig``
+and ``vqatpu.config.TrainConfig``.
 
 The fields and defaults are the JAX package's, so a configuration written
 for one side constructs on the other.  ``kernel_backend``, ``v_block_size``,
@@ -11,6 +12,7 @@ queue A).
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,3 +51,58 @@ class ModelConfig:
     @property
     def num_classes(self) -> int:
         return 2 if self.task == "mc" else self.num_ans_candidates
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training configuration, a copy of ``vqatpu.config.TrainConfig`` with
+    the same fields and defaults.
+
+    ``rng_impl``, ``data_axis``, ``device_features``,
+    ``shard_feature_store`` and ``ckpt_backend`` select TPU or loop
+    machinery of the JAX package; they are accepted and select nothing
+    here.  ``compute_dtype="bfloat16"``, a ``transfer_dtype`` other than
+    float32 (ROADMAP queue A item 2), ``distillation`` (queue A item 5) and
+    ``mask_replay`` (not ported: autograd keeps the mask) make
+    :func:`vqatpu_torch.train.make_train_step` raise
+    ``NotImplementedError``.
+    """
+
+    epochs: int = 13
+    batch_size: int = 256
+    lr: float = 1e-3
+    clip_norm: float = 0.25
+    update_freq: int = 4
+    seed: int = 1204
+    saving_epoch: int = 9
+    # LR schedule (FFOE/train.py:26-31)
+    warmup_factors: Tuple[float, ...] = (0.5, 1.0, 1.5, 2.0)
+    lr_decay_start: int = 10
+    lr_decay_end: int = 20
+    lr_decay_step: int = 2
+    lr_decay_rate: float = 0.25
+    # distillation
+    distillation: bool = False
+    T: float = 1.5
+    alpha: float = 0.2
+    compute_dtype: str = "float32"
+    data_axis: str = "data"
+    rng_impl: str = "rbg"
+    # Adamax m/u storage: "bfloat16" stores them rounded to nearest even;
+    # the update math runs in float32 either way
+    optim_state_dtype: str = "float32"
+    # 32: Bernoulli(keep) masks; 16: thresholded 16-bit draws with the
+    # exact realized keep probability in the scale
+    mask_bits: int = 32
+    mask_replay: bool = False
+    ckpt_backend: str = "pickle"
+    # True turns dropout off in the train step (trajectory-parity runs)
+    deterministic: bool = False
+    # a non-finite microbatch contributes a zero gradient and reports
+    # metrics["skipped"] = 1; the update cadence is unchanged
+    skip_nonfinite: bool = False
+    transfer_dtype: str = "float32"
+    device_features: str = "auto"
+    shard_feature_store: bool = False
+    # sparse (t_label, t_score) targets, densified in the step
+    sparse_targets: bool = False

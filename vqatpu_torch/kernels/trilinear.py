@@ -1,18 +1,28 @@
 """The CTI attention and pooling kernels, their plain PyTorch versions and
 their wrappers (``vqatpu/kernels/trilinear.py``).
 
-- :func:`fused_rank_softmax` replaces the Pallas kernel of the same name
-  (``vqatpu/kernels/trilinear.py:303-327``): the last rank-contraction GEMM
-  fused with the masked softmax over (V, Q, A) for each glimpse.  CUDA
+- :func:`fused_rank_softmax` (K1) replaces the Pallas kernel of the same
+  name (``vqatpu/kernels/trilinear.py:303-327``): the last rank-contraction
+  GEMM fused with the masked softmax over (V, Q, A) for each glimpse.  CUDA
   source ``csrc/rank_softmax.cu``.
-- :func:`trilinear_pool` replaces ``trilinear_pool_pallas``
+- :func:`trilinear_pool` (K2) replaces ``trilinear_pool_pallas``
   (``vqatpu/kernels/trilinear.py:369-429``): the weighted trilinear pool.
   CUDA source ``csrc/tri_pool.cu``.
+- :func:`masked_softmax_vqa` (K3) replaces ``masked_softmax_vqa_pallas``
+  (``vqatpu/kernels/trilinear.py:207-243``): the masked softmax of given
+  logits.  CUDA source ``csrc/softmax_vqa.cu``, which also holds
+  :func:`softmax_vqa_backward`, the softmax VJP that K1's and K3's
+  backwards both begin with.
 
-A wrapper runs the plain version for CPU tensors, launches its kernel for
-CUDA tensors, and raises for anything else.  Neither kernel has a backward
-yet, so a wrapper raises when an input requires grad under grad mode.
-``launches`` counts the kernel launches of each wrapper.
+A wrapper runs the plain version for CPU tensors, and autograd
+differentiates it there.  For CUDA tensors it launches its kernel, or
+raises: nothing falls back.  The CUDA path goes through a
+``torch.autograd.Function`` whose backward follows the JAX ``custom_vjp``:
+the softmax backward kernel, then the gradient products that JAX leaves to
+XLA (:func:`rank_contraction_grads`, :func:`trilinear_pool_grads`) as
+``torch.bmm``.  Under ``no_grad`` or ``inference_mode`` it runs the same
+kernel and records no graph.  ``launches`` counts the kernel launches of
+each wrapper.
 """
 
 from __future__ import annotations
@@ -31,7 +41,8 @@ RANK_SOFTMAX_MAX_QA = 256
 TRI_POOL_MAX_Q = 32
 TRI_POOL_MAX_A = 8
 
-launches = {"fused_rank_softmax": 0, "trilinear_pool": 0}
+launches = {"fused_rank_softmax": 0, "trilinear_pool": 0,
+            "masked_softmax_vqa": 0, "softmax_vqa_backward": 0}
 _launch_lock = threading.Lock()
 
 
@@ -59,6 +70,15 @@ def precontract_qa(q_r: torch.Tensor, a_r: torch.Tensor,
     return torch.einsum("bjry,blrxyg->bjlrxg", q_r, ta).contiguous()
 
 
+def attention_logits_ref(v_r: torch.Tensor, q_r: torch.Tensor,
+                         a_r: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """Attention logits [B,V,Q,A,G] (``vqatpu/kernels/trilinear.py:49-65``):
+    A into T first, then Q, then the [V, R*X] x [R*X, Q*A*G] product;
+    contiguous, as :func:`masked_softmax_vqa` takes it."""
+    return torch.einsum("birx,bjlrxg->bijlg", v_r,
+                        precontract_qa(q_r, a_r, T)).contiguous()
+
+
 def masked_softmax_vqa_ref(logits: torch.Tensor,
                            v_mask: torch.Tensor) -> torch.Tensor:
     """Softmax over (V, Q, A) for each glimpse with masked boxes zeroed
@@ -70,6 +90,13 @@ def masked_softmax_vqa_ref(logits: torch.Tensor,
     m = neg.amax(dim=(1, 2, 3), keepdim=True)
     e = torch.exp(neg - m) * mask5
     return e / e.sum(dim=(1, 2, 3), keepdim=True).clamp_min(1e-30)
+
+
+def softmax_vqa_backward_ref(att: torch.Tensor,
+                             g: torch.Tensor) -> torch.Tensor:
+    """VJP of the masked softmax (``vqatpu/kernels/trilinear.py:237-240``):
+    ``att * (g - sum over (V,Q,A) of g * att)``."""
+    return att * (g - (g * att).sum(dim=(1, 2, 3), keepdim=True))
 
 
 def fused_rank_softmax_ref(v_r: torch.Tensor, tqa: torch.Tensor,
@@ -89,7 +116,45 @@ def trilinear_pool_ref(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# wrappers
+# the gradient products JAX leaves to XLA, as torch.bmm
+# ---------------------------------------------------------------------------
+
+def rank_contraction_grads(dl: torch.Tensor, v_r: torch.Tensor,
+                           tqa: torch.Tensor):
+    """``dv = einsum('bijlg,bjlrxg->birx')`` and ``dtqa =
+    einsum('bijlg,birx->bjlrxg')`` of ``dl`` [B,V,Q,A,G]
+    (``vqatpu/kernels/trilinear.py:322-323``), each one ``torch.bmm``:
+    ``dl`` as [B, V, QA*G] against ``tqa`` laid out [B, QA*G, RX]."""
+    B, V, R, X = v_r.shape
+    Q, A, G = tqa.shape[1], tqa.shape[2], tqa.shape[5]
+    dl2 = dl.reshape(B, V, Q * A * G)
+    t2 = tqa.permute(0, 1, 2, 5, 3, 4).reshape(B, Q * A * G, R * X)
+    dv = torch.bmm(dl2, t2).reshape(B, V, R, X)
+    dtqa = torch.bmm(dl2.transpose(1, 2), v_r.reshape(B, V, R * X))
+    return dv, dtqa.reshape(B, Q, A, G, R, X).permute(0, 1, 2, 4, 5, 3)
+
+
+def trilinear_pool_grads(g: torch.Tensor, vt: torch.Tensor, qt: torch.Tensor,
+                         at: torch.Tensor, w: torch.Tensor):
+    """The four cotangents of the pool (``vqatpu/kernels/trilinear.py:
+    415-426``) for ``g`` [B, D].  With ``P[b,(j,l),d] = qt[b,j,d]·at[b,l,d]``
+    and ``wv = wᵀ vt`` [B, QA, D], each product is one ``torch.bmm``: no
+    [B, V, Q, D] intermediate is formed."""
+    B, V, D = vt.shape
+    Q, A = qt.shape[1], at.shape[1]
+    w2 = w.reshape(B, V, Q * A)
+    p = (qt[:, :, None, :] * at[:, None, :, :]).reshape(B, Q * A, D)
+    gd = g[:, None, :]
+    gvt = torch.bmm(w2, p) * gd
+    gw = torch.bmm(vt, (p * gd).transpose(1, 2)).reshape(B, V, Q, A)
+    wv = torch.bmm(w2.transpose(1, 2), vt).reshape(B, Q, A, D)
+    gqt = (wv * at[:, None]).sum(2) * gd
+    gat = (wv * qt[:, :, None]).sum(1) * gd
+    return gvt, gqt, gat, gw
+
+
+# ---------------------------------------------------------------------------
+# launches
 # ---------------------------------------------------------------------------
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -101,10 +166,11 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
-def _check_no_grad(*ts: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError("the CTI kernels have no backward yet; call them "
-                           "under torch.no_grad() or torch.inference_mode()")
+def _check5(t: torch.Tensor, name: str) -> None:
+    if t.dim() != 5:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected [B,V,Q,A,G]")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {torch.float32}")
 
 
 def _check_cuda(device: torch.device, **contiguous: torch.Tensor) -> None:
@@ -124,6 +190,132 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
 
 
+def _rank_softmax_kernel(v_r, tqa, v_mask) -> torch.Tensor:
+    B, V, R, X = v_r.shape
+    Q, A, G = tqa.shape[1], tqa.shape[2], tqa.shape[-1]
+    dev = v_r.device
+    _check_cuda(dev, v_r=v_r, tqa=tqa, v_mask=v_mask)
+    if Q * A > RANK_SOFTMAX_MAX_QA:
+        raise ValueError(f"Q*A = {Q * A} exceeds the kernel's "
+                         f"{RANK_SOFTMAX_MAX_QA}")
+    out = torch.empty((B, V, Q, A, G), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = build.load("rank_softmax").rank_softmax_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    _raise_on(fn(v_r.data_ptr(), tqa.data_ptr(), v_mask.data_ptr(),
+                 out.data_ptr(), B, V, R * X, Q * A, G, dev.index or 0,
+                 _stream(dev)), "rank_softmax_forward")
+    _count("fused_rank_softmax")
+    return out
+
+
+def _tri_pool_kernel(vt, qt, at, w) -> torch.Tensor:
+    B, V, D = vt.shape
+    Q, A = qt.shape[1], at.shape[1]
+    dev = vt.device
+    _check_cuda(dev, vt=vt, qt=qt, at=at)
+    if Q > TRI_POOL_MAX_Q or A > TRI_POOL_MAX_A:
+        raise ValueError(f"Q={Q}, A={A} exceed the kernel's "
+                         f"{TRI_POOL_MAX_Q}, {TRI_POOL_MAX_A}")
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = build.load("tri_pool").tri_pool_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    _raise_on(fn(vt.data_ptr(), qt.data_ptr(), at.data_ptr(), w.data_ptr(),
+                 *w.stride(), out.data_ptr(), B, V, Q, A, D, dev.index or 0,
+                 _stream(dev)), "tri_pool_forward")
+    _count("trilinear_pool")
+    return out
+
+
+def _softmax_vqa_call(fn_name: str, counter: str, names, a: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """Launch one of ``csrc/softmax_vqa.cu``'s kernels: ``a`` [B,V,Q,A,G]
+    float32 and ``b`` (the mask [B,V] or the cotangent [B,V,Q,A,G]) in,
+    one [B,V,Q,A,G] out; ``names`` name ``a`` and ``b`` in errors."""
+    B, V, Q, A, G = a.shape
+    dev = a.device
+    _check_cuda(dev, **dict(zip(names, (a, b))))
+    out = torch.empty_like(a, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    fn = getattr(build.load("softmax_vqa"), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    _raise_on(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, V, Q * A, G,
+                 dev.index or 0, _stream(dev)), fn_name)
+    _count(counter)
+    return out
+
+
+def _masked_softmax_kernel(logits, v_mask) -> torch.Tensor:
+    return _softmax_vqa_call("masked_softmax_vqa_forward", "masked_softmax_vqa",
+                             ("logits", "v_mask"), logits, v_mask)
+
+
+def _softmax_backward_kernel(att, g) -> torch.Tensor:
+    return _softmax_vqa_call("softmax_vqa_backward", "softmax_vqa_backward",
+                             ("att", "g"), att, g)
+
+
+# ---------------------------------------------------------------------------
+# gradients on the card
+# ---------------------------------------------------------------------------
+
+class _FusedRankSoftmax(torch.autograd.Function):
+    """K1 with the VJP of ``vqatpu/kernels/trilinear.py:311-324``."""
+
+    @staticmethod
+    def forward(ctx, v_r, tqa, v_mask):
+        att = _rank_softmax_kernel(v_r, tqa, v_mask)
+        ctx.save_for_backward(att, v_r, tqa)
+        return att
+
+    @staticmethod
+    def backward(ctx, g):
+        att, v_r, tqa = ctx.saved_tensors
+        dl = _softmax_backward_kernel(att, g.contiguous())
+        dv, dtqa = rank_contraction_grads(dl, v_r, tqa)
+        return dv, dtqa, None
+
+
+class _TrilinearPool(torch.autograd.Function):
+    """K2 with the VJP of ``vqatpu/kernels/trilinear.py:411-426``."""
+
+    @staticmethod
+    def forward(ctx, vt, qt, at, w):
+        ctx.save_for_backward(vt, qt, at, w)
+        return _tri_pool_kernel(vt, qt, at, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return trilinear_pool_grads(g, *ctx.saved_tensors)
+
+
+class _MaskedSoftmaxVQA(torch.autograd.Function):
+    """K3 with the VJP of ``vqatpu/kernels/trilinear.py:227-243``."""
+
+    @staticmethod
+    def forward(ctx, logits, v_mask):
+        att = _masked_softmax_kernel(logits, v_mask)
+        ctx.save_for_backward(att)
+        return att
+
+    @staticmethod
+    def backward(ctx, g):
+        (att,) = ctx.saved_tensors
+        return _softmax_backward_kernel(att, g.contiguous()), None
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
 def fused_rank_softmax(v_r: torch.Tensor, tqa: torch.Tensor,
                        v_mask: torch.Tensor) -> torch.Tensor:
     """att [B,V,Q,A,G] = masked softmax over (V,Q,A) of
@@ -137,25 +329,9 @@ def fused_rank_softmax(v_r: torch.Tensor, tqa: torch.Tensor,
     _check(tqa, "tqa", (B, Q, A, R, X, G), torch.float32, dev)
     _check(v_r, "v_r", (B, V, R, X), torch.float32, dev)
     _check(v_mask, "v_mask", (B, V), torch.bool, dev)
-    _check_no_grad(v_r, tqa)
     if dev.type == "cpu":
         return fused_rank_softmax_ref(v_r, tqa, v_mask)
-    _check_cuda(dev, v_r=v_r, tqa=tqa, v_mask=v_mask)
-    if Q * A > RANK_SOFTMAX_MAX_QA:
-        raise ValueError(f"Q*A = {Q * A} exceeds the kernel's "
-                         f"{RANK_SOFTMAX_MAX_QA}")
-    out = torch.empty((B, V, Q, A, G), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    lib = build.load("rank_softmax")
-    fn = lib.rank_softmax_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    _raise_on(fn(v_r.data_ptr(), tqa.data_ptr(), v_mask.data_ptr(),
-                 out.data_ptr(), B, V, R * X, Q * A, G, dev.index or 0,
-                 _stream(dev)), "rank_softmax_forward")
-    _count("fused_rank_softmax")
-    return out
+    return _FusedRankSoftmax.apply(v_r, tqa, v_mask)
 
 
 def trilinear_pool(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
@@ -165,7 +341,8 @@ def trilinear_pool(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
     ``vt`` [B,V,D], ``qt`` [B,Q,D], ``at`` [B,A,D], ``w`` [B,V,Q,A], all
     float32; on CUDA ``vt``/``qt``/``at`` contiguous, Q <= 32 and A <= 8.
     ``w`` may have any strides: the kernel reads one glimpse of the
-    [B,V,Q,A,G] attention (``att[..., g]``, stride G) in place."""
+    [B,V,Q,A,G] attention (``att[..., g]``, stride G) in place, and the
+    backward's ``gw`` flows back into the attention's gradient."""
     B, V, D = vt.shape
     Q, A = qt.shape[1], at.shape[1]
     dev = vt.device
@@ -173,23 +350,41 @@ def trilinear_pool(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
     _check(at, "at", (B, A, D), torch.float32, dev)
     _check(w, "w", (B, V, Q, A), torch.float32, dev)
     _check(vt, "vt", (B, V, D), torch.float32, dev)
-    _check_no_grad(vt, qt, at, w)
     if dev.type == "cpu":
         return trilinear_pool_ref(vt, qt, at, w)
-    _check_cuda(dev, vt=vt, qt=qt, at=at)
-    if Q > TRI_POOL_MAX_Q or A > TRI_POOL_MAX_A:
-        raise ValueError(f"Q={Q}, A={A} exceed the kernel's "
-                         f"{TRI_POOL_MAX_Q}, {TRI_POOL_MAX_A}")
-    out = torch.empty((B, D), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    lib = build.load("tri_pool")
-    fn = lib.tri_pool_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    _raise_on(fn(vt.data_ptr(), qt.data_ptr(), at.data_ptr(), w.data_ptr(),
-                 *w.stride(), out.data_ptr(), B, V, Q, A, D, dev.index or 0,
-                 _stream(dev)), "tri_pool_forward")
-    _count("trilinear_pool")
-    return out
+    return _TrilinearPool.apply(vt, qt, at, w)
+
+
+def masked_softmax_vqa(logits: torch.Tensor,
+                       v_mask: torch.Tensor) -> torch.Tensor:
+    """att [B,V,Q,A,G] = the softmax of ``logits`` over (V,Q,A) per glimpse,
+    masked boxes zeroed (a fully masked sample gives zeros).
+
+    ``logits`` [B,V,Q,A,G] float32, ``v_mask`` [B,V] bool; on CUDA both
+    contiguous."""
+    _check5(logits, "logits")
+    B, V = logits.shape[:2]
+    dev = logits.device
+    _check(v_mask, "v_mask", (B, V), torch.bool, dev)
+    if dev.type == "cpu":
+        return masked_softmax_vqa_ref(logits, v_mask)
+    return _MaskedSoftmaxVQA.apply(logits, v_mask)
+
+
+def softmax_vqa_backward(att: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dl = ``att * (g - sum over (V,Q,A) of g * att)`` per glimpse, the
+    backward of :func:`masked_softmax_vqa` and the first step of K1's.
+    ``att`` and ``g`` [B,V,Q,A,G] float32; on CUDA both contiguous."""
+    _check5(att, "att")
+    _check(g, "g", att.shape, torch.float32, att.device)
+    if att.device.type == "cpu":
+        return softmax_vqa_backward_ref(att, g)
+    return _softmax_backward_kernel(att, g)
+
+
+def trilinear_attention(v_r: torch.Tensor, q_r: torch.Tensor,
+                        a_r: torch.Tensor, T: torch.Tensor,
+                        v_mask: torch.Tensor) -> torch.Tensor:
+    """Logits, then K3 (``vqatpu/kernels/trilinear.py:246-251`` with
+    ``backend="pallas"``)."""
+    return masked_softmax_vqa(attention_logits_ref(v_r, q_r, a_r, T), v_mask)

@@ -1,10 +1,12 @@
 """Free-form open-ended CTI model (``vqatpu/models/ffoe.py:179-330``).
 
-``forward(v, q, a, v_mask)`` takes ``v`` [B, V, v_dim] region features,
-``q`` [B, Q] and ``a`` [B, A] token ids and an optional ``v_mask`` [B, V]
-bool of real boxes, and returns ``(logits [B, num_classes], att
-[B, V, Q, A, G])``.  The blockwise large-V path, ``fused_v_tucker`` and
-``remat_glimpse`` are not ported yet.
+``forward(v, q, a, v_mask, ctx)`` takes ``v`` [B, V, v_dim] region
+features, ``q`` [B, Q] and ``a`` [B, A] token ids, an optional ``v_mask``
+[B, V] bool of real boxes and the training context ``ctx`` (None at eval:
+no dropout), and returns ``(logits [B, num_classes], att [B, V, Q, A,
+G])``.  Dropout sites fire in the order of
+``vqatpu/models/ffoe.py:241-325``.  The blockwise large-V path,
+``fused_v_tucker`` and ``remat_glimpse`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from vqatpu_torch.ops.attention import TriAttention, box_mask_from_features
 from vqatpu_torch.ops.classifier import SimpleClassifier
 from vqatpu_torch.ops.embedding import WordEmbedding
 from vqatpu_torch.ops.linear import FCNet
+from vqatpu_torch.ops.module import Ctx
 from vqatpu_torch.ops.rnn import QuestionEmbedding
 from vqatpu_torch.ops.trilinear import TCNet
 
@@ -49,17 +52,18 @@ class CTIModel(nn.Module):
             self.add_module(f"a_prj{g}", FCNet((H, H), "", 0.2))
 
     def forward(self, v: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
-                v_mask: Optional[torch.Tensor] = None):
+                v_mask: Optional[torch.Tensor] = None,
+                ctx: Optional[Ctx] = None):
         if v_mask is None:
             v_mask = box_mask_from_features(v)
-        q_state = self.q_emb(self.w_emb(q))       # [B, Q, H]
-        a_state = self.ans_emb(self.wa_emb(a))    # [B, A, H]
-        att = self.t_att(v, q_state, a_state, v_mask)  # [B, V, Q, A, G]
+        q_state = self.q_emb(self.w_emb(q, ctx))       # [B, Q, H]
+        a_state = self.ans_emb(self.wa_emb(a, ctx))    # [B, A, H]
+        att, _ = self.t_att(v, q_state, a_state, v_mask, ctx)  # [B,V,Q,A,G]
         for g in range(self.cfg.gamma):
             joint = getattr(self, f"t_net{g}").apply_with_weights(
-                v, q_state, a_state, att[..., g])
+                v, q_state, a_state, att[..., g], ctx)
             joint = joint[:, None, :]
-            q_state = getattr(self, f"q_prj{g}")(joint) + q_state
-            a_state = getattr(self, f"a_prj{g}")(joint) + a_state
+            q_state = getattr(self, f"q_prj{g}")(joint, ctx) + q_state
+            a_state = getattr(self, f"a_prj{g}")(joint, ctx) + a_state
         pooled = q_state.sum(1) + a_state.sum(1)
-        return self.classifier(pooled), att
+        return self.classifier(pooled, ctx), att

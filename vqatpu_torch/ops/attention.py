@@ -3,12 +3,14 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from vqatpu_torch.kernels.trilinear import fused_rank_softmax, precontract_qa
+from vqatpu_torch.kernels.trilinear import (fused_rank_softmax,
+                                            masked_softmax_vqa, precontract_qa)
+from vqatpu_torch.ops.module import Ctx
 from vqatpu_torch.ops.trilinear import TCNet
 
 
@@ -29,10 +31,17 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor,
 
 
 class TriAttention(nn.Module):
-    """TCNet rank projections, then the fused rank-contraction + masked
-    softmax kernel over V*Q*A per glimpse: att [B, V, Q, A, G].  The
-    attention logits are never formed (the JAX package's
-    ``apply(..., return_logits=False)`` under ``kernel_backend="pallas"``)."""
+    """TCNet rank projections, then a masked softmax over V*Q*A per
+    glimpse: att [B, V, Q, A, G].
+
+    ``forward(..., return_logits=False)`` runs the fused rank-contraction
+    + softmax kernel (K1), never forms the logits and returns ``(att,
+    None)``: the model's path.  ``return_logits=True`` forms the logits
+    with the plain einsum chain, runs the masked softmax kernel (K3) and
+    returns ``(att, masked_logits)`` with masked boxes at -inf, as the JAX
+    package's ``apply`` does under ``kernel_backend="pallas"``.  The JAX
+    default is ``return_logits=True``; the port's is False, the serving
+    path."""
 
     def __init__(self, v_dim: int, q_dim: int, a_dim: int, h_dim: int,
                  h_out: int, rank: int, glimpse: int, k: int,
@@ -41,8 +50,15 @@ class TriAttention(nn.Module):
         self.tc = TCNet(v_dim, q_dim, a_dim, h_dim, h_out, rank, glimpse,
                         dropout=dropout, k=k)
 
-    def forward(self, v, q, a, v_mask=None) -> torch.Tensor:
+    def forward(self, v, q, a, v_mask=None, ctx: Optional[Ctx] = None,
+                return_logits: bool = False):
         if v_mask is None:
             v_mask = box_mask_from_features(v)
-        v_r, q_r, a_r, T = self.tc.rank_projections(v, q, a)
-        return fused_rank_softmax(v_r, precontract_qa(q_r, a_r, T), v_mask)
+        if not return_logits:
+            v_r, q_r, a_r, T = self.tc.rank_projections(v, q, a, ctx)
+            att = fused_rank_softmax(v_r, precontract_qa(q_r, a_r, T), v_mask)
+            return att, None
+        logits = self.tc(v, q, a, ctx)
+        att = masked_softmax_vqa(logits, v_mask)
+        mask5 = v_mask[:, :, None, None, None]
+        return att, logits.masked_fill(~mask5, float("-inf"))

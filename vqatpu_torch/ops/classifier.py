@@ -3,12 +3,14 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from vqatpu_torch.ops.activation import get_activation
 from vqatpu_torch.ops.linear import WNLinear
-from vqatpu_torch.ops.module import dropout
+from vqatpu_torch.ops.module import Ctx, dropout
 
 
 class SimpleClassifier(nn.Module):
@@ -20,6 +22,7 @@ class SimpleClassifier(nn.Module):
         self.l1 = WNLinear(in_dim, hid_dim)
         self.l2 = WNLinear(hid_dim, out_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                ctx: Optional[Ctx] = None) -> torch.Tensor:
         h = get_activation(self.activation)(self.l1(x))
-        return self.l2(dropout(h, self.dropout, self.training))
+        return self.l2(dropout(h, self.dropout, ctx))

@@ -7,10 +7,12 @@ in the JAX package, so they read zeros whatever the stored pad row holds.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from vqatpu_torch.ops.module import dropout
+from vqatpu_torch.ops.module import Ctx, dropout
 
 
 class WordEmbedding(nn.Module):
@@ -34,9 +36,10 @@ class WordEmbedding(nn.Module):
     def out_dim(self) -> int:
         return self.emb.shape[1] * (2 if self.cat else 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                ctx: Optional[Ctx] = None) -> torch.Tensor:
         out_mask = (x != self.ntoken).to(self.emb.dtype)[..., None]
         emb = self.emb[x] * out_mask
         if self.cat:
             emb = torch.cat([emb, self.emb_[x] * out_mask], dim=-1)
-        return dropout(emb, self.dropout, self.training)
+        return dropout(emb, self.dropout, ctx)

@@ -2,23 +2,25 @@
 
 Tucker FCNets project v, q and a to ``d = h_dim * k``.  In the attention
 regime (``d < 1024`` and not ``joint_only``) stacked per-rank nets project
-each to [rank, h_sub], and the PARALIND core ``T_g`` joins them;
-:meth:`TCNet.apply_with_weights` is the weighted trilinear pool that the
-CTI joint embedding uses.
+each to [rank, h_sub], and the PARALIND core ``T_g`` joins them.
+:meth:`TCNet.forward` gives the attention logits [B, V, Q, A, G], and
+:meth:`TCNet.apply_with_weights` is the weighted trilinear pool that the CTI
+joint embedding uses.  Every method takes the training context ``ctx``
+(:mod:`vqatpu_torch.ops.module`), None at eval.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vqatpu_torch.kernels.trilinear import trilinear_pool
+from vqatpu_torch.kernels.trilinear import attention_logits_ref, trilinear_pool
 from vqatpu_torch.ops.activation import get_activation
-from vqatpu_torch.ops.linear import FCNet, uniform_
-from vqatpu_torch.ops.module import dropout
+from vqatpu_torch.ops.linear import FCNet, frobenius, uniform_
+from vqatpu_torch.ops.module import Ctx, dropout
 
 RANK_NET_GATE = 1024  # reference `if self.h_dim < 1024` (tc.py:27)
 
@@ -31,15 +33,18 @@ class _RankLinear(nn.Module):
         super().__init__()
         bound = 1.0 / (d ** 0.5)
         self.v = nn.Parameter(uniform_(torch.empty(rank, h_sub, d), bound))
-        self.g = nn.Parameter(self.v.detach().flatten(1).norm(dim=1))
+        self.g = nn.Parameter(frobenius(self.v.detach().flatten(1), 1))
         self.b = nn.Parameter(uniform_(torch.empty(rank, h_sub), bound))
 
 
 class RankNets(nn.Module):
     """All rank nets of one stream as ONE [d, rank*h_sub] GEMM, with the
     per-rank Frobenius scales applied to the output columns
-    (``vqatpu/ops/trilinear.py:143-185``, the fused branch): x [B, N, d] ->
-    [B, N, rank, h_sub]."""
+    (``vqatpu/ops/trilinear.py:143-185``): x [B, N, d] -> [B, N, rank,
+    h_sub].  Dropout draws one mask that all ranks share, as the JAX
+    package does.  Under injected masks (``ctx.mask_source``) each rank
+    takes its own mask, in rank order (``vqatpu/ops/trilinear.py:169-177``).
+    """
 
     def __init__(self, rank: int, d: int, h_sub: int, act: str, drop: float):
         super().__init__()
@@ -47,13 +52,19 @@ class RankNets(nn.Module):
         self.drop = drop
         self.l0 = _RankLinear(rank, d, h_sub)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                ctx: Optional[Ctx] = None) -> torch.Tensor:
         p = self.l0
         R, h_sub, d = p.v.shape
-        scale = (p.g / p.v.flatten(1).norm(dim=1)).repeat_interleave(h_sub)
-        x = dropout(x, self.drop, self.training)
-        out = get_activation(self.act)(
-            F.linear(x, p.v.reshape(R * h_sub, d)) * scale + p.b.reshape(-1))
+        act = get_activation(self.act)
+        scale = p.g / frobenius(p.v.flatten(1), 1)
+        if ctx is not None and ctx.mask_source is not None:
+            return torch.stack([
+                act(F.linear(dropout(x, self.drop, ctx), p.v[r]) * scale[r]
+                    + p.b[r]) for r in range(R)], dim=-2)
+        x = dropout(x, self.drop, ctx)
+        out = act(F.linear(x, p.v.reshape(R * h_sub, d))
+                  * scale.repeat_interleave(h_sub) + p.b.reshape(-1))
         return out.reshape(*x.shape[:-1], R, h_sub)
 
 
@@ -79,19 +90,29 @@ class TCNet(nn.Module):
             self.T_g = nn.Parameter(
                 torch.randn(rank, h, h, h, glimpse, self.ho_dim))
 
-    def rank_projections(self, v, q, a):
+    def rank_projections(self, v, q, a, ctx: Optional[Ctx] = None):
         """-> (v_r [B,V,R,x], q_r, a_r, T [R,x,y,z,G]), the operands of the
-        PARALIND contraction."""
+        PARALIND contraction.  Dropout fires in the JAX order: the three
+        tuckers, then the three rank nets."""
         if not self.has_rank_nets:
             raise ValueError("rank projections need the rank-net regime")
-        v_r = self.v_net(self.v_tucker(v))
-        q_r = self.q_net(self.q_tucker(q))
-        a_r = self.a_net(self.a_tucker(a))
+        v_t = self.v_tucker(v, ctx)
+        q_t = self.q_tucker(q, ctx)
+        a_t = self.a_tucker(a, ctx)
+        v_r = self.v_net(v_t, ctx)
+        q_r = self.q_net(q_t, ctx)
+        a_r = self.a_net(a_t, ctx)
         T = self.T_g[..., 0] if self.ho_dim == 1 else self.T_g.sum(-1)
         return v_r, q_r, a_r, T
 
-    def apply_with_weights(self, v, q, a, w) -> torch.Tensor:
+    def forward(self, v, q, a, ctx: Optional[Ctx] = None) -> torch.Tensor:
+        """Attention logits [B, V, Q, A, G] (``vqatpu/ops/trilinear.py:
+        205-215``) through the plain einsum chain."""
+        return attention_logits_ref(*self.rank_projections(v, q, a, ctx))
+
+    def apply_with_weights(self, v, q, a, w,
+                           ctx: Optional[Ctx] = None) -> torch.Tensor:
         """Joint embedding with attention ``w`` [B, V, Q, A] -> [B, d]
         (``tc.py:54-61``), through the trilinear pool kernel."""
-        return trilinear_pool(self.v_tucker(v), self.q_tucker(q),
-                              self.a_tucker(a), w)
+        return trilinear_pool(self.v_tucker(v, ctx), self.q_tucker(q, ctx),
+                              self.a_tucker(a, ctx), w)

@@ -32,14 +32,8 @@ import torch
 
 from vqatpu_torch.config import ModelConfig
 from vqatpu_torch.models import build_model
+from vqatpu_torch.numerics import check_f32_math, require_f32_math
 from vqatpu_torch.weights import load_jax_params, load_params_file
-
-
-def require_f32_math() -> None:
-    """Turn TF32 off for float32 GEMMs (cuBLAS) and cuDNN (the GRU), whose
-    default is on."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 class InferenceSession:
@@ -114,10 +108,7 @@ class InferenceSession:
         ap[:n] = a
         dev = self.device
         with self._lock, torch.inference_mode():
-            if (torch.backends.cuda.matmul.allow_tf32
-                    or torch.backends.cudnn.allow_tf32):
-                raise RuntimeError("TF32 was turned back on; the serving "
-                                   "path computes in float32")
+            check_f32_math("serving path")
             logits, _ = self.model(torch.from_numpy(vp).to(dev),
                                    torch.from_numpy(qp).to(dev),
                                    torch.from_numpy(ap).to(dev),

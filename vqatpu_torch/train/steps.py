@@ -1,0 +1,241 @@
+"""Train and eval steps (``vqatpu/train/steps.py:29-353``), the
+reference's ``Trainer`` hot loop (``FFOE/trainer.py:97-272``).
+
+- :func:`make_train_state` freezes the GloVe copy ``emb_`` unless
+  ``tfidf_loaded`` (``requires_grad_(False)``: no gradient, no Adamax state,
+  no update, nothing in the clip norm; ``steps.py:54-71, 92-96``) and builds
+  the optimizer over the other parameters.
+- :func:`make_train_step` returns ``step(state, batch, lr, generator,
+  force_update=False) -> metrics``.  The loss is ``bce_with_logits_sum /
+  B``.  Each microbatch's gradients are taken with ``torch.autograd.grad``
+  and added to explicit buffers, so that ``skip_nonfinite`` can drop one
+  non-finite microbatch (a zero gradient, cadence unchanged).  Every
+  ``update_freq``-th microbatch, or on ``force_update``, the summed
+  gradients are divided by the microbatch count, clipped to ``clip_norm``
+  by their global norm and applied by Adamax.  The metrics (``loss``, the
+  pre-clip ``grad_norm``, 0 on a step that does not update,
+  ``batch_score``, ``updated``, ``skipped``) are tensors on the model's
+  device: the step never waits for the card.
+- ``deterministic=True`` turns dropout off; otherwise dropout draws from
+  the step's ``generator`` (a ``torch.Generator`` on the model's device),
+  or from the masks of ``ctx_factory``'s :class:`~vqatpu_torch.ops.module.
+  MaskSource`.
+
+The update cadence is decided on the host (the microbatch count is known
+there), where the JAX step uses ``lax.cond``.  Compute is float32 with TF32
+off for cuBLAS and cuDNN, as in serving (:mod:`vqatpu_torch.numerics`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Union
+
+import torch
+from torch import nn
+
+from vqatpu_torch.config import TrainConfig
+from vqatpu_torch.numerics import check_f32_math, require_f32_math
+from vqatpu_torch.ops.losses import bce_with_logits_sum
+from vqatpu_torch.ops.module import Ctx
+from vqatpu_torch.train.optim import Adamax, clip_flat_grads
+from vqatpu_torch.weights import load_jax_params, numpy_params
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: Adamax
+    grad_accum: Optional[List[torch.Tensor]] = None  # summed microbatch grads
+    accum_count: int = 0  # microbatches buffered since the last update
+    step: int = 0  # optimizer updates taken
+
+
+def compute_score_with_logits(logits: torch.Tensor,
+                              target: torch.Tensor) -> torch.Tensor:
+    """VQA soft accuracy: the target's score at the argmax, summed
+    (``FFOE/train.py:16-21``)."""
+    return target.gather(1, logits.argmax(1, keepdim=True)).sum()
+
+
+def densify_target(batch: dict, n_ans: int) -> dict:
+    """Sparse ``t_label`` [B, K] / ``t_score`` [B, K] -> dense ``target``
+    [B, n_ans] (``steps.py:152-170``).  Each label of a row is distinct, so
+    every column receives at most one nonzero score; the zero-score pads add
+    0 to column 0.  Bit-identical to the host-dense target."""
+    if "t_label" not in batch:
+        return batch
+    batch = dict(batch)
+    lab = torch.as_tensor(batch.pop("t_label")).long()
+    sc = torch.as_tensor(batch.pop("t_score")).float()
+    target = torch.zeros(lab.shape[0], n_ans, dtype=torch.float32,
+                         device=lab.device)
+    batch["target"] = target.scatter_add_(1, lab, sc.to(lab.device))
+    return batch
+
+
+def _on_device(batch: dict, dev: torch.device) -> dict:
+    out = {}
+    for k, x in batch.items():
+        x = torch.as_tensor(x).to(dev)
+        out[k] = x.long() if k in ("q", "a") else x
+    return out
+
+
+_STATE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def make_train_state(model: nn.Module, seed: Optional[int] = None,
+                     tfidf_loaded: bool = False,
+                     optim_state_dtype: str = "float32",
+                     device: Union[str, torch.device] = "cuda") -> TrainState:
+    """Move ``model`` to ``device`` and build its optimizer, whose Adamax
+    state is stored in ``optim_state_dtype`` (the step's
+    ``TrainConfig.optim_state_dtype`` must name the same).  ``seed`` draws
+    fresh weights with :func:`vqatpu_torch.weights.numpy_params` (the
+    counterpart of the JAX ``model.init(key)``); None keeps the model's
+    weights."""
+    if optim_state_dtype not in _STATE_DTYPES:
+        raise ValueError(f"unknown optim_state_dtype {optim_state_dtype!r}")
+    model = model.to(device)
+    if seed is not None:
+        load_jax_params(model, numpy_params(model.cfg, seed))
+    for name, p in model.named_parameters():
+        p.requires_grad_(tfidf_loaded or name.split(".")[-1] != "emb_")
+    params = [p for p in model.parameters() if p.requires_grad]
+    # cuDNN's GRU backward needs train mode; dropout follows the Ctx alone
+    model.train()
+    return TrainState(model, Adamax(
+        params, state_dtype=_STATE_DTYPES[optim_state_dtype]))
+
+
+def make_train_step(model: nn.Module, cfg: TrainConfig,
+                    tfidf_loaded: bool = False, mc_scoring: bool = False,
+                    ctx_factory: Optional[Callable[[], Ctx]] = None):
+    """Build the train step for ``model``, after :func:`make_train_state`
+    has frozen its parameters with the same ``tfidf_loaded`` and built its
+    optimizer with ``cfg.optim_state_dtype`` (see the module docstring; the
+    step raises on a state with other Adamax storage).  ``ctx_factory``
+    (zero-argument -> :class:`Ctx`) replaces the step's own context: the
+    mask-injection hook of the parity tests."""
+    if cfg.compute_dtype != "float32" or cfg.transfer_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r}, transfer_dtype="
+            f"{cfg.transfer_dtype!r}: only float32 is ported (ROADMAP queue "
+            "A item 2)")
+    if cfg.distillation:
+        raise NotImplementedError(
+            "distillation is not ported (ROADMAP queue A item 5)")
+    if cfg.mask_replay:
+        raise NotImplementedError(
+            "mask_replay is not ported: autograd keeps the dropout mask "
+            "(ROADMAP queue A item 1)")
+    if mc_scoring:
+        raise NotImplementedError(
+            "MC scoring is not ported (ROADMAP queue A item 7)")
+    if any(p.requires_grad != tfidf_loaded for n, p in model.named_parameters()
+           if n.split(".")[-1] == "emb_"):
+        raise ValueError(f"the GloVe copy emb_ is not frozen as tfidf_loaded="
+                         f"{tfidf_loaded} asks; build the state with "
+                         "make_train_state first, with the same tfidf_loaded")
+    if cfg.optim_state_dtype not in _STATE_DTYPES:
+        raise ValueError(f"unknown optim_state_dtype {cfg.optim_state_dtype!r}")
+    state_dtype = _STATE_DTYPES[cfg.optim_state_dtype]
+    require_f32_math()
+    n_ans = model.cfg.num_ans_candidates
+
+    def apply_update(state: TrainState, grads, lr, count: int) -> torch.Tensor:
+        if count > 1:
+            grads = torch._foreach_div(grads, float(count))
+        grads, norm = clip_flat_grads(grads, cfg.clip_norm)
+        state.optimizer.step(grads, lr)
+        state.step += 1
+        return norm
+
+    def step(state: TrainState, batch: dict, lr: Union[float, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             force_update: bool = False) -> Dict[str, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step's")
+        if state.optimizer.state_dtype != state_dtype:
+            raise ValueError(
+                f"optim_state_dtype={cfg.optim_state_dtype!r}, but the state's "
+                f"Adamax stores {state.optimizer.state_dtype or 'float32'}; "
+                "build it with make_train_state(optim_state_dtype="
+                f"{cfg.optim_state_dtype!r})")
+        check_f32_math("training step")
+        if not model.training:
+            model.train()
+        params = state.optimizer.params
+        dev = params[0].device
+        batch = densify_target(_on_device(batch, dev), n_ans)
+        ctx = (ctx_factory() if ctx_factory is not None else
+               Ctx(train=not cfg.deterministic, generator=generator,
+                   mask_bits=cfg.mask_bits))
+        logits, _ = model(batch["v"], batch["q"], batch["a"],
+                          batch.get("v_mask"), ctx)
+        target = batch["target"].float()
+        loss = bce_with_logits_sum(logits, target) / logits.shape[0]
+        grads = list(torch.autograd.grad(loss, params))
+        loss = loss.detach()
+        finite = torch.isfinite(loss)
+        if cfg.skip_nonfinite:
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = [torch.where(finite, g, zero) for g in grads]
+
+        if cfg.update_freq == 1:
+            count = 1
+            grad_norm = apply_update(state, grads, lr, 1)
+        else:
+            if state.grad_accum is None:
+                state.grad_accum = grads
+            else:
+                torch._foreach_add_(state.grad_accum, grads)
+            state.accum_count += 1
+            count = state.accum_count
+            if force_update or count >= cfg.update_freq:
+                grad_norm = apply_update(state, state.grad_accum, lr, count)
+                state.grad_accum, state.accum_count = None, 0
+            else:
+                grad_norm = torch.zeros((), dtype=torch.float32, device=dev)
+        updated = int(force_update or count >= cfg.update_freq)
+        return {
+            "loss": loss,
+            "grad_norm": grad_norm,
+            "batch_score": compute_score_with_logits(logits.detach(), target),
+            "updated": torch.full((), updated, dtype=torch.int32, device=dev),
+            "skipped": ((~finite) & cfg.skip_nonfinite).to(torch.int32),
+        }
+
+    return step
+
+
+def make_eval_step(model: nn.Module, mc_scoring: bool = False,
+                   compute_dtype: str = "float32"):
+    """Eval (``steps.py:321-353``): ``eval_step(batch)`` -> ``logits`` and,
+    where the batch has a ``target``, the soft ``score`` and its
+    ``upper_bound``, as tensors on the model's device.  Zero-padded rows add
+    0 to both."""
+    if compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r}: only float32 is ported "
+            "(ROADMAP queue A item 2)")
+    if mc_scoring:
+        raise NotImplementedError(
+            "MC scoring is not ported (ROADMAP queue A item 7)")
+    require_f32_math()
+
+    def eval_step(batch: dict) -> Dict[str, torch.Tensor]:
+        check_f32_math("eval step")
+        dev = next(model.parameters()).device
+        with torch.inference_mode():
+            b = _on_device(batch, dev)
+            logits, _ = model(b["v"], b["q"], b["a"], b.get("v_mask"))
+            out = {"logits": logits}
+            if "target" in b:
+                target = b["target"].float()
+                out["score"] = compute_score_with_logits(logits, target)
+                out["upper_bound"] = target.max(dim=1).values.sum()
+        return out
+
+    return eval_step

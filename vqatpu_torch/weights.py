@@ -7,6 +7,8 @@
   whose ``fwd.w_ih`` / ``fwd_l{n}.w_ih`` (and ``w_hh``, ``b_ih``, ``b_hh``)
   leaves become ``nn.GRU``'s ``weight_ih_l{n}`` (...) parameters
   (``q_emb.fwd.w_ih`` -> ``q_emb.weight_ih_l0``).
+- :func:`jax_params_from_torch` is its inverse: a ``state_dict`` back to
+  a ``vqatpu`` param tree with numpy leaves.
 - :func:`load_jax_params` loads such a tree strictly: a leaf left unused, a
   parameter left unset or a shape that differs raises.
 - :func:`load_params_file` reads a ``model_epoch{N}.ckpt`` or a
@@ -14,6 +16,8 @@
 - :func:`numpy_params` and :func:`numpy_batch` make seeded CTI weights (in
   the JAX tree layout) and inputs with numpy, so both packages can be fed
   the same numbers.
+- :func:`param_stats` fingerprints a param tree (per-leaf norms and sums)
+  for trajectories compared across devices and packages.
 """
 
 from __future__ import annotations
@@ -59,6 +63,31 @@ def torch_state_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """``vqatpu`` param tree -> the port's ``state_dict`` (float32)."""
     return {_torch_key(path): torch.from_numpy(np.array(leaf, np.float32))
             for path, leaf in _flatten(params).items()}
+
+
+_GRU_NAMES = {v: k for k, v in _GRU_LEAVES.items()}
+
+
+def _jax_path(key: str) -> str:
+    *module, leaf = key.split(".")
+    name, _, layer = leaf.rpartition("_l")
+    if name not in _GRU_NAMES:
+        return key
+    direction = "fwd" if layer == "0" else f"fwd_l{layer}"
+    return ".".join([*module, direction, _GRU_NAMES[name]])
+
+
+def jax_params_from_torch(state_dict: Dict[str, torch.Tensor]) -> dict:
+    """The port's ``state_dict`` -> a ``vqatpu`` param tree with numpy
+    float32 leaves: the inverse of :func:`torch_state_from_jax`."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        *parents, leaf = _jax_path(key).split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value.detach().cpu().numpy().astype(np.float32)
+    return tree
 
 
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
@@ -172,14 +201,32 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
 
 
 def numpy_batch(cfg: ModelConfig, n: int, seed: int = 0, boxes: int = 50,
-                real_boxes: int = 44, q_len: int = 12,
-                a_len: int = 3) -> Dict[str, np.ndarray]:
+                real_boxes: int = 44, q_len: int = 12, a_len: int = 3,
+                target: bool = False) -> Dict[str, np.ndarray]:
     """Seeded CTI inputs: ``v`` [n, boxes, v_dim] float32 with the boxes
     from ``real_boxes`` on zero (padding), ``q`` [n, q_len] and ``a``
-    [n, a_len] int64 tokens in [0, ntoken] (ntoken is the pad token)."""
+    [n, a_len] int64 tokens in [0, ntoken] (ntoken is the pad token); with
+    ``target``, a soft ``target`` [n, num_classes] float32 in [0, 1)."""
     rs = np.random.RandomState(seed)
     v = rs.randn(n, boxes, cfg.v_dim).astype(np.float32)
     v[:, real_boxes:] = 0.0
     q = rs.randint(0, cfg.ntoken + 1, (n, q_len)).astype(np.int64)
     a = rs.randint(0, cfg.ntoken + 1, (n, a_len)).astype(np.int64)
-    return {"v": v, "q": q, "a": a}
+    batch = {"v": v, "q": q, "a": a}
+    if target:
+        batch["target"] = rs.rand(n, cfg.num_classes).astype(np.float32)
+    return batch
+
+
+def param_stats(params: dict) -> Dict[str, np.ndarray]:
+    """Per-leaf ``l2`` norm, ``sum`` and ``l1`` norm (float64) of a
+    ``vqatpu`` param tree, with the leaves' dotted ``names`` in sorted
+    order: a compact fingerprint of the weights, for trajectories compared
+    across devices and packages."""
+    flat = _flatten(params)
+    names = sorted(flat)
+    leaves = [np.asarray(flat[n], np.float64) for n in names]
+    return {"names": np.array(names),
+            "l2": np.array([np.sqrt((x * x).sum()) for x in leaves]),
+            "sum": np.array([x.sum() for x in leaves]),
+            "l1": np.array([np.abs(x).sum() for x in leaves])}
