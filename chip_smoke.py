@@ -8,15 +8,18 @@ them caught, so any failure exits non-zero:
 2. build the CUDA kernels from ``vqatpu_torch/kernels/csrc`` (``nvcc``);
 3. hold each kernel against its plain PyTorch version on the card, at the
    inputs the full-width CTI model gives it at batch 1 and 128 (V=50, 44
-   real boxes, the last row fully masked), and on ragged large-V inputs;
-   then the forwards and gradients of the three ``autograd.Function``s
-   (K1, K2, K3) against their plain versions and autograd through them, at
-   the model's inputs for batch 256 and on ragged large-V inputs;
+   real boxes, the last row fully masked), on ragged large-V inputs, and
+   at the edges of K1's and K2's tiles (V one past a tile, 1 and 3
+   glimpses, D not a multiple of K2's d span); then the forwards and
+   gradients of the three ``autograd.Function``s (K1, K2, K3) against
+   their plain versions and autograd through them, at the model's inputs
+   for batch 256 and on ragged large-V inputs;
 4. time each kernel, its plain version and one PyTorch yardstick with CUDA
-   events (median of 30 runs, L2 flushed before each), beside the card's
-   bound for the same work: K1 and K2 at the serving bucket B=128; K3, the
-   softmax backward, and K1 and K2 forward+backward at the training batch
-   B=256;
+   events (median of 30 runs, L2 flushed before each, the card asleep
+   while the host enqueues the call), beside the card's bound for the same
+   work: K1 and K2 forward at the serving bucket B=128 and at the training
+   batch B=256; K3, the softmax backward, and K1 and K2 forward+backward
+   at B=256;
 5. serve the full-width CTI model (bench.py's config, seeded weights) over
    HTTP on the card: JSON and npz ``/answer`` and ``/logits`` requests of
    1, 5 and 40 rows; check the answers against the logits, the logits
@@ -89,26 +92,6 @@ def peaks_for(name: str):
     raise SystemExit(f"no published peaks for {name!r} in chip_smoke.PEAKS")
 
 
-def time_ms(fn, flush: torch.Tensor, runs: int = 30) -> float:
-    """Median device time of ``fn`` in ms, cold L2: each run flushes the L2
-    and parks the card in a short sleep, so the launch is queued before the
-    start event and host overhead stays out of the window."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(runs):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(1_000_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def post(port: int, path: str, payload, npz: bool = False):
     if npz:
         buf = io.BytesIO()
@@ -135,6 +118,7 @@ def main() -> int:
     from vqatpu_torch.data import Dictionary
     from vqatpu_torch.kernels import build
     from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.kernels.timing import sleep_cycles_per_ms, time_ms
     from vqatpu_torch.models import build_model
     from vqatpu_torch.numerics import require_f32_math
     from vqatpu_torch.serve import InferenceSession
@@ -198,12 +182,16 @@ def main() -> int:
     def k2_of(d):
         return d["vt"], d["qt"], d["at"], d["att"][..., 0]
 
-    def ragged_inputs(b: int, v_len: int, seed: int):
+    def ragged_inputs(b: int, v_len: int, seed: int, G: int = 2, D: int = 1024):
+        """Random inputs of K1, K2 and K3 with ragged box counts; with b > 1
+        the last sample is fully masked, with b = 1 all its boxes are real."""
         g = torch.Generator().manual_seed(seed)
-        R, X, G, D = 32, 16, 2, 1024
+        R, X = 32, 16
         lens = torch.randint(1, v_len + 1, (b,), generator=g)
+        if b == 1:
+            lens[0] = v_len
         mask = torch.arange(v_len)[None] < lens[:, None]
-        mask[-1] = False
+        mask[-1] &= b == 1
         v_r = torch.randn(b, v_len, R, X, generator=g)
         tqa = torch.randn(b, Q, A, R, X, G, generator=g) / (R * X) ** 0.5
         att = torch.rand(b, v_len, Q, A, G, generator=g)
@@ -212,12 +200,12 @@ def main() -> int:
                                     torch.randn(b, A, D, generator=g))]
         # one glimpse of the attention, strided, as the model passes it
         att = att.to(dev)
-        pool.append(att[..., 1])
+        pool.append(att[..., -1])
         logits = 3 * torch.randn(b, v_len, Q, A, G, generator=g)
         return ([t.to(dev) for t in (v_r, tqa, mask)], pool,
                 (logits.to(dev), mask.to(dev)), att)
 
-    def check(label, k1_args, k2_args):
+    def check_k1(label, k1_args):
         got = K.fused_rank_softmax(*k1_args)
         want = K.fused_rank_softmax_ref(*k1_args)
         torch.cuda.synchronize()
@@ -227,6 +215,11 @@ def main() -> int:
         ok1 = e1 <= K1_TOL and masked_max == 0.0 and bool(got.isfinite().all())
         print(f"K1 {label}: max_abs_err {e1:.3e} (tol {K1_TOL:.0e}), "
               f"{int(masked.sum())} fully masked rows, max there {masked_max}")
+        if not ok1:
+            raise SystemExit(f"K1 disagrees with its plain version: {label}")
+        return e1
+
+    def check_k2(label, k2_args):
         got2 = K.trilinear_pool(*k2_args)
         want2 = K.trilinear_pool_ref(*k2_args)
         torch.cuda.synchronize()
@@ -234,9 +227,12 @@ def main() -> int:
         tol2 = K2_REL_TOL * want2.abs().max().item()
         print(f"K2 {label}: max_abs_err {e2:.3e} (tol {tol2:.3e} = "
               f"{K2_REL_TOL:.0e} x max|ref|)")
-        if not (ok1 and e2 <= tol2):
-            raise SystemExit(f"kernel disagrees with its plain version: {label}")
-        return e1, e2
+        if not (e2 <= tol2 and bool(got2.isfinite().all())):
+            raise SystemExit(f"K2 disagrees with its plain version: {label}")
+        return e2
+
+    def check(label, k1_args, k2_args):
+        return check_k1(label, k1_args), check_k2(label, k2_args)
 
     def check3(label, logits, mask):
         """K3 and the softmax backward kernel against their plain versions;
@@ -271,6 +267,17 @@ def main() -> int:
             errs3[n] = check3(f"B={n} V={V}", d["logits"], d["mask"])
         check("ragged V=2048 (K1) / V=293 (K2)", k1_big, k2_big)
         errs3["big"] = check3("ragged V=2048", *k3_big)
+        # the tiles' edges (tests/test_torch_kernels.py holds the plain
+        # versions to JAX at the same shapes): one row past K1's V tile,
+        # 56 rows at Q*A=36 and 2 glimpses, 64 at 1 or 3 (its 1-glimpse
+        # instances); one box row past K2's 4-row ring stages, D off its
+        # 256-d span
+        for n, v_edge, G_ in ((1, 57, 2), (2, 65, 1), (2, 65, 3)):
+            k1_edge = ragged_inputs(n, v_edge, seed=20 + G_, G=G_)[0]
+            check_k1(f"edge B={n} V={v_edge} G={G_}", k1_edge)
+        for n, v_edge, d_edge in ((1, 65, 96), (2, 9, 352)):
+            k2_edge = ragged_inputs(n, v_edge, seed=30 + n, D=d_edge)[1]
+            check_k2(f"edge B={n} V={v_edge} D={d_edge}", k2_edge)
 
     def grad_check(label, names, fn, ref, args, cot, fwd_tol):
         """The forward and the gradients of ``fn`` (the kernel's
@@ -330,15 +337,17 @@ def main() -> int:
         beside the card's bound; with ``row`` = (source, replaces, err), the
         kernel's row of the JSON line."""
         t_bytes, t_flops = nbytes / peak_bw * 1e3, flops / peak_f32 * 1e3
-        r = {"ms": time_ms(fn, flush), "plain_ms": time_ms(plain, flush),
-             "bound_ms": max(t_bytes, t_flops),
+        (ms, host), (plain_ms, plain_host), (lib_ms, lib_host) = (
+            time_ms(f, flush, cycles_per_ms) for f in (fn, plain, lib))
+        r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_flops),
              "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-             "library_ms": time_ms(lib, flush)}
-        print(f"{name} {label}: {r['ms'] * 1e3:.1f} us, plain "
-              f"{r['plain_ms'] * 1e3:.1f} us, library "
-              f"{r['library_ms'] * 1e3:.1f} us, bound "
+             "library_ms": lib_ms}
+        print(f"{name} {label}: {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} "
+              f"us, library {lib_ms * 1e3:.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
-              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); host enqueue "
+              f"{host * 1e3:.1f} / {plain_host * 1e3:.1f} / "
+              f"{lib_host * 1e3:.1f} us")
         if row is None:
             return r
         src, line, err = row
@@ -352,44 +361,63 @@ def main() -> int:
     mask_flat = d["mask"].repeat_interleave(Q * A, 1)[..., None]
     cot = cotangent(d["att"].shape, 4)
     flush = torch.empty(128 * 2**20 // 4, device=dev)  # > the 50 MB L2
-    with torch.inference_mode():
-        # -- 4. times at the serving bucket B=128 --------------------------
-        d128 = path_inputs(128, seed=138, pad_row=True)
-        k1_args, k2_args = k1_of(d128), k2_of(d128)
-        v_r, tqa, mask = k1_args
-        B, G = v_r.shape[0], tqa.shape[-1]
-        RX, QA = v_r.shape[2] * v_r.shape[3], Q * A
-        vt, qt, at, w = k2_args
-        D = vt.shape[-1]
+    cycles_per_ms = sleep_cycles_per_ms()
+    f32, QA = 4, Q * A
 
-        def k1_library():
-            # one bmm, then a masked softmax over the flattened (V, Q, A)
-            lg = torch.bmm(v_r.reshape(B, V, RX),
-                           tqa.permute(0, 3, 4, 1, 2, 5).reshape(B, RX, QA * G))
-            lg = lg.reshape(B, V * QA, G).masked_fill(
-                ~mask.repeat_interleave(QA, 1)[..., None], float("-inf"))
-            return torch.softmax(lg, dim=1)
+    def k1_cost(v_r, tqa, mask):
+        """Bytes (inputs read once, att written once) and FLOP of K1."""
+        B_, V_, R_, X_ = v_r.shape
+        G_ = tqa.shape[-1]
+        return ((v_r.numel() + tqa.numel() + B_ * V_ * QA * G_) * f32
+                + mask.numel(), 2 * B_ * G_ * V_ * R_ * X_ * QA)
 
-        f32 = 4
-        k1_bytes = (v_r.numel() + tqa.numel() + B * V * QA * G) * f32 + mask.numel()
-        k1_flops = 2 * B * G * V * RX * QA
-        k2_bytes = (vt.numel() + qt.numel() + at.numel() + B * V * QA + B * D) * f32
-        k2_flops = 2 * B * V * A * (Q + 1) * D + 2 * B * A * D
-        rows = [
-            timed("fused_rank_softmax", f"B={B}",
+    def k2_cost(vt, qt, at, w):
+        """Bytes and FLOP of K2, in its order: V first, then Q, then A."""
+        B_, V_, D_ = vt.shape
+        return ((vt.numel() + qt.numel() + at.numel() + B_ * V_ * QA + B_ * D_)
+                * f32, 2 * B_ * D_ * (V_ * QA + QA + A))
+
+    def k1_library(v_r, tqa, mask):
+        """One bmm, then a masked softmax over the flattened (V, Q, A)."""
+        B_, V_, R_, X_ = v_r.shape
+        G_ = tqa.shape[-1]
+        keep = mask.repeat_interleave(QA, 1)[..., None]
+
+        def run():
+            lg = torch.bmm(v_r.reshape(B_, V_, R_ * X_), tqa.permute(
+                0, 3, 4, 1, 2, 5).reshape(B_, R_ * X_, QA * G_))
+            return torch.softmax(lg.reshape(B_, V_ * QA, G_).masked_fill(
+                ~keep, float("-inf")), dim=1)
+        return run
+
+    def time_forwards(k1_args, k2_args, label, rows=None):
+        """K1 and K2 forward beside their plain versions, their library
+        yardsticks (for K2 the einsum chain of its plain version) and their
+        bounds; with ``rows``, as the kernels' rows of the JSON line."""
+        return (
+            timed("fused_rank_softmax", label,
                   lambda: K.fused_rank_softmax(*k1_args),
-                  lambda: K.fused_rank_softmax_ref(*k1_args), k1_library,
-                  k1_bytes, k1_flops, flush,
-                  row=("rank_softmax.cu", "vqatpu/kernels/trilinear.py:303",
-                       max(errs[1][0], errs[128][0]))),
-            timed("trilinear_pool", f"B={B}",
+                  lambda: K.fused_rank_softmax_ref(*k1_args),
+                  k1_library(*k1_args), *k1_cost(*k1_args), flush,
+                  row=None if rows is None else rows[0]),
+            timed("trilinear_pool", label,
                   lambda: K.trilinear_pool(*k2_args),
                   lambda: K.trilinear_pool_ref(*k2_args),
                   lambda: K.trilinear_pool_ref(*k2_args),
-                  k2_bytes, k2_flops, flush,
-                  row=("tri_pool.cu", "vqatpu/kernels/trilinear.py:369",
-                       max(errs[1][1], errs[128][1])))]
-        del d128, k1_args, k2_args, v_r, tqa, mask, vt, qt, at, w
+                  *k2_cost(*k2_args), flush,
+                  row=None if rows is None else rows[1]))
+
+    with torch.inference_mode():
+        # -- 4. K1 and K2 at the serving bucket B=128 and at B=256 ---------
+        d128 = path_inputs(128, seed=138, pad_row=True)
+        rows = list(time_forwards(k1_of(d128), k2_of(d128), "B=128", rows=(
+            ("rank_softmax.cu", "vqatpu/kernels/trilinear.py:303",
+             max(errs[1][0], errs[128][0])),
+            ("tri_pool.cu", "vqatpu/kernels/trilinear.py:369",
+             max(errs[1][1], errs[128][1])))))
+        del d128
+        time_forwards(k1_of(d), k2_of(d), f"B={TRAIN_B}")
+        G = d["tqa"].shape[-1]
 
         # -- 4b. K3 and the softmax backward at the training batch ---------
         logits, mask, att = d["logits"], d["mask"], d["att"]
@@ -418,7 +446,7 @@ def main() -> int:
     # -- 4c. K1 and K2 forward + backward at the training batch -----------
     v_r, tqa = (d[k].requires_grad_() for k in ("v_r", "tqa"))
     vt, qt, at, att = (d[k].requires_grad_() for k in ("vt", "qt", "at", "att"))
-    RX, D, G = v_r.shape[2] * v_r.shape[3], vt.shape[-1], tqa.shape[-1]
+    RX, D = v_r.shape[2] * v_r.shape[3], vt.shape[-1]
     g1, g2 = cotangent(att.shape, 5), cotangent((B, D), 6)
 
     def k1_fb(fn):
@@ -440,7 +468,7 @@ def main() -> int:
     k1_fb_flops = 3 * 2 * B * G * V * RX * QA
     k2_fb_bytes = 2 * (vt.numel() + qt.numel() + at.numel() + B * V * QA
                        + B * D) * f32
-    k2_fb_flops = (2 * B * V * A * (Q + 1) * D + 3 * 2 * B * V * QA * D
+    k2_fb_flops = (k2_cost(vt, qt, at, att[..., 0])[1] + 3 * 2 * B * V * QA * D
                    + 6 * B * QA * D)
     fwd_bwd = {
         "fused_rank_softmax": timed(

@@ -5,6 +5,8 @@ products against autograd, the wrappers' CPU behaviour, and the CUDA
 kernels against their plain versions on the card (marked ``cuda``; skipped
 without one)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -21,26 +23,38 @@ from vqatpu.kernels.trilinear import (_masked_softmax_pallas_vjp,
                                       masked_softmax_vqa_xla,
                                       trilinear_attention as jax_tri_attention,
                                       trilinear_pool_pallas, trilinear_pool_xla)
+from vqatpu_torch.kernels import build
 from vqatpu_torch.kernels import trilinear as K
 
 # tests/test_kernels.py fixture shapes
 B, Q, A, R, X, G, D = 2, 12, 3, 4, 8, 2, 32
 
 
-def attention_inputs(rng, V, n_real):
-    v_r = rng.randn(B, V, R, X).astype(np.float32)
-    q_r = rng.randn(B, Q, R, X).astype(np.float32)
-    a_r = rng.randn(B, A, R, X).astype(np.float32)
-    T = (0.1 * rng.randn(R, X, X, X, G)).astype(np.float32)
-    mask = np.repeat(np.arange(V)[None] < n_real, B, 0)
+# Shapes at the edges of the CUDA kernels' tiles (chip_smoke.py phase 3
+# checks the kernels there): K1's V tile is 56 rows at Q*A=36 and 2
+# glimpses and 64 rows at 1 or 3 glimpses; K2 streams 4 box rows per ring
+# stage and spans 256 d per block.
+K1_EDGES = [pytest.param(57, 57, 1, 2, id="B1-57-57-G2"),
+            pytest.param(65, 60, 2, 1, id="B2-65-60-G1"),
+            pytest.param(65, 60, 2, 3, id="B2-65-60-G3")]
+K2_EDGES = [pytest.param(65, 1, 96, id="B1-65-D96"),
+            pytest.param(9, 2, 352, id="B2-9-D352")]
+
+
+def attention_inputs(rng, V, n_real, b=B, g=G):
+    v_r = rng.randn(b, V, R, X).astype(np.float32)
+    q_r = rng.randn(b, Q, R, X).astype(np.float32)
+    a_r = rng.randn(b, A, R, X).astype(np.float32)
+    T = (0.1 * rng.randn(R, X, X, X, g)).astype(np.float32)
+    mask = np.repeat(np.arange(V)[None] < n_real, b, 0)
     return v_r, q_r, a_r, T, mask
 
 
-def pool_inputs(rng, V):
-    return (rng.randn(B, V, D).astype(np.float32),
-            rng.randn(B, Q, D).astype(np.float32),
-            rng.randn(B, A, D).astype(np.float32),
-            rng.rand(B, V, Q, A).astype(np.float32))
+def pool_inputs(rng, V, b=B, d=D):
+    return (rng.randn(b, V, d).astype(np.float32),
+            rng.randn(b, Q, d).astype(np.float32),
+            rng.randn(b, A, d).astype(np.float32),
+            rng.rand(b, V, Q, A).astype(np.float32))
 
 
 def t(*arrays):
@@ -55,10 +69,13 @@ def test_precontract_qa_matches_jax(rng):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
-@pytest.mark.parametrize("V,n_real", [(10, 8), (300, 263)])
-def test_fused_rank_softmax_ref_matches_pallas_and_xla(rng, V, n_real):
-    """V=300 > 256 is ragged against any power-of-two V tile."""
-    v_r, q_r, a_r, T, mask = attention_inputs(rng, V, n_real)
+@pytest.mark.parametrize("V,n_real,b,g", [
+    pytest.param(10, 8, B, G, id="10-8"),
+    pytest.param(300, 263, B, G, id="300-263")] + K1_EDGES)
+def test_fused_rank_softmax_ref_matches_pallas_and_xla(rng, V, n_real, b, g):
+    """V=300 > 256 is ragged against any power-of-two V tile; the K1_EDGES
+    cases sit one row past the CUDA kernel's V tile."""
+    v_r, q_r, a_r, T, mask = attention_inputs(rng, V, n_real, b, g)
     jv = [jnp.asarray(x) for x in (v_r, q_r, a_r, T, mask)]
     tqa = jax_precontract_qa(jv[1], jv[2], jv[3])
     want_xla = np.asarray(masked_softmax_vqa_xla(
@@ -72,7 +89,7 @@ def test_fused_rank_softmax_ref_matches_pallas_and_xla(rng, V, n_real):
     np.testing.assert_allclose(got, want_xla, atol=1e-5)
     np.testing.assert_array_equal(got[:, n_real:], 0.0)
     # a float32 sum of up to V*Q*A = 10,800 weights
-    np.testing.assert_allclose(got.sum((1, 2, 3)), np.ones((B, G)), atol=1e-4)
+    np.testing.assert_allclose(got.sum((1, 2, 3)), np.ones((b, g)), atol=1e-4)
 
 
 def test_fully_masked_row_gives_zeros(rng):
@@ -92,10 +109,14 @@ def test_fully_masked_row_gives_zeros(rng):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("V", [10, 293])
-def test_trilinear_pool_ref_matches_pallas_and_xla(rng, V):
-    """V=293 streams two of the Pallas kernel's 256-box blocks."""
-    arrays = pool_inputs(rng, V)
+@pytest.mark.parametrize("V,b,d", [pytest.param(10, B, D, id="10"),
+                                   pytest.param(293, B, D, id="293")]
+                         + K2_EDGES)
+def test_trilinear_pool_ref_matches_pallas_and_xla(rng, V, b, d):
+    """V=293 streams two of the Pallas kernel's 256-box blocks; the K2_EDGES
+    cases sit one row past the CUDA kernel's ring stages and off its d
+    span."""
+    arrays = pool_inputs(rng, V, b, d)
     jarrays = [jnp.asarray(x) for x in arrays]
     want_xla = np.asarray(trilinear_pool_xla(*jarrays))
     with pltpu.force_tpu_interpret_mode():
@@ -303,10 +324,12 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,n_real", [(10, 8), (50, 44), (2048, 1999)])
-def test_cuda_rank_softmax_matches_plain(rng, cuda, V, n_real):
-    v_r, q_r, a_r, T, mask = attention_inputs(rng, V, n_real)
-    mask[-1] = False
+@pytest.mark.parametrize("V,n_real,b,g", [
+    pytest.param(10, 8, B, G, id="10-8"), pytest.param(50, 44, B, G, id="50-44"),
+    pytest.param(2048, 1999, B, G, id="2048-1999")] + K1_EDGES)
+def test_cuda_rank_softmax_matches_plain(rng, cuda, V, n_real, b, g):
+    v_r, q_r, a_r, T, mask = attention_inputs(rng, V, n_real, b, g)
+    mask[-1] &= b == 1  # with more than one sample, the last is fully masked
     v_r, mask = (x.to(cuda) for x in t(v_r, mask))
     tqa = K.precontract_qa(*(x.to(cuda) for x in t(q_r, a_r, T)))
     K.reset_launches()
@@ -314,20 +337,44 @@ def test_cuda_rank_softmax_matches_plain(rng, cuda, V, n_real):
     assert K.launches["fused_rank_softmax"] == 1
     torch.testing.assert_close(got, K.fused_rank_softmax_ref(v_r, tqa, mask),
                                rtol=0, atol=1e-5)
-    assert (got[-1] == 0).all()
+    assert b == 1 or (got[-1] == 0).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V", [10, 50, 293])
-def test_cuda_tri_pool_matches_plain(rng, cuda, V):
-    vt, qt, at, _ = (x.to(cuda) for x in t(*pool_inputs(rng, V)))
-    w = torch.from_numpy(rng.rand(B, V, Q, A, G).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize("V,b,d", [pytest.param(10, B, D, id="10"),
+                                   pytest.param(50, B, D, id="50"),
+                                   pytest.param(293, B, D, id="293")]
+                         + K2_EDGES)
+def test_cuda_tri_pool_matches_plain(rng, cuda, V, b, d):
+    vt, qt, at, _ = (x.to(cuda) for x in t(*pool_inputs(rng, V, b, d)))
+    w = torch.from_numpy(rng.rand(b, V, Q, A, G).astype(np.float32)).to(cuda)
     K.reset_launches()
     got = K.trilinear_pool(vt, qt, at, w[..., 1])
     assert K.launches["trilinear_pool"] == 1
     want = K.trilinear_pool_ref(vt, qt, at, w[..., 1])
     torch.testing.assert_close(got, want, rtol=2e-4,
                                atol=2e-4 * want.abs().max().item())
+
+
+def test_kernel_inputs_must_be_16_byte_aligned():
+    """The 16-byte copies of K1 and K2 need aligned bases; a view that
+    starts off a 16-byte boundary is refused before any launch."""
+    base = torch.zeros(64)
+    K._check_aligned(whole=base, at_16_bytes=base[4:])
+    with pytest.raises(ValueError, match="off_by_4"):
+        K._check_aligned(off_by_4=base[1:])
+
+
+@pytest.mark.parametrize("lib", build.SOURCES)
+def test_entry_points_match_the_c_sources(lib):
+    """Each library's ctypes signatures (bound once, as it loads) name the
+    ``extern "C"`` functions of its source with as many arguments."""
+    src = (build.CSRC / f"{lib}.cu").read_text()
+    found = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+    assert set(found) == set(build.ENTRY_POINTS[lib])
+    for fn, argtypes in build.ENTRY_POINTS[lib].items():
+        params = [p for p in found[fn].split(",") if p.strip() not in ("", "void")]
+        assert len(params) == len(argtypes), fn
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "mask_dtype", "device"])

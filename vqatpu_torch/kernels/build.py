@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``vqatpu_torch/_build/lib<name>-<hash>.so`` at
-first use (the hash covers the source and the flags, so an edited source
-builds anew) and loaded with ``ctypes``.  A failed build raises.
+first use (the hash covers the source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source builds anew) and loaded with ``ctypes``, its
+entry points bound to their C signatures (:data:`ENTRY_POINTS`) once, as it
+loads.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -20,6 +22,24 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("rank_softmax", "tri_pool", "softmax_vqa")
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each library's entry points and their argument types; all return a
+# cudaError_t as an int
+ENTRY_POINTS = {
+    "rank_softmax": {
+        # v_r, tqa, mask, att, B, V, RX, QA, G, device, stream
+        "rank_softmax_forward": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    },
+    "tri_pool": {
+        # vt, qt, at, w, w's 4 strides, out, B, V, Q, A, D, device, stream
+        "tri_pool_forward": [_PTR] * 4 + [_I64] * 4 + [_PTR] + [_INT] * 6 + [_PTR],
+    },
+    "softmax_vqa": {
+        # in, mask or cotangent, out, B, V, QA, G, device, stream
+        "masked_softmax_vqa_forward": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+        "softmax_vqa_backward": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+    },
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,7 +59,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
@@ -75,11 +96,15 @@ def build(names: Iterable[str] = SOURCES,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed, with its entry
+    points bound."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in ENTRY_POINTS[name].items():
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = argtypes
             _loaded[name] = lib
         return lib

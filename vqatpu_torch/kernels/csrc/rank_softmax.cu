@@ -14,33 +14,96 @@
 // mask [B,V] bool, att [B,V,QA,G] -- the model's [B,V,Q,A,G] layout, written
 // in place, with no transpose.
 //
-// What bounds it on the H100: bytes.  At the serving bucket B=128, V=50,
-// RX=512, QA=36, G=2 it must read v_r (13.1 MB) and tqa (18.9 MB) and write
-// att (1.8 MB): ~10 us at 3.35 TB/s, against ~7 us for its 0.47 GFLOP on the
-// f32 CUDA cores.
+// What bounds it on the H100: bytes, narrowly.  At the serving bucket B=128,
+// V=50, RX=512, QA=36, G=2 it must read v_r (13.1 MB) and tqa (18.9 MB) and
+// write att (1.8 MB): 10.1 us at 3.35 TB/s, against 7.0 us for its
+// 0.47 GFLOP at the 67 TFLOP/s of the f32 CUDA cores (14 FLOP per byte,
+// below the card's f32 balance of 20).  The parity contract keeps the
+// product in f32 and off the tensor cores.
 //
-// Design: one block per (b, g), 256 threads.  The [RX, QA] slice of tqa for
-// this g is staged through shared memory in chunks of KC rows (41 KB in all,
-// under the 48 KB of static shared memory), next to a [VT, KC] tile of v_r.
-// Each thread holds up to 8 logits of a [VT, QA] output tile in registers,
-// so the logits never reach device memory when V fits one tile (VT = 56 at
-// QA = 36; serving has V = 50).  Larger V (2048 boxes) loops over V tiles
-// with a running max and sum per thread, parks the masked logits in `att`,
-// and rescales them in a second pass.  The block's max and sum are combined
-// with warp shuffles.  This first version keeps the GEMM on the CUDA cores;
-// wgmma and TMA are later work.
+// Design:
+// - One block per (sample, glimpse group).  A group holds both glimpses of
+//   the model (GG = 2 when G is even and 2*QA fits the tile), so v_r[b] is
+//   read once, tqa[b] is read as contiguous rows of KC*G floats, and att
+//   rows are written coalesced.  B=128 is one block per SM, B=256 two.
+// - The [RX] axis is walked in chunks of KC = 32 through a STAGES-deep ring
+//   in dynamic shared memory, filled with 16-byte cp.async copies (4- or
+//   8-byte copies when the group is narrower than G): while one chunk is
+//   multiplied, the next STAGES-1 are in flight.  Ragged rows and chunks are
+//   zero-filled by the copy itself.
+// - Register tiling: each thread owns TM = 4 rows x (4 / GG) qa x GG
+//   glimpses of the [V-tile, QA*GG] output and reads its operands as float4,
+//   8 shared loads for 64 FMAs.  Rows and qa are interleaved across the
+//   threads (row rg + s*RG, qa cq + t*CQ), so the padded shared rows are
+//   read without bank conflicts and the stores stay coalesced.
+// - The masked softmax runs in the epilogue from registers: each thread's
+//   max and sum per glimpse, warp shuffles, then one warp across the warps.
+//   The logits never reach device memory when V fits one tile (VT = 56 at
+//   QA = 36, G = 2).  Larger V (2048 boxes) loops over V tiles with a
+//   running max and sum, parks the masked logits in `att`, and rescales
+//   them in a second pass in which each thread rereads only what it wrote.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W, cold L2 (chip_smoke.py):
+// 35.4 us at B=128 and 52.6 us at B=256, 3.5x and 2.6x the bound; the first
+// version, one block per (b, g) without register tiles, took 158.8 us at
+// B=128.  What holds it back, from the clock64 timeline of one block at
+// B=1 (python3 -m vqatpu_torch.kernels.probe): requesting the first
+// STAGES-1 chunks takes 1.8 us, about 1.2 cycles of the SM per 16-byte
+// cp.async; each chunk then takes 1.4 us while the next chunk's copies are
+// issued and 1.1 us for the last three, whose 512 FMAs a warp run at half
+// the issue rate; the epilogue takes 5 us of the 28.8.  Rings of 2 or 5
+// stages, or chunks of 16 columns, measured no faster.  The f32 FMAs and
+// the copy issue are the next limits: tensor cores (3xTF32) and TMA.
+//
+// Needs RX % 4 == 0 and 16-byte aligned v_r and tqa (the 16-byte copies),
+// and QA <= 256; the entry point refuses anything else.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int KC = 32;           // rows of the RX axis staged per chunk
-constexpr int MAX_VT = 64;       // V rows per tile
-constexpr int PER_THREAD = 8;    // logits per thread: VT * QA <= 2048
+constexpr int MAX_THREADS = 256;
+constexpr int KC = 32;            // RX columns per ring stage
+constexpr int STAGES = 4;         // ring depth
+constexpr int TM = 4;             // rows of a thread's micro-tile
+constexpr int MAX_RG = 16;        // row groups: V tile <= 64 rows
+constexpr int MAX_COLS = 256;     // QA * GG columns per block
 constexpr int MAX_QA = 256;
+constexpr int VROW = KC + 4;      // padded shared row of the v_r tile
 constexpr float NEG_BIG = -1e30f;
+
+// padded shared row of the tqa tile: KC columns of GG glimpses
+__host__ __device__ constexpr int wrow(int gg) { return KC * gg + 4; }
+
+// glimpses per block
+int glimpse_group(int QA, int G) {
+  return (G % 2 == 0 && 2 * QA <= MAX_COLS) ? 2 : 1;
+}
+
+struct Tiling {
+  int gg, cq, rg, threads;
+  size_t smem;  // bytes of the ring
+};
+
+Tiling tiling(int QA, int G) {
+  Tiling t;
+  t.gg = glimpse_group(QA, G);
+  const int tq = 4 / t.gg;
+  t.cq = (QA + tq - 1) / tq;
+  t.rg = MAX_THREADS / t.cq < MAX_RG ? MAX_THREADS / t.cq : MAX_RG;
+  t.threads = (t.rg * t.cq + 31) / 32 * 32;
+  const size_t stage = (size_t)t.cq * tq * wrow(t.gg) + (size_t)t.rg * TM * VROW;
+  t.smem = STAGES * stage * sizeof(float);
+  return t;
+}
+
+__device__ __forceinline__ float lane(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
 
 // (m, s) <- the running max and sum of two partial softmax reductions
 __device__ __forceinline__ void combine(float& m, float& s, float m2, float s2) {
@@ -50,124 +113,273 @@ __device__ __forceinline__ void combine(float& m, float& s, float m2, float s2) 
   m = mx;
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int GG, bool CONTIG>
+__global__ void __launch_bounds__(MAX_THREADS, 2)
 rank_softmax_kernel(const float* __restrict__ v_r, const float* __restrict__ tqa,
                     const unsigned char* __restrict__ mask, float* __restrict__ att,
-                    int V, int RX, int QA, int G, int VT) {
-  __shared__ float w_s[KC * (MAX_QA + 1)];
-  __shared__ float v_s[MAX_VT * (KC + 1)];
-  __shared__ float red_m[THREADS / 32];
-  __shared__ float red_s[THREADS / 32];
+                    int V, int RX, int QA, int G, int CQ, int RG) {
+  constexpr int TQ = 4 / GG;
+  constexpr int WROW = wrow(GG);
+  extern __shared__ float4 ring4[];
+  float* ring = reinterpret_cast<float*>(ring4);
+  __shared__ float red_m[MAX_THREADS / 32][GG];
+  __shared__ float red_s[MAX_THREADS / 32][GG];
 
-  const int b = blockIdx.x / G;
-  const int g = blockIdx.x % G;
+  const int b = blockIdx.x;
+  const int g0 = blockIdx.y * GG;
   const int tid = threadIdx.x;
-  const int QAP = QA + 1;  // padded row: no bank conflicts on the staging stores
+  const int nthreads = blockDim.x;
+  const int VT = RG * TM;
+  const int QAP = CQ * TQ;
+  const int w_stage = QAP * WROW;
+  const int stage = w_stage + VT * VROW;
+  const bool active = tid < RG * CQ;
+  const int cq = tid % CQ, rg = tid / CQ;
+
   const float* vb = v_r + (size_t)b * V * RX;
   const float* tb = tqa + (size_t)b * QA * RX * G;
   const unsigned char* mb = mask + (size_t)b * V;
   float* ob = att + (size_t)b * V * QA * G;
   const int n_tiles = (V + VT - 1) / VT;
+  const int n_chunks = (RX + KC - 1) / KC;
 
-  float run_m = -INFINITY, run_s = 0.f;
-  float x[PER_THREAD];
+  float run_m[GG], run_s[GG];
+#pragma unroll
+  for (int g = 0; g < GG; ++g) {
+    run_m[g] = -INFINITY;
+    run_s[g] = 0.f;
+  }
+  float acc[TM][TQ][GG];
+
   for (int t = 0; t < n_tiles; ++t) {
     const int i0 = t * VT;
-    const int rows = min(VT, V - i0);
-    float acc[PER_THREAD];
-#pragma unroll
-    for (int s = 0; s < PER_THREAD; ++s) acc[s] = 0.f;
 
-    for (int k0 = 0; k0 < RX; k0 += KC) {
-      const int kc = min(KC, RX - k0);
-      for (int idx = tid; idx < KC * QA; idx += THREADS) {
-        const int kk = idx % KC, n = idx / KC;
-        w_s[kk * QAP + n] = kk < kc ? tb[((size_t)n * RX + k0 + kk) * G + g] : 0.f;
-      }
-      for (int idx = tid; idx < VT * KC; idx += THREADS) {
-        const int ii = idx / KC, kk = idx % KC;
-        v_s[ii * (KC + 1) + kk] =
-            (ii < rows && kk < kc) ? vb[(size_t)(i0 + ii) * RX + k0 + kk] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int s = 0; s < PER_THREAD; ++s) {
-        const int o = tid + s * THREADS;
-        if (o < rows * QA) {
-          const float* vrow = v_s + (o / QA) * (KC + 1);
-          const float* wcol = w_s + o % QA;
-          float a = acc[s];
-#pragma unroll 8
-          for (int kk = 0; kk < KC; ++kk) a = fmaf(vrow[kk], wcol[kk * QAP], a);
-          acc[s] = a;
+    // chunk c of tqa (QAP rows of KC*GG floats) and of v_r (VT rows of KC)
+    // into ring slot c % STAGES
+    auto load = [&](int c) {
+      float* ws = ring + (c % STAGES) * stage;
+      float* vs = ws + w_stage;
+      const int k0 = c * KC;
+      if constexpr (CONTIG) {
+        constexpr int UPR = KC * GG / 4;  // 16-byte units per row
+        for (int u = tid; u < QAP * UPR; u += nthreads) {
+          const int qa = u / UPR, cu = u % UPR;
+          const bool ok = qa < QA && k0 + cu * 4 / GG < RX;
+          cp_async<16>(ws + qa * WROW + cu * 4,
+                       ok ? tb + ((size_t)qa * RX + k0) * G + cu * 4 : tb, ok);
+        }
+      } else {
+        for (int u = tid; u < QAP * KC; u += nthreads) {
+          const int qa = u / KC, kk = u % KC;
+          const bool ok = qa < QA && k0 + kk < RX;
+          cp_async<4 * GG>(ws + qa * WROW + kk * GG,
+                           ok ? tb + ((size_t)qa * RX + k0 + kk) * G + g0 : tb, ok);
         }
       }
-      __syncthreads();
+      constexpr int VU = KC / 4;
+      for (int u = tid; u < VT * VU; u += nthreads) {
+        const int r = u / VU, cu = u % VU;
+        const bool ok = i0 + r < V && k0 + cu * 4 < RX;
+        cp_async<16>(vs + r * VROW + cu * 4,
+                     ok ? vb + (size_t)(i0 + r) * RX + k0 + cu * 4 : vb, ok);
+      }
+    };
+
+#pragma unroll
+    for (int s = 0; s < TM; ++s)
+#pragma unroll
+      for (int q = 0; q < TQ; ++q)
+#pragma unroll
+        for (int g = 0; g < GG; ++g) acc[s][q][g] = 0.f;
+
+    __syncthreads();  // the previous tile is done with the ring
+#pragma unroll
+    for (int c = 0; c < STAGES - 1; ++c) {
+      if (c < n_chunks) load(c);
+      cp_async_commit();
+    }
+    for (int c = 0; c < n_chunks; ++c) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // chunk c has landed; slot (c-1) % STAGES is free
+      if (c + STAGES - 1 < n_chunks) load(c + STAGES - 1);
+      cp_async_commit();
+      if (active) {
+        const float* ws = ring + (c % STAGES) * stage;
+        const float* vs = ws + w_stage;
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 4) {
+          float4 a[TM];
+#pragma unroll
+          for (int s = 0; s < TM; ++s)
+            a[s] = *reinterpret_cast<const float4*>(vs + (rg + s * RG) * VROW + kk);
+          float4 w[TQ][GG];  // k = kk..kk+3 times the group's glimpses
+#pragma unroll
+          for (int q = 0; q < TQ; ++q)
+#pragma unroll
+            for (int h = 0; h < GG; ++h)
+              w[q][h] = *reinterpret_cast<const float4*>(
+                  ws + (cq + q * CQ) * WROW + kk * GG + 4 * h);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int s = 0; s < TM; ++s)
+#pragma unroll
+              for (int q = 0; q < TQ; ++q)
+#pragma unroll
+                for (int g = 0; g < GG; ++g) {
+                  const int e = j * GG + g;
+                  acc[s][q][g] = fmaf(lane(a[s], j), lane(w[q][e / 4], e % 4),
+                                      acc[s][q][g]);
+                }
+        }
+      }
     }
 
     // masked logits of this tile into the thread's running max and sum
 #pragma unroll
-    for (int s = 0; s < PER_THREAD; ++s) {
-      const int o = tid + s * THREADS;
-      if (o < rows * QA) {
-        const int i = i0 + o / QA;
+    for (int g = 0; g < GG; ++g) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int s = 0; s < TM; ++s) {
+        const int i = i0 + rg + s * RG;
+        if (!active || i >= V) continue;
         const bool keep = mb[i] != 0;
-        const float xv = keep ? acc[s] : NEG_BIG;
-        x[s] = xv;
-        if (xv > run_m) {
-          run_s *= expf(run_m - xv);
-          run_m = xv;
+#pragma unroll
+        for (int q = 0; q < TQ; ++q) {
+          if (cq + q * CQ >= QA) continue;
+          if (!keep) acc[s][q][g] = NEG_BIG;
+          tmax = fmaxf(tmax, acc[s][q][g]);
         }
-        if (keep) run_s += expf(xv - run_m);
-        if (n_tiles > 1) ob[((size_t)i * QA + o % QA) * G + g] = xv;
+      }
+      const float m = fmaxf(run_m[g], tmax);
+      if (m == -INFINITY) continue;  // nothing of this thread yet
+      float sum = run_s[g] * expf(run_m[g] - m);
+#pragma unroll
+      for (int s = 0; s < TM; ++s) {
+        const int i = i0 + rg + s * RG;
+        if (!active || i >= V || !mb[i]) continue;
+#pragma unroll
+        for (int q = 0; q < TQ; ++q) {
+          if (cq + q * CQ < QA) sum += expf(acc[s][q][g] - m);
+        }
+      }
+      run_m[g] = m;
+      run_s[g] = sum;
+    }
+    if (n_tiles > 1) {
+#pragma unroll
+      for (int s = 0; s < TM; ++s) {
+        const int i = i0 + rg + s * RG;
+        if (!active || i >= V) continue;
+#pragma unroll
+        for (int q = 0; q < TQ; ++q) {
+          const int qa = cq + q * CQ;
+          if (qa >= QA) continue;
+#pragma unroll
+          for (int g = 0; g < GG; ++g)
+            ob[((size_t)i * QA + qa) * G + g0 + g] = acc[s][q][g];
+        }
       }
     }
   }
 
-  // block-wide max and sum: warp shuffles, then one warp over the warps
-  for (int off = 16; off > 0; off >>= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, run_m, off);
-    const float s2 = __shfl_xor_sync(0xffffffffu, run_s, off);
-    combine(run_m, run_s, m2, s2);
+  // block-wide max and sum per glimpse: warp shuffles, then one warp over
+  // the warps
+#pragma unroll
+  for (int g = 0; g < GG; ++g) {
+    for (int off = 16; off > 0; off >>= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, run_m[g], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, run_s[g], off);
+      combine(run_m[g], run_s[g], m2, s2);
+    }
   }
-  const int warp = tid / 32, lane = tid % 32;
-  if (lane == 0) {
-    red_m[warp] = run_m;
-    red_s[warp] = run_s;
+  const int warp = tid / 32, lane_id = tid % 32, n_warps = nthreads / 32;
+  if (lane_id == 0) {
+#pragma unroll
+    for (int g = 0; g < GG; ++g) {
+      red_m[warp][g] = run_m[g];
+      red_s[warp][g] = run_s[g];
+    }
   }
   __syncthreads();
   if (warp == 0) {
-    float m = lane < THREADS / 32 ? red_m[lane] : -INFINITY;
-    float s = lane < THREADS / 32 ? red_s[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
-      const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
-      combine(m, s, m2, s2);
-    }
-    if (lane == 0) {
-      red_m[0] = m;
-      red_s[0] = s;
-    }
-  }
-  __syncthreads();
-  const float m = red_m[0];
-  const float den = fmaxf(red_s[0], 1e-30f);
-
-  // normalise; each thread rereads only the logits it parked itself
-  for (int t = 0; t < n_tiles; ++t) {
-    const int i0 = t * VT;
-    const int rows = min(VT, V - i0);
 #pragma unroll
-    for (int s = 0; s < PER_THREAD; ++s) {
-      const int o = tid + s * THREADS;
-      if (o < rows * QA) {
-        const int i = i0 + o / QA;
-        const size_t idx = ((size_t)i * QA + o % QA) * G + g;
-        const float xv = n_tiles == 1 ? x[s] : ob[idx];
-        ob[idx] = mb[i] ? expf(xv - m) / den : 0.f;
+    for (int g = 0; g < GG; ++g) {
+      float m = lane_id < n_warps ? red_m[lane_id][g] : -INFINITY;
+      float s = lane_id < n_warps ? red_s[lane_id][g] : 0.f;
+      for (int off = 16; off > 0; off >>= 1) {
+        const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
+        const float s2 = __shfl_xor_sync(0xffffffffu, s, off);
+        combine(m, s, m2, s2);
+      }
+      // every lane of warp 0 has read its red_* entries by this shuffle
+      if (lane_id == 0) {
+        red_m[0][g] = m;
+        red_s[0][g] = s;
       }
     }
   }
+  __syncthreads();
+  float m[GG], den[GG];
+#pragma unroll
+  for (int g = 0; g < GG; ++g) {
+    m[g] = red_m[0][g];
+    den[g] = fmaxf(red_s[0][g], 1e-30f);
+  }
+
+  // normalise: from registers, or rereading the parked logits
+  if (!active) return;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int i0 = t * VT;
+#pragma unroll
+    for (int s = 0; s < TM; ++s) {
+      const int i = i0 + rg + s * RG;
+      if (i >= V) continue;
+      const bool keep = mb[i] != 0;
+#pragma unroll
+      for (int q = 0; q < TQ; ++q) {
+        const int qa = cq + q * CQ;
+        if (qa >= QA) continue;
+        float* o = ob + ((size_t)i * QA + qa) * G + g0;
+        float y[GG];
+#pragma unroll
+        for (int g = 0; g < GG; ++g) {
+          const float x = n_tiles == 1 ? acc[s][q][g] : o[g];
+          y[g] = keep ? expf(x - m[g]) / den[g] : 0.f;
+        }
+        if constexpr (GG == 2 && CONTIG) {
+          *reinterpret_cast<float2*>(o) = make_float2(y[0], y[1]);
+        } else {
+#pragma unroll
+          for (int g = 0; g < GG; ++g) o[g] = y[g];
+        }
+      }
+    }
+  }
+}
+
+template <int GG, bool CONTIG>
+cudaError_t launch(const Tiling& t, dim3 grid, cudaStream_t stream, int device,
+                   const float* v_r, const float* tqa, const unsigned char* mask,
+                   float* att, int V, int RX, int QA, int G) {
+  // the ring can exceed the 48 KB default: allow, once per device, the most
+  // any tiling of this instance asks for
+  constexpr int MAX_DEVICES = 64;
+  static bool raised[MAX_DEVICES] = {};
+  constexpr size_t most =
+      STAGES * ((size_t)MAX_COLS / GG * wrow(GG) + (size_t)MAX_RG * TM * VROW) *
+      sizeof(float);
+  auto kernel = rank_softmax_kernel<GG, CONTIG>;
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!raised[device]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+    if (err != cudaSuccess) return err;
+    raised[device] = true;
+  }
+  kernel<<<grid, t.threads, t.smem, stream>>>(v_r, tqa, mask, att, V, RX, QA, G,
+                                              t.cq, t.rg);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -178,10 +390,18 @@ extern "C" int rank_softmax_forward(const float* v_r, const float* tqa,
                                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (QA < 1 || QA > MAX_QA) return (int)cudaErrorInvalidValue;
+  if (QA < 1 || QA > MAX_QA || RX % 4 != 0 ||
+      ((uintptr_t)v_r | (uintptr_t)tqa) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || V == 0 || G == 0) return 0;
-  const int vt = max(1, min(MAX_VT, THREADS * PER_THREAD / QA));
-  rank_softmax_kernel<<<B * G, THREADS, 0, (cudaStream_t)stream>>>(
-      v_r, tqa, mask, att, V, RX, QA, G, vt);
-  return (int)cudaGetLastError();
+  const Tiling t = tiling(QA, G);
+  const dim3 grid(B, G / t.gg);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (t.gg == 2)
+    err = G == 2 ? launch<2, true>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G)
+                 : launch<2, false>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G);
+  else
+    err = G == 1 ? launch<1, true>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G)
+                 : launch<1, false>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G);
+  return (int)err;
 }

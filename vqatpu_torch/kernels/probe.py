@@ -1,0 +1,250 @@
+"""Where K1's and K2's time goes on one CUDA card, and how designs next to
+theirs compare.  Run from the repository root on a machine with the card:
+``python3 -m vqatpu_torch.kernels.probe``.  Prints its findings; it is not
+part of ``chip_smoke.py``'s checks.
+
+1. K1's timeline: a copy of ``csrc/rank_softmax.cu`` that records
+   ``clock64`` on block 0's first thread at the kernel's start, after the
+   first ring stages are requested, when each RX chunk has landed and when
+   its FMAs are done, and at the epilogue's steps, at B=1 and B=128 with
+   the model's shapes.  Cycles become µs by ``%globaltimer`` over the
+   same span.
+2. Variants: copies of ``csrc/rank_softmax.cu`` and ``csrc/tri_pool.cu``
+   with one constant changed (ring depth, chunk, rows per stage, threads
+   per block), built side by side and timed with the shipped kernels on
+   the same inputs (cold L2, as ``chip_smoke.py`` times), each checked
+   against the plain version first.
+3. The floor of that timing: a launch that does no work (a 4-byte
+   ``zero_``), timed the same way.
+
+The copies are made by replacing lines of the sources; a source edited
+so that a line is gone makes this script stop with that line's text.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from vqatpu_torch.kernels import build
+from vqatpu_torch.kernels import trilinear as K
+from vqatpu_torch.kernels.timing import sleep_cycles_per_ms, time_ms
+
+V, REAL, Q, A, R, X, G, D = 50, 44, 12, 3, 32, 16, 2, 1024
+PROBE_DIR = build.BUILD_DIR / "probe"
+
+STAMPS = r'''
+__device__ long long probe_clk[64];
+__device__ unsigned long long probe_ns[2];
+#define STAMP(k)                                                            \
+  do {                                                                      \
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)             \
+      probe_clk[k] = clock64();                                             \
+  } while (0)
+#define STAMP_NS(k)                                                         \
+  do {                                                                      \
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {           \
+      unsigned long long t;                                                 \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                 \
+      probe_ns[k] = t;                                                      \
+    }                                                                       \
+  } while (0)
+'''
+READ_STAMPS = r'''
+extern "C" int probe_read(long long* clk, unsigned long long* ns) {
+  cudaError_t err = cudaMemcpyFromSymbol(clk, probe_clk, sizeof(probe_clk));
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(ns, probe_ns, sizeof(probe_ns));
+  return (int)err;
+}
+'''
+# stamps: 0 start, 1 first stages requested, 2+2c chunk c landed, 3+2c its
+# FMAs done, 40 loop done, 41 max and sum folded, 42 block reduction done,
+# 43 normalised
+TIMELINE = [
+    ("namespace {\n", STAMPS + "namespace {\n"),
+    ("  const int b = blockIdx.x;\n",
+     "  STAMP(0);\n  STAMP_NS(0);\n  const int b = blockIdx.x;\n"),
+    ("    for (int c = 0; c < n_chunks; ++c) {\n"
+     "      cp_async_wait<STAGES - 2>();\n"
+     "      __syncthreads();  // chunk c has landed; slot (c-1) % STAGES is free\n",
+     "    STAMP(1);\n"
+     "    for (int c = 0; c < n_chunks; ++c) {\n"
+     "      cp_async_wait<STAGES - 2>();\n"
+     "      __syncthreads();  // chunk c has landed; slot (c-1) % STAGES is free\n"
+     "      STAMP(2 + 2 * c);\n"),
+    ("        }\n      }\n    }\n\n"
+     "    // masked logits of this tile into the thread's running max and sum\n",
+     "        }\n      }\n      STAMP(3 + 2 * c);\n    }\n\n    STAMP(40);\n"
+     "    // masked logits of this tile into the thread's running max and sum\n"),
+    ("  // block-wide max and sum per glimpse",
+     "  STAMP(41);\n  // block-wide max and sum per glimpse"),
+    ("  // normalise: from registers, or rereading the parked logits\n",
+     "  STAMP(42);\n  // normalise: from registers, or rereading the parked logits\n"),
+]
+KERNEL_END = "\ntemplate <int GG, bool CONTIG>\ncudaError_t launch("
+
+K1_VARIANTS = {
+    "ring of 2 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")],
+    "ring of 5 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 5;")],
+    "chunks of 16, 8 stages": [
+        ("constexpr int KC = 32;", "constexpr int KC = 16;"),
+        ("constexpr int STAGES = 4;", "constexpr int STAGES = 8;")],
+}
+K2_VARIANTS = {
+    "ring of 2 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")],
+    "ring of 6 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 6;")],
+    "8 box rows a stage": [("constexpr int VR = 4;", "constexpr int VR = 8;")],
+    "256 threads a block": [
+        ("constexpr int THREADS = 128;", "constexpr int THREADS = 256;"),
+        ("__launch_bounds__(THREADS, 4)", "__launch_bounds__(THREADS, 2)")],
+}
+
+
+def edited(source: str, edits) -> str:
+    for old, new in edits:
+        if old not in source:
+            raise SystemExit(f"probe: the source no longer has {old!r}")
+        source = source.replace(old, new, 1)
+    return source
+
+
+def build_all(sources):
+    """Compile {name: source text} side by side; {name: ctypes library}."""
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        (PROBE_DIR / header.name).write_bytes(header.read_bytes())
+    jobs = {}
+    for name, text in sources.items():
+        cu = PROBE_DIR / f"{name}.cu"
+        cu.write_text(text)
+        jobs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(PROBE_DIR / f"lib{name}.so"), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"probe: {name} did not build\n{out}")
+        spills = sorted({line.strip() for line in out.splitlines()
+                         if "spill" in line and " 0 bytes spill stores" not in line})
+        if spills:
+            print(f"{name}: spills {spills}")
+        lib = ctypes.CDLL(str(PROBE_DIR / f"lib{name}.so"))
+        kernel = "rank_softmax" if name.startswith("k1") else "tri_pool"
+        for fn, argtypes in build.ENTRY_POINTS[kernel].items():
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = argtypes
+        libs[name] = lib
+    return libs
+
+
+def inputs(b: int, dev: torch.device):
+    g = torch.Generator(device=dev).manual_seed(b)
+    v_r = torch.randn(b, V, R, X, device=dev, generator=g)
+    tqa = torch.randn(b, Q, A, R, X, G, device=dev, generator=g) / (R * X) ** 0.5
+    mask = torch.zeros(b, V, dtype=torch.bool, device=dev)
+    mask[:, :REAL] = True
+    vt = torch.randn(b, V, D, device=dev, generator=g)
+    qt = torch.randn(b, Q, D, device=dev, generator=g)
+    at = torch.randn(b, A, D, device=dev, generator=g)
+    att = torch.rand(b, V, Q, A, G, device=dev, generator=g)
+    return (v_r, tqa, mask), (vt, qt, at, att[..., 0])
+
+
+def caller(name, lib, k1, k2):
+    """The bare launch of library ``lib``'s kernel on these inputs and the
+    plain version's output to hold it to."""
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    if name.startswith("k1"):
+        v_r, tqa, mask = k1
+        out = torch.empty(*v_r.shape[:2], Q, A, G, device=v_r.device)
+        b = v_r.shape[0]
+        return out, K.fused_rank_softmax_ref(*k1), lambda: lib.rank_softmax_forward(
+            v_r.data_ptr(), tqa.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            b, V, R * X, Q * A, G, 0, stream())
+    vt, qt, at, w = k2
+    out = torch.empty(vt.shape[0], D, device=vt.device)
+    return out, K.trilinear_pool_ref(*k2), lambda: lib.tri_pool_forward(
+        vt.data_ptr(), qt.data_ptr(), at.data_ptr(), w.data_ptr(), *w.stride(),
+        out.data_ptr(), vt.shape[0], V, Q, A, D, 0, stream())
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("probe: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip())
+    k1_src = (build.CSRC / "rank_softmax.cu").read_text()
+    k2_src = (build.CSRC / "tri_pool.cu").read_text()
+    timeline = edited(k1_src, TIMELINE) + READ_STAMPS
+    # the last stamp: after the normalise loop, at the kernel's closing brace
+    close = timeline.rindex("}\n", 0, timeline.index(KERNEL_END))
+    timeline = timeline[:close] + "  STAMP(43);\n  STAMP_NS(1);\n" + timeline[close:]
+    sources = {"k1_timeline": timeline, "k1 shipped": k1_src,
+               "k2 shipped": k2_src}
+    sources.update({f"k1 {n}": edited(k1_src, e) for n, e in K1_VARIANTS.items()})
+    sources.update({f"k2 {n}": edited(k2_src, e) for n, e in K2_VARIANTS.items()})
+    libs = build_all({n.replace(" ", "_").replace(",", ""): s
+                      for n, s in sources.items()})
+    names = dict(zip(libs, sources))
+
+    flush = torch.empty(128 * 2**20 // 4, device=dev)
+    cycles_per_ms = sleep_cycles_per_ms()
+    tiny = torch.zeros(1, device=dev)
+    floor, _ = time_ms(tiny.zero_, flush, cycles_per_ms)
+    print(f"a launch with no work (4-byte zero_), cold L2: {floor * 1e3:.1f} µs")
+    with torch.inference_mode():
+        lib = libs["k1_timeline"]
+        lib.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        for b in (1, 128):
+            k1, k2 = inputs(b, dev)
+            _, _, launch = caller("k1", lib, k1, k2)
+            for _ in range(3):
+                launch()
+            flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            launch()
+            torch.cuda.synchronize()
+            clk = np.zeros(64, np.int64)
+            ns = np.zeros(2, np.uint64)
+            assert lib.probe_read(clk.ctypes.data, ns.ctypes.data) == 0
+            per_us = (clk[43] - clk[0]) / ((int(ns[1]) - int(ns[0])) / 1e3)
+            us = (clk - clk[0]) / per_us
+            n_chunks = R * X // 32
+            chunks = " ".join(f"{us[2 + 2 * c]:.1f}/{us[3 + 2 * c]:.1f}"
+                              for c in range(n_chunks))
+            print(f"K1 timeline, block 0 at B={b} (µs from its start, "
+                  f"{per_us:.0f} cycles/µs): first stages requested "
+                  f"{us[1]:.2f}; chunk landed/multiplied {chunks}; loop done "
+                  f"{us[40]:.2f}; max and sum {us[41]:.2f}; block reduction "
+                  f"{us[42]:.2f}; normalised {us[43]:.2f}")
+        for b in (1, 128, 256):
+            k1, k2 = inputs(b, dev)
+            row = []
+            for key, lib in libs.items():
+                if key == "k1_timeline":
+                    continue
+                out, want, launch = caller(key, lib, k1, k2)
+                assert launch() == 0
+                torch.cuda.synchronize()
+                err = ((out - want).abs().max() / want.abs().max()).item()
+                if err > 2e-4:
+                    raise SystemExit(f"probe: {names[key]} is off by {err:.2e}")
+                ms, _ = time_ms(launch, flush, cycles_per_ms)
+                row.append(f"{names[key]} {ms * 1e3:.1f}")
+            print(f"B={b}, µs, cold L2: " + "; ".join(row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -181,6 +181,12 @@ def _check_cuda(device: torch.device, **contiguous: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -198,12 +204,14 @@ def _rank_softmax_kernel(v_r, tqa, v_mask) -> torch.Tensor:
     if Q * A > RANK_SOFTMAX_MAX_QA:
         raise ValueError(f"Q*A = {Q * A} exceeds the kernel's "
                          f"{RANK_SOFTMAX_MAX_QA}")
+    if (R * X) % 4:
+        raise ValueError(f"R*X = {R * X} must be a multiple of 4 "
+                         "(the kernel's 16-byte copies)")
+    _check_aligned(v_r=v_r, tqa=tqa)
     out = torch.empty((B, V, Q, A, G), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     fn = build.load("rank_softmax").rank_softmax_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     _raise_on(fn(v_r.data_ptr(), tqa.data_ptr(), v_mask.data_ptr(),
                  out.data_ptr(), B, V, R * X, Q * A, G, dev.index or 0,
                  _stream(dev)), "rank_softmax_forward")
@@ -219,13 +227,14 @@ def _tri_pool_kernel(vt, qt, at, w) -> torch.Tensor:
     if Q > TRI_POOL_MAX_Q or A > TRI_POOL_MAX_A:
         raise ValueError(f"Q={Q}, A={A} exceed the kernel's "
                          f"{TRI_POOL_MAX_Q}, {TRI_POOL_MAX_A}")
+    if D % 4:
+        raise ValueError(f"D = {D} must be a multiple of 4 "
+                         "(the kernel's 16-byte copies)")
+    _check_aligned(vt=vt, qt=qt, at=at)
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     fn = build.load("tri_pool").tri_pool_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     _raise_on(fn(vt.data_ptr(), qt.data_ptr(), at.data_ptr(), w.data_ptr(),
                  *w.stride(), out.data_ptr(), B, V, Q, A, D, dev.index or 0,
                  _stream(dev)), "tri_pool_forward")
@@ -245,8 +254,6 @@ def _softmax_vqa_call(fn_name: str, counter: str, names, a: torch.Tensor,
     if out.numel() == 0:
         return out
     fn = getattr(build.load("softmax_vqa"), fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     _raise_on(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), B, V, Q * A, G,
                  dev.index or 0, _stream(dev)), fn_name)
     _count(counter)
@@ -322,7 +329,8 @@ def fused_rank_softmax(v_r: torch.Tensor, tqa: torch.Tensor,
     ``einsum('birx,bjlrxg->bijlg', v_r, tqa)``.
 
     ``v_r`` [B,V,R,X] and ``tqa`` [B,Q,A,R,X,G] float32, ``v_mask`` [B,V]
-    bool; on CUDA all three contiguous and Q*A <= 256."""
+    bool; on CUDA all three contiguous, ``v_r`` and ``tqa`` 16-byte aligned,
+    R*X a multiple of 4 and Q*A <= 256."""
     B, V, R, X = v_r.shape
     Q, A, G = tqa.shape[1], tqa.shape[2], tqa.shape[-1]
     dev = v_r.device
@@ -339,7 +347,8 @@ def trilinear_pool(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
     """out [B,D] = sum_{i,j,l} vt[b,i,d] w[b,i,j,l] qt[b,j,d] at[b,l,d].
 
     ``vt`` [B,V,D], ``qt`` [B,Q,D], ``at`` [B,A,D], ``w`` [B,V,Q,A], all
-    float32; on CUDA ``vt``/``qt``/``at`` contiguous, Q <= 32 and A <= 8.
+    float32; on CUDA ``vt``/``qt``/``at`` contiguous and 16-byte aligned,
+    D a multiple of 4, Q <= 32 and A <= 8.
     ``w`` may have any strides: the kernel reads one glimpse of the
     [B,V,Q,A,G] attention (``att[..., g]``, stride G) in place, and the
     backward's ``gw`` flows back into the attention's gradient."""
