@@ -10,7 +10,10 @@ them caught, so any failure exits non-zero:
    inputs the full-width CTI model gives it at batch 1 and 128 (V=50, 44
    real boxes, the last row fully masked), on ragged large-V inputs, and
    at the edges of K1's and K2's tiles (V one past a tile, 1 and 3
-   glimpses, D not a multiple of K2's d span); then the forwards and
+   glimpses, D not a multiple of K2's d span) and of K3's and the softmax
+   backward's (1 and 3 glimpses, slices of no whole number of 16-byte
+   units, V at the register-resident limit and one past it, one sample
+   with every box real, inputs off a 16-byte boundary); then the forwards and
    gradients of the three ``autograd.Function``s (K1, K2, K3) against
    their plain versions and autograd through them, at the model's inputs
    for batch 256 and on ragged large-V inputs;
@@ -19,7 +22,10 @@ them caught, so any failure exits non-zero:
    while the host enqueues the call), beside the card's bound for the same
    work: K1 and K2 forward at the serving bucket B=128 and at the training
    batch B=256; K3, the softmax backward, and K1 and K2 forward+backward
-   at B=256;
+   at B=256.  The kernel and the yardstick are timed a second way too,
+   without the launch and event floor of a single call: many calls back
+   to back between two events, rotating through input copies that exceed
+   the L2 (``b2b``); a launch with no work is timed both ways;
 5. serve the full-width CTI model (bench.py's config, seeded weights) over
    HTTP on the card: JSON and npz ``/answer`` and ``/logits`` requests of
    1, 5 and 40 rows; check the answers against the logits, the logits
@@ -118,7 +124,8 @@ def main() -> int:
     from vqatpu_torch.data import Dictionary
     from vqatpu_torch.kernels import build
     from vqatpu_torch.kernels import trilinear as K
-    from vqatpu_torch.kernels.timing import sleep_cycles_per_ms, time_ms
+    from vqatpu_torch.kernels.timing import (copies_for, sleep_cycles_per_ms,
+                                             time_back_to_back_ms, time_ms)
     from vqatpu_torch.models import build_model
     from vqatpu_torch.numerics import require_f32_math
     from vqatpu_torch.serve import InferenceSession
@@ -234,13 +241,39 @@ def main() -> int:
     def check(label, k1_args, k2_args):
         return check_k1(label, k1_args), check_k2(label, k2_args)
 
+    def offset_copy(x, floats):
+        """A contiguous copy of ``x`` starting ``floats`` floats past a
+        16-byte boundary."""
+        buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+        out = buf[floats:floats + x.numel()].view(x.shape)
+        out.copy_(x)
+        return out
+
+    def softmax_edge(b, v_len, q_, a_, G_, shift, seed):
+        """K3's logits [b, v_len, q_, a_, G_] (``shift`` floats off a
+        16-byte boundary) and a ragged mask: with b > 1 the last sample is
+        fully masked, with b = 1 every box is real."""
+        g = torch.Generator().manual_seed(seed)
+        lens = torch.randint(1, v_len + 1, (b,), generator=g)
+        if b == 1:
+            lens[0] = v_len
+        mask = torch.arange(v_len)[None] < lens[:, None]
+        mask[-1] &= b == 1
+        logits = (3 * torch.randn(b, v_len, q_, a_, G_, generator=g)).to(dev)
+        return (offset_copy(logits, shift) if shift else logits), mask.to(dev)
+
     def check3(label, logits, mask):
         """K3 and the softmax backward kernel against their plain versions;
-        fully masked rows must be exact zeros in both."""
+        fully masked rows must be exact zeros in both.  Where the logits
+        are off a 16-byte boundary, so are att and the cotangent that the
+        backward takes."""
         got = K.masked_softmax_vqa(logits, mask)
         want = K.masked_softmax_vqa_ref(logits, mask)
         cot = torch.randn(logits.shape, device=dev, generator=torch.Generator(
             device=dev).manual_seed(logits.shape[0]))
+        shift = logits.data_ptr() % 16 // 4
+        if shift:
+            want, cot = offset_copy(want, shift), offset_copy(cot, shift)
         dl = K.softmax_vqa_backward(want, cot)
         dl_want = K.softmax_vqa_backward_ref(want, cot)
         torch.cuda.synchronize()
@@ -278,6 +311,19 @@ def main() -> int:
         for n, v_edge, d_edge in ((1, 65, 96), (2, 9, 352)):
             k2_edge = ragged_inputs(n, v_edge, seed=30 + n, D=d_edge)[1]
             check_k2(f"edge B={n} V={v_edge} D={d_edge}", k2_edge)
+        # softmax_vqa.cu holds 8 floats of each input a thread in registers
+        # with up to 1024 threads (960 at 3 glimpses): 113 boxes of Q*A=36
+        # are resident at G=2, 227 at G=1, 71 at G=3, one more box is not;
+        # 7*5*3 floats are no whole number of 16-byte units; a shift puts
+        # the inputs off a 16-byte boundary, out of phase with the outputs
+        for n, v_edge, q_, a_, G_, shift in (
+                (2, 65, Q, A, 1, 0), (2, 65, Q, A, 3, 0), (3, 7, 5, 3, 1, 0),
+                (2, 113, Q, A, 2, 0), (2, 114, Q, A, 2, 0), (2, 227, Q, A, 1, 0),
+                (2, 228, Q, A, 1, 0), (2, 71, Q, A, 3, 0), (2, 72, Q, A, 3, 0),
+                (1, V, Q, A, 2, 0), (2, 10, Q, A, 2, 1), (4, 293, Q, A, 2, 3)):
+            errs3[("edge", n, v_edge, q_, G_, shift)] = check3(
+                f"edge B={n} V={v_edge} Q*A={q_ * a_} G={G_} shift={shift}",
+                *softmax_edge(n, v_edge, q_, a_, G_, shift, seed=40 + v_edge))
 
     def grad_check(label, names, fn, ref, args, cot, fwd_tol):
         """The forward and the gradients of ``fn`` (the kernel's
@@ -332,22 +378,37 @@ def main() -> int:
                 att_big, 1, *k3_big)
     del d, k1_big, k2_big, k3_big, att_big
 
-    def timed(name, label, fn, plain, lib, nbytes, flops, flush, row=None):
-        """Times of ``fn``, its plain version and the library yardstick,
-        beside the card's bound; with ``row`` = (source, replaces, err), the
-        kernel's row of the JSON line."""
+    def clone_args(args):
+        return tuple(x.detach().clone().requires_grad_(x.requires_grad)
+                     for x in args)
+
+    def timed(name, label, fns, args, nbytes, flops, row=None):
+        """Times of the kernel, its plain version and the library yardstick
+        (``fns``, each called on ``args``) beside the card's bound: each as
+        a single call, and the kernel and the yardstick back to back over
+        rotating copies of ``args`` (``b2b``, no launch or event floor);
+        with ``row`` = (source, replaces, err), the kernel's row of the
+        JSON line."""
         t_bytes, t_flops = nbytes / peak_bw * 1e3, flops / peak_f32 * 1e3
         (ms, host), (plain_ms, plain_host), (lib_ms, lib_host) = (
-            time_ms(f, flush, cycles_per_ms) for f in (fn, plain, lib))
+            time_ms(lambda f=f: f(*args), flush, cycles_per_ms) for f in fns)
+        n_copies = copies_for(nbytes)
+        copies = [args] + [clone_args(args) for _ in range(n_copies - 1)]
+        calls = copies * -(-20 // n_copies)
+        b2b, lib_b2b = (time_back_to_back_ms(
+            [lambda f=f, c=c: f(*c) for c in calls], cycles_per_ms)
+            for f in (fns[0], fns[2]))
+        del copies, calls
         r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_flops),
              "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-             "library_ms": lib_ms}
+             "library_ms": lib_ms, "b2b_ms": b2b, "library_b2b_ms": lib_b2b}
         print(f"{name} {label}: {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} "
               f"us, library {lib_ms * 1e3:.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); host enqueue "
               f"{host * 1e3:.1f} / {plain_host * 1e3:.1f} / "
-              f"{lib_host * 1e3:.1f} us")
+              f"{lib_host * 1e3:.1f} us; b2b {b2b * 1e3:.2f} us, library b2b "
+              f"{lib_b2b * 1e3:.2f} us ({n_copies} input copies)")
         if row is None:
             return r
         src, line, err = row
@@ -363,8 +424,14 @@ def main() -> int:
     flush = torch.empty(128 * 2**20 // 4, device=dev)  # > the 50 MB L2
     cycles_per_ms = sleep_cycles_per_ms()
     f32, QA = 4, Q * A
+    tiny = [torch.zeros(1, device=dev) for _ in range(20)]
+    floor_ms, _ = time_ms(tiny[0].zero_, flush, cycles_per_ms)
+    floor_b2b = time_back_to_back_ms([x.zero_ for x in tiny], cycles_per_ms)
+    print(f"a launch with no work (4-byte zero_): {floor_ms * 1e3:.1f} us as "
+          f"a single call, {floor_b2b * 1e3:.2f} us back to back")
+    del tiny
 
-    def k1_cost(v_r, tqa, mask):
+    def k1_cost(v_r, tqa, mask, keep=None):
         """Bytes (inputs read once, att written once) and FLOP of K1."""
         B_, V_, R_, X_ = v_r.shape
         G_ = tqa.shape[-1]
@@ -377,46 +444,50 @@ def main() -> int:
         return ((vt.numel() + qt.numel() + at.numel() + B_ * V_ * QA + B_ * D_)
                 * f32, 2 * B_ * D_ * (V_ * QA + QA + A))
 
-    def k1_library(v_r, tqa, mask):
-        """One bmm, then a masked softmax over the flattened (V, Q, A)."""
+    def k1_library(v_r, tqa, mask, keep):
+        """One bmm, then a masked softmax over the flattened (V, Q, A);
+        ``keep`` is the mask repeated over (Q, A)."""
         B_, V_, R_, X_ = v_r.shape
         G_ = tqa.shape[-1]
-        keep = mask.repeat_interleave(QA, 1)[..., None]
+        lg = torch.bmm(v_r.reshape(B_, V_, R_ * X_), tqa.permute(
+            0, 3, 4, 1, 2, 5).reshape(B_, R_ * X_, QA * G_))
+        return torch.softmax(lg.reshape(B_, V_ * QA, G_).masked_fill(
+            ~keep, float("-inf")), dim=1)
 
-        def run():
-            lg = torch.bmm(v_r.reshape(B_, V_, R_ * X_), tqa.permute(
-                0, 3, 4, 1, 2, 5).reshape(B_, R_ * X_, QA * G_))
-            return torch.softmax(lg.reshape(B_, V_ * QA, G_).masked_fill(
-                ~keep, float("-inf")), dim=1)
-        return run
+    def time_forwards(d_, label, rows=None):
+        """K1 and K2 forward on path inputs ``d_`` beside their plain
+        versions, their library yardsticks (for K2 the einsum chain of its
+        plain version) and their bounds; with ``rows``, as the kernels'
+        rows of the JSON line.  K2 reads glimpse 0 of the attention in
+        place, as the model does."""
+        k1_args = k1_of(d_) + (d_["mask"].repeat_interleave(QA, 1)[..., None],)
+        k2_args = (d_["vt"], d_["qt"], d_["at"], d_["att"])
 
-    def time_forwards(k1_args, k2_args, label, rows=None):
-        """K1 and K2 forward beside their plain versions, their library
-        yardsticks (for K2 the einsum chain of its plain version) and their
-        bounds; with ``rows``, as the kernels' rows of the JSON line."""
+        def on_glimpse0(f):
+            return lambda vt, qt, at, a: f(vt, qt, at, a[..., 0])
         return (
             timed("fused_rank_softmax", label,
-                  lambda: K.fused_rank_softmax(*k1_args),
-                  lambda: K.fused_rank_softmax_ref(*k1_args),
-                  k1_library(*k1_args), *k1_cost(*k1_args), flush,
+                  (lambda v, t, m, k: K.fused_rank_softmax(v, t, m),
+                   lambda v, t, m, k: K.fused_rank_softmax_ref(v, t, m),
+                   k1_library), k1_args, *k1_cost(*k1_args),
                   row=None if rows is None else rows[0]),
             timed("trilinear_pool", label,
-                  lambda: K.trilinear_pool(*k2_args),
-                  lambda: K.trilinear_pool_ref(*k2_args),
-                  lambda: K.trilinear_pool_ref(*k2_args),
-                  *k2_cost(*k2_args), flush,
+                  (on_glimpse0(K.trilinear_pool),
+                   on_glimpse0(K.trilinear_pool_ref),
+                   on_glimpse0(K.trilinear_pool_ref)), k2_args,
+                  *k2_cost(*k2_of(d_)),
                   row=None if rows is None else rows[1]))
 
     with torch.inference_mode():
         # -- 4. K1 and K2 at the serving bucket B=128 and at B=256 ---------
         d128 = path_inputs(128, seed=138, pad_row=True)
-        rows = list(time_forwards(k1_of(d128), k2_of(d128), "B=128", rows=(
+        rows = list(time_forwards(d128, "B=128", rows=(
             ("rank_softmax.cu", "vqatpu/kernels/trilinear.py:303",
              max(errs[1][0], errs[128][0])),
             ("tri_pool.cu", "vqatpu/kernels/trilinear.py:369",
              max(errs[1][1], errs[128][1])))))
         del d128
-        time_forwards(k1_of(d), k2_of(d), f"B={TRAIN_B}")
+        time_forwards(d, f"B={TRAIN_B}")
         G = d["tqa"].shape[-1]
 
         # -- 4b. K3 and the softmax backward at the training batch ---------
@@ -425,21 +496,21 @@ def main() -> int:
         n_el = att.numel()
         rows.append(timed(
             "masked_softmax_vqa", f"B={B}",
-            lambda: K.masked_softmax_vqa(logits, mask),
-            lambda: K.masked_softmax_vqa_ref(logits, mask),
-            lambda: torch.softmax(logits.reshape(B, V * QA, G).masked_fill(
-                ~mask_flat, float("-inf")), dim=1),
-            2 * n_el * f32 + mask.numel(), 5 * n_el, flush,
+            (lambda lg, m, mf: K.masked_softmax_vqa(lg, m),
+             lambda lg, m, mf: K.masked_softmax_vqa_ref(lg, m),
+             lambda lg, m, mf: torch.softmax(lg.reshape(
+                 B, V * QA, G).masked_fill(~mf, float("-inf")), dim=1)),
+            (logits, mask, mask_flat), 2 * n_el * f32 + mask.numel(),
+            5 * n_el,
             row=("softmax_vqa.cu", "vqatpu/kernels/trilinear.py:207",
                  max(e[0] for e in errs3.values()))))
         rows.append(timed(
             "softmax_vqa_backward", f"B={B}",
-            lambda: K.softmax_vqa_backward(att, cot),
-            lambda: K.softmax_vqa_backward_ref(att, cot),
-            lambda: torch.ops.aten._softmax_backward_data(
-                cot.reshape(B, V * QA, G), att.reshape(B, V * QA, G), 1,
-                torch.float32),
-            3 * n_el * f32, 4 * n_el, flush,
+            (K.softmax_vqa_backward, K.softmax_vqa_backward_ref,
+             lambda a, c: torch.ops.aten._softmax_backward_data(
+                 c.reshape(B, V * QA, G), a.reshape(B, V * QA, G), 1,
+                 torch.float32)),
+            (att, cot), 3 * n_el * f32, 4 * n_el,
             row=("softmax_vqa.cu", "vqatpu/kernels/trilinear.py:237",
                  max(e[1] for e in errs3.values()))))
 
@@ -450,7 +521,7 @@ def main() -> int:
     g1, g2 = cotangent(att.shape, 5), cotangent((B, D), 6)
 
     def k1_fb(fn):
-        return lambda: torch.autograd.grad(fn(v_r, tqa, mask), (v_r, tqa), g1)
+        return lambda v, t, m, g: torch.autograd.grad(fn(v, t, m), (v, t), g)
 
     def k1_bmm_softmax(v_r, tqa, mask):
         lg = torch.bmm(v_r.reshape(B, V, RX),
@@ -459,8 +530,8 @@ def main() -> int:
         return torch.softmax(lg, dim=1).reshape(att.shape)
 
     def k2_fb(fn):
-        return lambda: torch.autograd.grad(fn(vt, qt, at, att[..., 0]),
-                                           (vt, qt, at, att), g2)
+        return lambda vt, qt, at, a, g: torch.autograd.grad(
+            fn(vt, qt, at, a[..., 0]), (vt, qt, at, a), g)
 
     # inputs read once and outputs written once: K1 (v_r, tqa, mask, g) ->
     # (att, dv, dtqa); K2 (vt, qt, at, w, g) -> (out, gvt, gqt, gat, gw)
@@ -473,12 +544,14 @@ def main() -> int:
     fwd_bwd = {
         "fused_rank_softmax": timed(
             "fused_rank_softmax forward+backward", f"B={B}",
-            k1_fb(K.fused_rank_softmax), k1_fb(K.fused_rank_softmax_ref),
-            k1_fb(k1_bmm_softmax), k1_fb_bytes, k1_fb_flops, flush),
+            (k1_fb(K.fused_rank_softmax), k1_fb(K.fused_rank_softmax_ref),
+             k1_fb(k1_bmm_softmax)), (v_r, tqa, mask, g1),
+            k1_fb_bytes, k1_fb_flops),
         "trilinear_pool": timed(
             "trilinear_pool forward+backward", f"B={B} (one glimpse)",
-            k2_fb(K.trilinear_pool), k2_fb(K.trilinear_pool_ref),
-            k2_fb(K.trilinear_pool_ref), k2_fb_bytes, k2_fb_flops, flush)}
+            (k2_fb(K.trilinear_pool), k2_fb(K.trilinear_pool_ref),
+             k2_fb(K.trilinear_pool_ref)), (vt, qt, at, att, g2),
+            k2_fb_bytes, k2_fb_flops)}
     del flush, d, logits, mask, att, cot, v_r, tqa, vt, qt, at, g1, g2
 
     # -- 5. the main path: HTTP serving at full width ---------------------

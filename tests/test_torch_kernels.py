@@ -16,7 +16,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from vqatpu.kernels.blockwise import precontract_qa as jax_precontract_qa
-from vqatpu.kernels.trilinear import (_masked_softmax_pallas_vjp,
+from vqatpu.kernels.trilinear import (_masked_softmax_pallas_vjp, _softmax_bwd,
                                       attention_logits_xla,
                                       fused_rank_softmax as jax_rank_softmax,
                                       masked_softmax_vqa_pallas,
@@ -39,6 +39,26 @@ K1_EDGES = [pytest.param(57, 57, 1, 2, id="B1-57-57-G2"),
             pytest.param(65, 60, 2, 3, id="B2-65-60-G3")]
 K2_EDGES = [pytest.param(65, 1, 96, id="B1-65-D96"),
             pytest.param(9, 2, 352, id="B2-9-D352")]
+# csrc/softmax_vqa.cu takes one sample a block over all glimpses; it holds
+# 8 floats of each input a thread in registers, with up to 1024 threads
+# (960 at G=3), so 113 boxes of 12*3*2 floats are resident and 114 are
+# not; 7*5*3 floats a sample are no whole number of 16-byte units.  Cases
+# are (V, n_real, b, q, a, g); with b > 1 the last sample is fully masked.
+K3_EDGES = [pytest.param(65, 60, 2, Q, A, 1, id="B2-65-60-G1"),
+            pytest.param(65, 60, 2, Q, A, 3, id="B2-65-60-G3"),
+            pytest.param(7, 5, 3, 5, 3, 1, id="B3-7-5-Q5A3G1"),
+            pytest.param(113, 100, 2, Q, A, G, id="B2-113-100-resident"),
+            pytest.param(114, 100, 2, Q, A, G, id="B2-114-100-looped"),
+            pytest.param(50, 50, 1, Q, A, G, id="B1-50-50-all-real")]
+
+
+def softmax_inputs(rng, V, n_real, b=B, q=Q, a=A, g=G):
+    """Logits [b,V,q,a,g] and a mask with n_real boxes a sample, the last
+    sample fully masked when b > 1."""
+    logits = (3 * rng.randn(b, V, q, a, g)).astype(np.float32)
+    mask = np.repeat(np.arange(V)[None] < n_real, b, 0)
+    mask[-1] &= b == 1
+    return logits, mask
 
 
 def attention_inputs(rng, V, n_real, b=B, g=G):
@@ -214,29 +234,33 @@ def test_trilinear_pool_grads_match_jax_custom_vjp(rng, V):
     np.testing.assert_array_equal(got[3][..., 0], 0.0)
 
 
-@pytest.mark.parametrize("V,n_real", [(10, 8), (300, 263)])
-def test_masked_softmax_vqa_matches_pallas_forward_and_grad(rng, V, n_real):
+@pytest.mark.parametrize("V,n_real,b,q,a,g", [
+    pytest.param(10, 8, B, Q, A, G, id="10-8"),
+    pytest.param(300, 263, B, Q, A, G, id="300-263")] + K3_EDGES)
+def test_masked_softmax_vqa_matches_pallas_forward_and_grad(rng, V, n_real,
+                                                            b, q, a, g):
     """K3: the forward against ``masked_softmax_vqa_pallas`` and the
-    gradient against its ``custom_vjp``; the last sample is fully masked
-    and gives zeros and a zero gradient."""
-    logits = (3 * rng.randn(B, V, Q, A, G)).astype(np.float32)
-    mask = np.repeat(np.arange(V)[None] < n_real, B, 0)
-    mask[-1] = False
+    gradient against its ``custom_vjp``; with more than one sample the last
+    is fully masked and gives zeros and a zero gradient.  The K3_EDGES
+    cases are the CUDA kernel's edges."""
+    logits, mask = softmax_inputs(rng, V, n_real, b, q, a, g)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(masked_softmax_vqa_pallas(jnp.asarray(logits),
                                                     jnp.asarray(mask)))
     got = K.masked_softmax_vqa(torch.from_numpy(logits),
                                torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
-    np.testing.assert_array_equal(got[-1], 0.0)
+    if b > 1:
+        np.testing.assert_array_equal(got[-1], 0.0)
     np.testing.assert_array_equal(got[:, n_real:], 0.0)
-    g = rng.randn(*logits.shape).astype(np.float32)
+    cot = rng.randn(*logits.shape).astype(np.float32)
     (want_g,) = vjp_jax(lambda x: _masked_softmax_pallas_vjp(x, jnp.asarray(mask)),
-                        (logits,), g)
+                        (logits,), cot)
     (got_g,) = grads_torch(lambda x: K.masked_softmax_vqa(
-        x, torch.from_numpy(mask)), (logits,), g)
+        x, torch.from_numpy(mask)), (logits,), cot)
     np.testing.assert_allclose(got_g, want_g, atol=1e-5)
-    np.testing.assert_array_equal(got_g[-1], 0.0)
+    if b > 1:
+        np.testing.assert_array_equal(got_g[-1], 0.0)
 
 
 def test_trilinear_attention_matches_jax_pallas_backend(rng):
@@ -294,6 +318,26 @@ def test_softmax_vqa_backward_matches_autograd(rng):
     got = K.softmax_vqa_backward(att, torch.from_numpy(g)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6)
     np.testing.assert_array_equal(got[:, 7:], 0.0)
+
+
+@pytest.mark.parametrize("V,n_real,b,q,a,g", K3_EDGES)
+def test_softmax_vqa_backward_matches_autograd_at_edges(rng, V, n_real, b, q,
+                                                        a, g):
+    """The softmax backward at the CUDA kernel's edges, against autograd of
+    the plain softmax and against JAX's ``_softmax_bwd`` (the Pallas
+    ``custom_vjp``'s backward)."""
+    logits, mask = softmax_inputs(rng, V, n_real, b, q, a, g)
+    cot = rng.randn(*logits.shape).astype(np.float32)
+    (want,) = grads_torch(lambda x: K.masked_softmax_vqa_ref(
+        x, torch.from_numpy(mask)), (logits,), cot)
+    att = K.masked_softmax_vqa_ref(*t(logits, mask))
+    got = K.softmax_vqa_backward(att, torch.from_numpy(cot)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    want_jax, _ = _softmax_bwd(jnp.asarray(att.numpy()), jnp.asarray(cot))
+    np.testing.assert_allclose(got, np.asarray(want_jax), atol=1e-6)
+    np.testing.assert_array_equal(got[:, n_real:], 0.0)
+    if b > 1:
+        np.testing.assert_array_equal(got[-1], 0.0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "mask_dtype", "device"])
@@ -394,23 +438,57 @@ def test_masked_softmax_checks_its_inputs(rng, bad):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,n_real", [(10, 8), (50, 44), (2048, 1999)])
-def test_cuda_masked_softmax_and_backward_match_plain(rng, cuda, V, n_real):
-    logits = torch.from_numpy((3 * rng.randn(B, V, Q, A, G)).astype(np.float32))
-    mask = torch.from_numpy(np.repeat(np.arange(V)[None] < n_real, B, 0))
-    mask[-1] = False
-    g = torch.from_numpy(rng.randn(B, V, Q, A, G).astype(np.float32))
-    logits, mask, g = (x.to(cuda) for x in (logits, mask, g))
+def offset_copy(x: torch.Tensor, floats: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``floats`` floats past a
+    16-byte boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    out = buf[floats:floats + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,n_real,b,q,a,g,shift", [
+    pytest.param(10, 8, B, Q, A, G, 0, id="10-8"),
+    pytest.param(50, 44, B, Q, A, G, 0, id="50-44"),
+    pytest.param(2048, 1999, B, Q, A, G, 0, id="2048-1999")] + [
+    pytest.param(*p.values, 0, id=p.id) for p in K3_EDGES] + [
+    pytest.param(227, 200, 2, Q, A, 1, 0, id="B2-227-200-G1-resident"),
+    pytest.param(228, 200, 2, Q, A, 1, 0, id="B2-228-200-G1-looped"),
+    pytest.param(71, 60, 2, Q, A, 3, 0, id="B2-71-60-G3-resident"),
+    pytest.param(72, 60, 2, Q, A, 3, 0, id="B2-72-60-G3-looped"),
+    pytest.param(10, 8, B, Q, A, G, 1, id="10-8-misaligned"),
+    pytest.param(300, 263, B, Q, A, G, 3, id="300-263-misaligned")])
+def test_cuda_masked_softmax_and_backward_match_plain(rng, cuda, V, n_real, b,
+                                                      q, a, g, shift):
+    """With ``shift`` the inputs start that many floats past a 16-byte
+    boundary, so the outputs (fresh, aligned) are out of phase with them
+    and the kernels take 4-byte units."""
+    logits, mask = softmax_inputs(rng, V, n_real, b, q, a, g)
+    cot = torch.from_numpy(rng.randn(*logits.shape).astype(np.float32)).to(cuda)
+    logits, mask = (x.to(cuda) for x in t(logits, mask))
+    if shift:
+        logits, cot = offset_copy(logits, shift), offset_copy(cot, shift)
     K.reset_launches()
     att = K.masked_softmax_vqa(logits, mask)
-    dl = K.softmax_vqa_backward(att, g)
+    att_in = offset_copy(att, shift) if shift else att
+    dl = K.softmax_vqa_backward(att_in, cot)
     assert K.launches["masked_softmax_vqa"] == 1
     assert K.launches["softmax_vqa_backward"] == 1
     torch.testing.assert_close(att, K.masked_softmax_vqa_ref(logits, mask),
                                rtol=0, atol=1e-5)
-    torch.testing.assert_close(dl, K.softmax_vqa_backward_ref(att, g),
+    torch.testing.assert_close(dl, K.softmax_vqa_backward_ref(att, cot),
                                rtol=0, atol=1e-5)
-    assert (att[-1] == 0).all() and (dl[-1] == 0).all()
+    assert b == 1 or ((att[-1] == 0).all() and (dl[-1] == 0).all())
+
+
+def test_softmax_vqa_refuses_more_glimpses_than_its_kernel():
+    """The limit is checked before anything needs the card."""
+    logits = torch.zeros(1, 2, 1, 1, K.SOFTMAX_VQA_MAX_G + 1)
+    with pytest.raises(ValueError, match="exceeds the kernel"):
+        K._softmax_vqa_call("masked_softmax_vqa_forward", "masked_softmax_vqa",
+                            ("logits", "v_mask"), logits.to("meta"),
+                            torch.ones(1, 2, dtype=torch.bool).to("meta"))
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
 """Where K1's and K2's time goes on one CUDA card, and how designs next to
-theirs compare.  Run from the repository root on a machine with the card:
+theirs and to those of ``csrc/softmax_vqa.cu`` compare.  Run from the repository root on a machine with the card:
 ``python3 -m vqatpu_torch.kernels.probe``.  Prints its findings; it is not
 part of ``chip_smoke.py``'s checks.
 
@@ -13,9 +13,14 @@ part of ``chip_smoke.py``'s checks.
    with one constant changed (ring depth, chunk, rows per stage, threads
    per block), built side by side and timed with the shipped kernels on
    the same inputs (cold L2, as ``chip_smoke.py`` times), each checked
-   against the plain version first.
+   against the plain version first.  Copies of ``csrc/softmax_vqa.cu``
+   with another number of floats a thread (and so of threads a block),
+   timed the same way and back to back over input copies that exceed the
+   L2, forward (K3) and backward.
 3. The floor of that timing: a launch that does no work (a 4-byte
-   ``zero_``), timed the same way.
+   ``zero_``), timed the same way, and timed back to back (many launches
+   between two events, :func:`~vqatpu_torch.kernels.timing.time_back_to_back_ms`),
+   which leaves out the single call's event overhead.
 
 The copies are made by replacing lines of the sources; a source edited
 so that a line is gone makes this script stop with that line's text.
@@ -32,7 +37,8 @@ import torch
 
 from vqatpu_torch.kernels import build
 from vqatpu_torch.kernels import trilinear as K
-from vqatpu_torch.kernels.timing import sleep_cycles_per_ms, time_ms
+from vqatpu_torch.kernels.timing import (copies_for, sleep_cycles_per_ms,
+                                         time_back_to_back_ms, time_ms)
 
 V, REAL, Q, A, R, X, G, D = 50, 44, 12, 3, 32, 16, 2, 1024
 PROBE_DIR = build.BUILD_DIR / "probe"
@@ -94,6 +100,63 @@ K1_VARIANTS = {
         ("constexpr int KC = 32;", "constexpr int KC = 16;"),
         ("constexpr int STAGES = 4;", "constexpr int STAGES = 8;")],
 }
+# one exchange: every thread sums the warps' partials itself, with no
+# second stage in warp 0 and one __syncthreads a reduction fewer
+ONE_EXCHANGE = ("""  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int gg = 0; gg < MAX_G; ++gg) {
+      if (gg >= G) break;
+      float v = lane < warps ? red[lane][gg] : Op::id;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
+      if (lane == 0) out[gg] = v;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < VW; ++j) tot[j] = out[gpos[j]];
+  etot = eg >= 0 ? out[eg] : Op::id;
+""", """  __syncthreads();
+  float tg[MAX_G];
+#pragma unroll
+  for (int gg = 0; gg < MAX_G; ++gg) {
+    tg[gg] = Op::id;
+    if (gg < G)
+      for (int w = 0; w < warps; ++w) tg[gg] = op(tg[gg], red[w][gg]);
+  }
+  etot = Op::id;
+#pragma unroll
+  for (int j = 0; j < VW; ++j) {
+    tot[j] = tg[0];
+#pragma unroll
+    for (int gg = 1; gg < MAX_G; ++gg)
+      if (gpos[j] == gg) tot[j] = tg[gg];
+  }
+#pragma unroll
+  for (int gg = 0; gg < MAX_G; ++gg)
+    if (eg == gg) etot = tg[gg];
+  (void)out;
+""")
+# the mask read from device memory (L1/L2) for each unit, not copied to
+# shared memory behind a __syncthreads
+MASK_FROM_GLOBAL = [
+    ("    for (int i = tid; i < V; i += T) smask[i] = mb[i];\n"
+     "    __syncthreads();\n", ""),
+    ("return smask[box] != 0; };", "return __ldg(mb + box) != 0; };")]
+K3_VARIANTS = {
+    "one exchange a reduction": [ONE_EXCHANGE],
+    "mask from device memory": MASK_FROM_GLOBAL,
+    "one exchange and mask from device memory": [ONE_EXCHANGE] + MASK_FROM_GLOBAL,
+    "4 floats a thread": [("constexpr int RES = 8;", "constexpr int RES = 4;")],
+    "16 floats a thread": [
+        ("constexpr int RES = 8;", "constexpr int RES = 16;"),
+        ("constexpr int MAX_THREADS = 1024;", "constexpr int MAX_THREADS = 512;")],
+    "32 floats a thread": [
+        ("constexpr int RES = 8;", "constexpr int RES = 32;"),
+        ("constexpr int MAX_THREADS = 1024;", "constexpr int MAX_THREADS = 256;")],
+}
 K2_VARIANTS = {
     "ring of 2 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")],
     "ring of 6 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 6;")],
@@ -135,7 +198,8 @@ def build_all(sources):
         if spills:
             print(f"{name}: spills {spills}")
         lib = ctypes.CDLL(str(PROBE_DIR / f"lib{name}.so"))
-        kernel = "rank_softmax" if name.startswith("k1") else "tri_pool"
+        kernel = {"k1": "rank_softmax", "k2": "tri_pool",
+                  "k3": "softmax_vqa"}[name[:2]]
         for fn, argtypes in build.ENTRY_POINTS[kernel].items():
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = argtypes
@@ -176,6 +240,35 @@ def caller(name, lib, k1, k2):
         out.data_ptr(), vt.shape[0], V, Q, A, D, 0, stream())
 
 
+def softmax_calls(lib, b: int, dev: torch.device):
+    """Bare launches of library ``lib``'s K3 forward and softmax backward
+    at the model's shapes for ``b`` samples, each on its own copy of the
+    inputs and outputs, enough copies to exceed the L2; with the plain
+    versions' outputs to hold the first copy's to."""
+    g = torch.Generator(device=dev).manual_seed(b)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    shape = (b, V, Q, A, G)
+    mask = torch.zeros(b, V, dtype=torch.bool, device=dev)
+    mask[:, :REAL] = True
+    n_copies = copies_for(5 * b * V * Q * A * G * 4)
+    fwd, bwd, first = [], [], None
+    for _ in range(n_copies):
+        logits = 3 * torch.randn(shape, device=dev, generator=g)
+        cot = torch.randn(shape, device=dev, generator=g)
+        att_in = K.masked_softmax_vqa_ref(logits, mask)
+        att, dl = torch.empty_like(logits), torch.empty_like(logits)
+        fwd.append(lambda lg=logits, o=att: lib.masked_softmax_vqa_forward(
+            lg.data_ptr(), mask.data_ptr(), o.data_ptr(), b, V, Q * A, G, 0,
+            stream))
+        bwd.append(lambda a=att_in, c=cot, o=dl: lib.softmax_vqa_backward(
+            a.data_ptr(), c.data_ptr(), o.data_ptr(), b, V, Q * A, G, 0,
+            stream))
+        if first is None:
+            first = ((att, K.masked_softmax_vqa_ref(logits, mask)),
+                     (dl, K.softmax_vqa_backward_ref(att_in, cot)))
+    return fwd, bwd, first
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe: torch.cuda.is_available() is false", file=sys.stderr)
@@ -186,6 +279,7 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip())
     k1_src = (build.CSRC / "rank_softmax.cu").read_text()
     k2_src = (build.CSRC / "tri_pool.cu").read_text()
+    k3_src = (build.CSRC / "softmax_vqa.cu").read_text()
     timeline = edited(k1_src, TIMELINE) + READ_STAMPS
     # the last stamp: after the normalise loop, at the kernel's closing brace
     close = timeline.rindex("}\n", 0, timeline.index(KERNEL_END))
@@ -194,15 +288,19 @@ def main() -> int:
                "k2 shipped": k2_src}
     sources.update({f"k1 {n}": edited(k1_src, e) for n, e in K1_VARIANTS.items()})
     sources.update({f"k2 {n}": edited(k2_src, e) for n, e in K2_VARIANTS.items()})
+    sources["k3 shipped, 8 floats a thread"] = k3_src
+    sources.update({f"k3 {n}": edited(k3_src, e) for n, e in K3_VARIANTS.items()})
     libs = build_all({n.replace(" ", "_").replace(",", ""): s
                       for n, s in sources.items()})
     names = dict(zip(libs, sources))
 
     flush = torch.empty(128 * 2**20 // 4, device=dev)
     cycles_per_ms = sleep_cycles_per_ms()
-    tiny = torch.zeros(1, device=dev)
-    floor, _ = time_ms(tiny.zero_, flush, cycles_per_ms)
-    print(f"a launch with no work (4-byte zero_), cold L2: {floor * 1e3:.1f} µs")
+    tiny = [torch.zeros(1, device=dev) for _ in range(20)]
+    floor, _ = time_ms(tiny[0].zero_, flush, cycles_per_ms)
+    floor_b2b = time_back_to_back_ms([x.zero_ for x in tiny], cycles_per_ms)
+    print(f"a launch with no work (4-byte zero_), cold L2: {floor * 1e3:.1f} µs; "
+          f"back to back: {floor_b2b * 1e3:.2f} µs a launch")
     with torch.inference_mode():
         lib = libs["k1_timeline"]
         lib.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
@@ -232,7 +330,7 @@ def main() -> int:
             k1, k2 = inputs(b, dev)
             row = []
             for key, lib in libs.items():
-                if key == "k1_timeline":
+                if key == "k1_timeline" or key.startswith("k3"):
                     continue
                 out, want, launch = caller(key, lib, k1, k2)
                 assert launch() == 0
@@ -243,6 +341,24 @@ def main() -> int:
                 ms, _ = time_ms(launch, flush, cycles_per_ms)
                 row.append(f"{names[key]} {ms * 1e3:.1f}")
             print(f"B={b}, µs, cold L2: " + "; ".join(row))
+        for b in (128, 256):
+            for key, lib in libs.items():
+                if not key.startswith("k3"):
+                    continue
+                fwd, bwd, first = softmax_calls(lib, b, dev)
+                times = []
+                for calls, (out, want) in zip((fwd, bwd), first):
+                    assert calls[0]() == 0
+                    torch.cuda.synchronize()
+                    err = (out - want).abs().max().item()
+                    if err > 1e-5:
+                        raise SystemExit(f"probe: {names[key]} is off by {err:.2e}")
+                    ms, _ = time_ms(calls[0], flush, cycles_per_ms)
+                    b2b = time_back_to_back_ms(calls * -(-20 // len(calls)),
+                                               cycles_per_ms)
+                    times.append(f"{ms * 1e3:.1f} / {b2b * 1e3:.2f}")
+                print(f"B={b} {names[key]}, µs single call / back to back: "
+                      f"K3 {times[0]}, softmax backward {times[1]}")
     return 0
 
 

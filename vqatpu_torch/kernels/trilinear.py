@@ -40,6 +40,8 @@ NEG_BIG = -1e30
 RANK_SOFTMAX_MAX_QA = 256
 TRI_POOL_MAX_Q = 32
 TRI_POOL_MAX_A = 8
+SOFTMAX_VQA_MAX_G = 8           # glimpses (the configs use 1 and 2)
+SOFTMAX_VQA_MAX_SLICE = 2**31 - 1  # floats of one sample, V*Q*A*G
 
 launches = {"fused_rank_softmax": 0, "trilinear_pool": 0,
             "masked_softmax_vqa": 0, "softmax_vqa_backward": 0}
@@ -249,6 +251,11 @@ def _softmax_vqa_call(fn_name: str, counter: str, names, a: torch.Tensor,
     one [B,V,Q,A,G] out; ``names`` name ``a`` and ``b`` in errors."""
     B, V, Q, A, G = a.shape
     dev = a.device
+    if G > SOFTMAX_VQA_MAX_G:
+        raise ValueError(f"G = {G} exceeds the kernel's {SOFTMAX_VQA_MAX_G}")
+    if V * Q * A * G > SOFTMAX_VQA_MAX_SLICE:
+        raise ValueError(f"V*Q*A*G = {V * Q * A * G} exceeds the kernel's "
+                         f"{SOFTMAX_VQA_MAX_SLICE} floats a sample")
     _check_cuda(dev, **dict(zip(names, (a, b))))
     out = torch.empty_like(a, memory_format=torch.contiguous_format)
     if out.numel() == 0:
@@ -370,7 +377,7 @@ def masked_softmax_vqa(logits: torch.Tensor,
     masked boxes zeroed (a fully masked sample gives zeros).
 
     ``logits`` [B,V,Q,A,G] float32, ``v_mask`` [B,V] bool; on CUDA both
-    contiguous."""
+    contiguous and G <= 8 (any alignment)."""
     _check5(logits, "logits")
     B, V = logits.shape[:2]
     dev = logits.device
@@ -383,7 +390,8 @@ def masked_softmax_vqa(logits: torch.Tensor,
 def softmax_vqa_backward(att: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """dl = ``att * (g - sum over (V,Q,A) of g * att)`` per glimpse, the
     backward of :func:`masked_softmax_vqa` and the first step of K1's.
-    ``att`` and ``g`` [B,V,Q,A,G] float32; on CUDA both contiguous."""
+    ``att`` and ``g`` [B,V,Q,A,G] float32; on CUDA both contiguous and
+    G <= 8 (any alignment)."""
     _check5(att, "att")
     _check(g, "g", att.shape, torch.float32, att.device)
     if att.device.type == "cpu":
