@@ -46,9 +46,39 @@ them caught, so any failure exits non-zero:
    CUDA events, the kernels' launches per step and share of the step, and
    a ``torch.profiler`` table of the ten costliest CUDA ops of a step.
 
-Each of the three paths (serving, logits, training) is driven with the
-launch counts set to 0 just before it and read just after; the kernels'
-``launches`` in the JSON line are their sums.
+The bf16 compute mode, the narrowed wires and by-id serving add to these
+phases:
+
+3b. the bf16-operand instances of K1 and K2 against their plain versions:
+    the full-width bf16 model's inputs at batch 1, 128 and 256 (K2 at
+    glimpse 0, all bf16, and at glimpse 1, bf16 ``vt`` with float32 ``qt``
+    and ``at``), the tiles' edges, misaligned operands (refused), and the
+    ``autograd.Function``s' forwards and gradients, which come back in the
+    primals' dtypes;
+4d. their times at B=128 and 256, single call and back to back, beside
+    the bound for bf16 operands and bf16 yardsticks (``bmm`` + masked
+    softmax, the einsum chain);
+5b. serving at ``compute_dtype="bfloat16"``, held to JAX's Pallas-backend
+    bf16 golden ``tests/data/torch_cti_golden_bf16.npz`` and to the budget
+    against the float32 golden; serving on the float16, bfloat16 and int8
+    wires with float32 compute, held to the float32 golden;
+6.  the per-bucket times for every wire and compute dtype (host packing,
+    upload, forward);
+7b. by-id serving from a seeded store of 2,000 images (10-100 boxes of
+    2048-d) resident on the card as int8 rows and as float32 rows, against
+    the upload paths; a ``.npz`` round trip through
+    ``ResidentFeatures.from_dataroot``; by-id times per bucket; 32
+    concurrent requests through ``MicroBatcher``; and the HTTP server
+    started by the CLI with ``--feature_split`` and ``--micro_batch``;
+8c. bf16 training: three steps against JAX's float32 and bf16 trajectories
+    (``tests/data/torch_cti_train_golden_bf16.npz``) within their budget;
+    samples/s at B=256 for bf16 compute and for the float32 and int8 wires
+    from host batches, each with a ``torch.profiler`` table.
+
+Each path (serving at each wire and compute dtype, the logits path, by-id
+serving, training in float32 and bf16) is driven with the launch counts set
+to 0 just before it and read just after; the kernels' ``launches`` in the
+JSON line are their sums.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or outside the repository, it exits non-zero with no result.
@@ -56,13 +86,19 @@ Without CUDA, or outside the repository, it exits non-zero with no result.
 
 from __future__ import annotations
 
+import copy
 import io
 import json
+import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import urllib.request
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -85,10 +121,21 @@ CPU_REL_TOL = 1e-4  # card vs CPU through the full-width layers, relative
 TRAIN_TOL = 1e-4    # training trajectories, relative (ROADMAP parity contract)
 SERVE_TOL = 1e-3    # logit-parity target (BASELINE.md)
 TRAIN_B, WARMUP, WINDOWS, ITERS = 256, 3, 5, 20  # bench.py:50-90, fewer windows
+# bf16 compute (tests/test_torch_model.py, tests/test_torch_train.py): the
+# port within BF16_BUDGET x JAX's own bf16 error (+1e-4) of JAX's float32
+# logits, and within BF16_DIRECT of the largest logit of JAX's bf16 ones; a
+# bf16 trajectory within 2 x JAX's bf16 error + BF16_FLOOR of each value
+BF16_BUDGET, BF16_DIRECT, BF16_FLOOR = 2.0, 1e-2, 2.0 ** -10
+BF16_GRAD_REL_TOL = 2.0 ** -7  # bf16 gradients: a rounding on each side
+BYID_TOL = 1e-5     # by-id vs the upload path on the same rows
+BATCHER_TOL = 1e-4  # coalesced rows vs one call of all rows: other buckets
+                    # choose other GEMM kernels, which sum in another order
+N_IMAGES = 2000     # the by-id store: 10-100 boxes an image
 
-# published peaks (NVIDIA data sheets): HBM bytes/s, f32 CUDA-core FLOP/s
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H200": (4.8e12, 67e12),
-         "H100": (3.35e12, 67e12)}
+# published peaks (NVIDIA data sheets): HBM bytes/s, f32 CUDA-core FLOP/s,
+# bf16 tensor-core FLOP/s (dense)
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12), "H200": (4.8e12, 67e12, 989e12),
+         "H100": (3.35e12, 67e12, 989e12)}
 
 
 def peaks_for(name: str):
@@ -128,10 +175,13 @@ def main() -> int:
                                              time_back_to_back_ms, time_ms)
     from vqatpu_torch.models import build_model
     from vqatpu_torch.numerics import require_f32_math
-    from vqatpu_torch.serve import InferenceSession
+    from vqatpu_torch.serve import (InferenceSession, MicroBatcher,
+                                    ResidentFeatures)
+    from vqatpu_torch.cli import serve as cli
     from vqatpu_torch.cli.serve import serve_in_thread
     from vqatpu_torch.config import TrainConfig
-    from vqatpu_torch.train import make_train_state, make_train_step
+    from vqatpu_torch.data.features import FeatureStore
+    from vqatpu_torch.train import make_train_state, make_train_step, wire_cast
     from vqatpu_torch.weights import (jax_params_from_torch, load_jax_params,
                                       numpy_batch, numpy_params, param_stats)
 
@@ -141,10 +191,10 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(smi)
     kind = torch.cuda.get_device_name(0)
-    peak_name, (peak_bw, peak_f32) = peaks_for(kind)
+    peak_name, (peak_bw, peak_f32, peak_bf16) = peaks_for(kind)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}; "
           f"peaks used: {peak_name} {peak_bw / 1e12} TB/s, "
-          f"{peak_f32 / 1e12} TFLOP/s f32")
+          f"{peak_f32 / 1e12} TFLOP/s f32, {peak_bf16 / 1e12} TFLOP/s bf16")
     require_f32_math()
     dev = torch.device("cuda")
 
@@ -154,7 +204,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(outputs)}")
     for name, out in outputs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
 
     # -- 3. kernels against their plain versions --------------------------
@@ -325,11 +375,13 @@ def main() -> int:
                 f"edge B={n} V={v_edge} Q*A={q_ * a_} G={G_} shift={shift}",
                 *softmax_edge(n, v_edge, q_, a_, G_, shift, seed=40 + v_edge))
 
-    def grad_check(label, names, fn, ref, args, cot, fwd_tol):
+    def grad_check(label, names, fn, ref, args, cot, fwd_tol,
+                   grad_rel=GRAD_REL_TOL):
         """The forward and the gradients of ``fn`` (the kernel's
         autograd.Function) against ``ref`` (the plain version) and autograd
         through it, on the same inputs; ``fwd_tol(want)`` is the forward's
-        tolerance."""
+        tolerance, ``grad_rel`` the gradients' relative to their largest
+        magnitude.  Each gradient must come back in its input's dtype."""
         xs = [a.detach().clone().requires_grad_() for a in args]
         out = fn(*xs)
         got = torch.autograd.grad(out, xs, cot)
@@ -340,10 +392,11 @@ def main() -> int:
         err, tol = (out - out_want).abs().max().item(), fwd_tol(out_want)
         ok = err <= tol and bool(out.isfinite().all())
         parts = [f"forward {err:.3e} (tol {tol:.3e})"]
-        for name, g, w in zip(names, got, want):
-            err, tol = (g - w).abs().max().item(), GRAD_REL_TOL * w.abs().max().item()
-            ok &= err <= tol and bool(g.isfinite().all())
-            parts.append(f"{name} {err:.3e} (tol {tol:.3e})")
+        for name, g, w, x in zip(names, got, want, args):
+            err = (g.float() - w.float()).abs().max().item()
+            tol = grad_rel * w.float().abs().max().item()
+            ok &= err <= tol and bool(g.isfinite().all()) and g.dtype == x.dtype
+            parts.append(f"{name} {err:.3e} (tol {tol:.3e}, {g.dtype})")
         print(f"{label}: " + ", ".join(parts))
         if not ok:
             raise SystemExit(f"forward or gradient disagrees with its plain "
@@ -378,18 +431,105 @@ def main() -> int:
                 att_big, 1, *k3_big)
     del d, k1_big, k2_big, k3_big, att_big
 
+    # -- 3b. the bf16-operand instances of K1 and K2 ----------------------
+    bf16 = torch.bfloat16
+    model16 = copy.deepcopy(model).to(bf16)
+
+    def path_inputs_bf16(n: int, seed: int, pad_row: bool):
+        """K1's and K2's inputs as the full-width model forms them at
+        compute_dtype="bfloat16": v_r, tqa and vt bf16; qt and at bf16 at
+        glimpse 0, float32 at glimpse 1 (``qt1``, ``at1``), after the
+        first glimpse's float32 joint embedding and residual."""
+        batch = numpy_batch(cfg, n, seed=seed, boxes=V, real_boxes=REAL_BOXES)
+        v = torch.from_numpy(batch["v"]).to(dev, bf16)
+        mask = v.abs().sum(-1) != 0
+        mask[-1] &= not pad_row
+        with torch.inference_mode():
+            q_s = model16.q_emb(model16.w_emb(torch.from_numpy(batch["q"]).to(dev)))
+            a_s = model16.ans_emb(model16.wa_emb(torch.from_numpy(batch["a"]).to(dev)))
+            v_r, q_r, a_r, T = model16.t_att.tc.rank_projections(v, q_s, a_s)
+            tqa = K.precontract_qa(q_r, a_r, T)
+            att = K.fused_rank_softmax_ref(v_r, tqa, mask)
+            tn0, tn1 = model16.t_net0, model16.t_net1
+            vt, qt, at = tn0.v_tucker(v), tn0.q_tucker(q_s), tn0.a_tucker(a_s)
+            joint = K.trilinear_pool_ref(vt, qt, at, att[..., 0])[:, None]
+            q1 = model16.q_prj0(joint) + q_s
+            a1 = model16.a_prj0(joint) + a_s
+            d = dict(v_r=v_r, tqa=tqa, mask=mask, att=att, vt=vt, qt=qt, at=at,
+                     vt1=tn1.v_tucker(v), qt1=tn1.q_tucker(q1),
+                     at1=tn1.a_tucker(a1))
+        assert [d[k].dtype for k in ("v_r", "tqa", "vt", "qt", "vt1", "qt1")] == [
+            bf16] * 5 + [torch.float32], {k: x.dtype for k, x in d.items()}
+        return {k: x.clone() for k, x in d.items()}
+
+    def k2_glimpse1(d):
+        return d["vt1"], d["qt1"], d["at1"], d["att"][..., 1]
+
+    def to_bf16(xs, n=2):
+        """The first ``n`` tensors of ``xs`` in bf16."""
+        return [x.to(bf16) if i < n else x for i, x in enumerate(xs)]
+
+    def refused(label, fn, *args):
+        try:
+            fn(*args)
+        except ValueError as e:
+            print(f"{label}: refused ({e})")
+            return
+        raise SystemExit(f"a misaligned or ragged bf16 operand was accepted: {label}")
+
+    # plain tensors, made outside inference mode: the gradients below take them
+    errs16 = {}
+    for n in (1, 128, TRAIN_B):
+        d = path_inputs_bf16(n, seed=30 + n, pad_row=n > 1)
+        errs16[n] = (check_k1(f"bf16 B={n} V={V}", k1_of(d)),
+                     max(check_k2(f"bf16 B={n} V={V} glimpse 0", k2_of(d)),
+                         check_k2(f"bf16 B={n} V={V} glimpse 1 (qt, at f32)",
+                                  k2_glimpse1(d))))
+    for n, v_edge, G_ in ((1, 57, 2), (2, 65, 1), (2, 65, 3)):
+        k1_edge = to_bf16(ragged_inputs(n, v_edge, seed=50 + G_, G=G_)[0])
+        check_k1(f"bf16 edge B={n} V={v_edge} G={G_}", k1_edge)
+    for n, v_edge, d_edge in ((1, 65, 96), (2, 9, 352)):
+        k2_edge = ragged_inputs(n, v_edge, seed=60 + n, D=d_edge)[1]
+        check_k2(f"bf16 edge B={n} V={v_edge} D={d_edge}", to_bf16(k2_edge, 3))
+        check_k2(f"bf16 edge B={n} V={v_edge} D={d_edge} (qt, at f32)",
+                 to_bf16(k2_edge, 1))
+    v_r, tqa, mask = k1_of(d)
+    refused("K1 bf16 v_r 2 bytes off a 16-byte boundary", K.fused_rank_softmax,
+            offset_copy(v_r, 1), tqa, mask)
+    refused("K2 bf16 vt 8 bytes off a 16-byte boundary", K.trilinear_pool,
+            offset_copy(d["vt"], 4), d["qt"], d["at"], d["att"][..., 0])
+    refused("K2 bf16 D=1020 (not a multiple of 8)", K.trilinear_pool,
+            d["vt"][..., :1020].contiguous(), d["qt"][..., :1020].contiguous(),
+            d["at"][..., :1020].contiguous(), d["att"][..., 0])
+    grad_check(f"K1 bf16 B={TRAIN_B}", ["dv", "dtqa"],
+               lambda x, y: K.fused_rank_softmax(x, y, mask),
+               lambda x, y: K.fused_rank_softmax_ref(x, y, mask),
+               (v_r, tqa), cotangent(d["att"].shape, 11), lambda want: K1_TOL,
+               grad_rel=BF16_GRAD_REL_TOL)
+    for g_, args in ((0, (d["vt"], d["qt"], d["at"])),
+                     (1, (d["vt1"], d["qt1"], d["at1"]))):
+        grad_check(f"K2 bf16 B={TRAIN_B} glimpse {g_}", ["dvt", "dqt", "dat", "datt"],
+                   lambda x, y, z, w: K.trilinear_pool(x, y, z, w[..., g_]),
+                   lambda x, y, z, w: K.trilinear_pool_ref(x, y, z, w[..., g_]),
+                   args + (d["att"],), cotangent((TRAIN_B, d["vt"].shape[-1]), 12),
+                   lambda want: K2_REL_TOL * want.abs().max().item(),
+                   grad_rel=BF16_GRAD_REL_TOL)
+    del d, v_r, tqa, mask
+
     def clone_args(args):
         return tuple(x.detach().clone().requires_grad_(x.requires_grad)
                      for x in args)
 
-    def timed(name, label, fns, args, nbytes, flops, row=None):
+    def timed(name, label, fns, args, nbytes, flops, row=None, peak_ops=None):
         """Times of the kernel, its plain version and the library yardstick
         (``fns``, each called on ``args``) beside the card's bound: each as
         a single call, and the kernel and the yardstick back to back over
         rotating copies of ``args`` (``b2b``, no launch or event floor);
         with ``row`` = (source, replaces, err), the kernel's row of the
-        JSON line."""
-        t_bytes, t_flops = nbytes / peak_bw * 1e3, flops / peak_f32 * 1e3
+        JSON line.  ``peak_ops`` is the peak of the operations' type (f32
+        CUDA cores by default)."""
+        t_bytes = nbytes / peak_bw * 1e3
+        t_flops = flops / (peak_ops or peak_f32) * 1e3
         (ms, host), (plain_ms, plain_host), (lib_ms, lib_host) = (
             time_ms(lambda f=f: f(*args), flush, cycles_per_ms) for f in fns)
         n_copies = copies_for(nbytes)
@@ -431,28 +571,42 @@ def main() -> int:
           f"a single call, {floor_b2b * 1e3:.2f} us back to back")
     del tiny
 
+    def nbytes_of(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
     def k1_cost(v_r, tqa, mask, keep=None):
-        """Bytes (inputs read once, att written once) and FLOP of K1."""
+        """Bytes (inputs read once, att written once, in their dtypes) and
+        FLOP of K1."""
         B_, V_, R_, X_ = v_r.shape
         G_ = tqa.shape[-1]
-        return ((v_r.numel() + tqa.numel() + B_ * V_ * QA * G_) * f32
-                + mask.numel(), 2 * B_ * G_ * V_ * R_ * X_ * QA)
+        return (nbytes_of(v_r, tqa) + B_ * V_ * QA * G_ * f32 + mask.numel(),
+                2 * B_ * G_ * V_ * R_ * X_ * QA)
 
     def k2_cost(vt, qt, at, w):
         """Bytes and FLOP of K2, in its order: V first, then Q, then A."""
         B_, V_, D_ = vt.shape
-        return ((vt.numel() + qt.numel() + at.numel() + B_ * V_ * QA + B_ * D_)
-                * f32, 2 * B_ * D_ * (V_ * QA + QA + A))
+        return (nbytes_of(vt, qt, at) + (B_ * V_ * QA + B_ * D_) * f32,
+                2 * B_ * D_ * (V_ * QA + QA + A))
 
     def k1_library(v_r, tqa, mask, keep):
-        """One bmm, then a masked softmax over the flattened (V, Q, A);
-        ``keep`` is the mask repeated over (Q, A)."""
+        """One bmm, then a masked softmax over the flattened (V, Q, A) in
+        float32; ``keep`` is the mask repeated over (Q, A)."""
         B_, V_, R_, X_ = v_r.shape
         G_ = tqa.shape[-1]
         lg = torch.bmm(v_r.reshape(B_, V_, R_ * X_), tqa.permute(
             0, 3, 4, 1, 2, 5).reshape(B_, R_ * X_, QA * G_))
         return torch.softmax(lg.reshape(B_, V_ * QA, G_).masked_fill(
-            ~keep, float("-inf")), dim=1)
+            ~keep, float("-inf")), dim=1, dtype=torch.float32)
+
+    def k2_einsum_in(dtype):
+        """The plain version's einsum chain with every operand in ``dtype``:
+        K2's yardstick for bf16 operands."""
+        def chain(vt, qt, at, w):
+            vt, qt, at, w = (x.to(dtype) for x in (vt, qt, at, w))
+            wv = torch.einsum("bvqa,bvd->bqad", w, vt)
+            m = torch.einsum("bqad,bqd->bad", wv, qt)
+            return torch.einsum("bad,bad->bd", m, at)
+        return chain
 
     def time_forwards(d_, label, rows=None):
         """K1 and K2 forward on path inputs ``d_`` beside their plain
@@ -513,6 +667,37 @@ def main() -> int:
             (att, cot), 3 * n_el * f32, 4 * n_el,
             row=("softmax_vqa.cu", "vqatpu/kernels/trilinear.py:237",
                  max(e[1] for e in errs3.values()))))
+
+        # -- 4d. the bf16 instances at B=128 and B=256 --------------------
+        def time_forwards_bf16(d_, label, rows=None):
+            """As time_forwards, for the bf16 instances: bounds with bf16
+            bytes and the bf16 tensor cores' peak (the least time the card
+            could take for the same work; the kernels run f32 FMAs on the
+            CUDA cores), bf16 yardsticks; K2 at both glimpses."""
+            k1_args = k1_of(d_) + (d_["mask"].repeat_interleave(QA, 1)[..., None],)
+            out = [timed("fused_rank_softmax_bf16", label,
+                         (lambda v, t, m, k: K.fused_rank_softmax(v, t, m),
+                          lambda v, t, m, k: K.fused_rank_softmax_ref(v, t, m),
+                          k1_library), k1_args, *k1_cost(*k1_args),
+                         row=None if rows is None else rows[0],
+                         peak_ops=peak_bf16)]
+            for g_, args, row in ((0, k2_of(d_), None if rows is None else rows[1]),
+                                  (1, k2_glimpse1(d_), None)):
+                out.append(timed(
+                    "trilinear_pool_bf16", f"{label} glimpse {g_}",
+                    (K.trilinear_pool, K.trilinear_pool_ref, k2_einsum_in(bf16)),
+                    args, *k2_cost(*args), row=row, peak_ops=peak_bf16))
+            return out
+
+        d16 = path_inputs_bf16(128, seed=148, pad_row=True)
+        rows += time_forwards_bf16(d16, "B=128", rows=(
+            ("rank_softmax.cu", "vqatpu/kernels/trilinear.py:303",
+             max(e[0] for e in errs16.values())),
+            ("tri_pool.cu", "vqatpu/kernels/trilinear.py:369",
+             max(e[1] for e in errs16.values()))))[:2]
+        d16 = path_inputs_bf16(TRAIN_B, seed=276, pad_row=True)
+        time_forwards_bf16(d16, f"B={TRAIN_B}")
+        del d16
 
     # -- 4c. K1 and K2 forward + backward at the training batch -----------
     v_r, tqa = (d[k].requires_grad_() for k in ("v_r", "tqa"))
@@ -619,6 +804,46 @@ def main() -> int:
     assert counts["trilinear_pool"] == cfg.gamma * fwd, counts
     path_counts = {"serving": counts}
 
+    # -- 5b. serving at bf16 compute, and on each narrowed wire -----------
+    golden16 = np.load(ROOT / "tests" / "data" / "torch_cti_golden_bf16.npz")
+    assert all(int(golden16[k]) == int(golden[k])
+               for k in ("n", "param_seed", "batch_seed")), "golden seeds differ"
+    scale = float(np.abs(golden["logits"]).max())
+    own16 = float(np.abs(golden16["logits"] - golden["logits"]).max())
+    sessions = {("float32", "float32"): session}
+    for wire, compute in (("float32", "bfloat16"), ("float16", "float32"),
+                          ("bfloat16", "float32"), ("int8", "float32")):
+        sess = InferenceSession(model, labels, transfer_dtype=wire,
+                                compute_dtype=compute, device="cuda")
+        sessions[(wire, compute)] = sess
+        K.reset_launches()
+        logits_g = sess.logits(gb["v"], None, gb["q"], gb["a"])
+        for n in (1, 40):  # buckets 1 and 128
+            b_ = numpy_batch(cfg, n, seed=500 + n, boxes=V, real_boxes=REAL_BOXES)
+            out = sess.logits(b_["v"], None, b_["q"], b_["a"])
+            assert out.shape == (n, cfg.num_ans_candidates) and np.isfinite(out).all()
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        sfx = "_bf16" if compute == "bfloat16" else ""
+        assert counts["fused_rank_softmax" + sfx] == sess.forwards == 3, counts
+        assert counts["trilinear_pool" + sfx] == cfg.gamma * sess.forwards, counts
+        assert sum(counts.values()) == (1 + cfg.gamma) * sess.forwards, counts
+        path_counts[f"serving wire={wire} compute={compute}"] = counts
+        err32 = float(np.abs(logits_g - golden["logits"]).max())
+        if compute == "bfloat16":
+            err16 = float(np.abs(logits_g - golden16["logits"]).max())
+            print(f"serve compute=bfloat16: vs JAX's float32 golden {err32:.3e} "
+                  f"(budget {BF16_BUDGET:g} x JAX's own {own16:.3e} + 1e-4 = "
+                  f"{BF16_BUDGET * own16 + 1e-4:.3e}); vs JAX's Pallas-backend "
+                  f"bf16 golden {err16:.3e} (bound {BF16_DIRECT:g} x "
+                  f"{scale:.3f}); launches {counts}")
+            assert err32 <= BF16_BUDGET * own16 + 1e-4, (err32, own16)
+            assert err16 <= BF16_DIRECT * scale, err16
+        else:
+            print(f"serve wire={wire}: vs JAX's float32 golden {err32:.3e} "
+                  f"(tol {SERVE_TOL:.0e}); launches {counts}")
+            assert err32 <= SERVE_TOL, err32
+
     # -- 6. where the time goes, per bucket -------------------------------
     # session.logits on the host clock (it returns numpy, so the card is
     # done); the feature upload and the forward alone between CUDA events
@@ -642,21 +867,38 @@ def main() -> int:
                 times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
-    for n in session.batch_buckets:
-        b = numpy_batch(cfg, n, seed=300 + n, boxes=V, real_boxes=REAL_BOXES)
-        e2e = median_ms(lambda: session.logits(b["v"], None, b["q"], b["a"]),
-                        on_card=False)
-        h2d = median_ms(lambda: torch.from_numpy(b["v"]).to(dev), on_card=True)
-        v_d, q_d, a_d = (torch.from_numpy(b[k]).to(dev) for k in "vqa")
-        with torch.inference_mode():
-            fwd = median_ms(lambda: model(v_d, q_d, a_d, v_d.abs().sum(-1) != 0),
-                            on_card=True)
-        print(f"bucket {n}: session.logits {e2e:.3f} ms ({n / e2e * 1e3:.0f} "
-              f"rows/s); on the card: feature upload {h2d:.3f} ms, forward "
-              f"{fwd:.3f} ms")
+    # per wire and compute dtype: the host's packing of the bucket (pad,
+    # mask, cast or quantize; host clock), its upload and the forward
+    # (CUDA events)
+    phase6 = {}
+    for (wire, compute), sess in sessions.items():
+        for n in sess.batch_buckets:
+            b = numpy_batch(cfg, n, seed=300 + n, boxes=V, real_boxes=REAL_BOXES)
+            e2e = median_ms(lambda: sess.logits(b["v"], None, b["q"], b["a"]),
+                            on_card=False)
+            pack = median_ms(lambda: sess.pack(b["v"], b["q"], b["a"]),
+                             on_card=False)
+            host, _ = sess.pack(b["v"], b["q"], b["a"])
+            h2d = median_ms(lambda: sess.upload(host), on_card=True)
+            dev_b = sess.upload(host)
+            fwd = median_ms(lambda: sess.forward(dev_b), on_card=True)
+            wire_mb = sum(x.numel() * x.element_size() if torch.is_tensor(x)
+                          else x.nbytes for x in host.values()) / 1e6
+            phase6[(wire, compute, n)] = fwd
+            print(f"bucket {n} wire={wire} compute={compute}: session.logits "
+                  f"{e2e:.3f} ms ({n / e2e * 1e3:.0f} rows/s); host packing "
+                  f"{pack:.3f} ms; on the card: upload of {wire_mb:.1f} MB "
+                  f"{h2d:.3f} ms, forward {fwd:.3f} ms")
+    n = session.batch_buckets[-1]
+    fwd = phase6[("float32", "float32", n)]
     kernel_ms = rows[0]["ms"] + cfg.gamma * rows[1]["ms"]
     print(f"bucket {n}: the CUDA kernels take {kernel_ms:.3f} ms of the "
           f"{fwd:.3f} ms forward ({kernel_ms / fwd:.1%}, cold-L2 times)")
+    kernel16 = rows[4]["ms"] + cfg.gamma * rows[5]["ms"]
+    fwd16 = phase6[("float32", "bfloat16", n)]
+    print(f"bucket {n} at bf16: the bf16 instances take {kernel16:.3f} ms of "
+          f"the {fwd16:.3f} ms forward ({kernel16 / fwd16:.1%}, cold-L2 times)")
+    del sessions, dev_b, host
 
     # the host cost of the autograd.Function that serving's launches go
     # through under inference_mode, against the bare launch, at B=1: the
@@ -731,6 +973,154 @@ def main() -> int:
     assert counts["fused_rank_softmax"] == 0, counts
     del fused, att7, logits7, grads7, att_c, logits_c, grads_c, cpu, session
 
+    # -- 7b. by-id serving from a card-resident store; MicroBatcher; HTTP --
+    t0 = time.perf_counter()
+    gen = np.random.default_rng(9)
+    n_boxes = gen.integers(10, 101, N_IMAGES)
+    ends = np.cumsum(n_boxes)
+    feats = gen.standard_normal((int(ends[-1]), cfg.v_dim), dtype=np.float32)
+    store = FeatureStore(feats, gen.random((int(ends[-1]), 6), dtype=np.float32),
+                         np.stack([ends - n_boxes, ends], 1))
+    img_ids = 100_000 + np.arange(N_IMAGES)
+    rf = ResidentFeatures(store, {int(i): k for k, i in enumerate(img_ids)},
+                          max_boxes=V)
+    print(f"by-id store: {N_IMAGES} images, {int(ends[-1])} boxes of "
+          f"{cfg.v_dim}-d ({feats.nbytes / 1e6:.0f} MB float32), made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    n_small = 40
+    e_small = int(ends[n_small - 1])
+    np.savez(root / "small.npz", image_features=feats[:e_small],
+             spatial_features=store.spatials[:e_small],
+             pos_boxes=store.pos_boxes[:n_small])
+    with open(root / "small_imgid2idx.pkl", "wb") as f:
+        pickle.dump({int(i): k for k, i in enumerate(img_ids[:n_small])}, f)
+    rf_small = ResidentFeatures.from_dataroot(str(root), "small", max_boxes=V)
+    for x, y in zip(rf_small.gather(img_ids[:n_small]), rf.gather(img_ids[:n_small])):
+        assert np.array_equal(x, y), ".npz round trip changed the features"
+    print(f"by-id: {n_small} images through small.npz and "
+          "ResidentFeatures.from_dataroot gather as the in-memory store does")
+
+    sess = InferenceSession(model, labels, device="cuda")
+    sess8 = InferenceSession(model, labels, transfer_dtype="int8", device="cuda")
+    tok = numpy_batch(cfg, 128, seed=800, boxes=1, real_boxes=1)
+    q_id, a_id = tok["q"], tok["a"]
+    ids = gen.choice(img_ids, 128, replace=False)
+    K.reset_launches()
+    for quantize in (False, True):
+        t0 = time.perf_counter()
+        sess.attach_features(rf, placement="device", quantize=quantize)
+        torch.cuda.synchronize()
+        t_attach = time.perf_counter() - t0
+        table_mb = sum(x.numel() * x.element_size() for x in sess._tables
+                       if x is not None) / 1e6
+        worst = 0.0
+        for n in (1, 5, 40, 128):
+            got = sess.logits_by_id(ids[:n], q_id[:n], a_id[:n])
+            v_g, _ = rf.gather(ids[:n])
+            want = (sess8 if quantize else sess).logits(v_g, None, q_id[:n], a_id[:n])
+            assert got.shape == want.shape and np.isfinite(got).all()
+            worst = max(worst, float(np.abs(got - want).max()))
+        kind_ = "int8" if quantize else "float32"
+        print(f"by-id, {kind_} tables on the card ({table_mb:.0f} MB, attached in "
+              f"{t_attach:.1f} s): vs the {'int8-wire ' if quantize else ''}"
+              f"upload path on the same rows, max_abs_err {worst:.3e} (tol "
+              f"{BYID_TOL:.0e})")
+        assert worst <= BYID_TOL, worst
+    for n in sess.batch_buckets:  # int8 tables
+        e2e = median_ms(lambda: sess.logits_by_id(ids[:n], q_id[:n], a_id[:n]),
+                        on_card=False)
+        rows_d, q_d, a_d = (torch.from_numpy(x).to(dev) for x in (
+            sess._rows_table[rf.image_index(ids[:n])], q_id[:n], a_id[:n]))
+        on_card = median_ms(lambda: sess.forward_by_id(rows_d, q_d, a_d),
+                            on_card=True)
+        print(f"by-id bucket {n} (int8 tables): logits_by_id {e2e:.3f} ms "
+              f"({n / e2e * 1e3:.0f} rows/s); on the card: gather, dequantize "
+              f"and forward {on_card:.3f} ms; request wire "
+              f"{rows_d.numel() * 4 + (q_d.numel() + a_d.numel()) * 8} bytes")
+    torch.cuda.synchronize()
+    path_counts["by-id"] = dict(K.launches)
+    assert path_counts["by-id"]["fused_rank_softmax"] > 0, path_counts
+
+    # 32 concurrent single-row requests through the MicroBatcher
+    b32 = numpy_batch(cfg, 32, seed=900, boxes=V, real_boxes=REAL_BOXES)
+    want = sess.logits(b32["v"], None, b32["q"], b32["a"])
+    K.reset_launches()
+    mb = MicroBatcher(sess, max_batch=32, max_wait_ms=20.0)
+    got = [None] * 32
+    barrier = threading.Barrier(32)
+
+    def call(i):
+        barrier.wait()
+        got[i] = mb.logits(b32["v"][i:i + 1], None, b32["q"][i:i + 1],
+                           b32["a"][i:i + 1])
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(32)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    wall = (time.perf_counter() - t0) * 1e3
+    assert not any(th.is_alive() for th in threads), "a batcher caller hung"
+    mb.close()
+    err = max(float(np.abs(got[i][0] - want[i]).max()) for i in range(32))
+    torch.cuda.synchronize()
+    path_counts["micro-batcher"] = dict(K.launches)
+    print(f"MicroBatcher: 32 concurrent single-row requests in {wall:.1f} ms, "
+          f"{mb.batches_run} forwards ({mb.rows_served} rows); vs one call of "
+          f"the 32 rows max_abs_err {err:.3e} (tol {BATCHER_TOL:.0e})")
+    assert mb.rows_served == 32 and mb.batches_run < 32 and err <= BATCHER_TOL
+
+    # the CLI with --feature_split and --micro_batch, over HTTP
+    words = Dictionary()
+    for i in range(cfg.ntoken):
+        words.add_word(f"w{i}")
+    words.dump_to_file(str(root / "dictionary.pkl"))
+    (root / "cache").mkdir()
+    with open(root / "cache" / "trainval_label2ans.pkl", "wb") as f:
+        pickle.dump(labels, f)
+    (root / "ckpt").mkdir()
+    with open(root / "ckpt" / "model_epoch0.ckpt", "wb") as f:
+        pickle.dump({"params": params}, f)  # a save_params file
+    args = cli.build_parser().parse_args([
+        "--dataroot", str(root), "--input", str(root / "ckpt"), "--epoch", "0",
+        "--port", "0", "--device", "cuda", "--feature_split", "small",
+        "--micro_batch", "32", "--micro_batch_wait_ms", "5"])
+    K.reset_launches()
+    served, server = cli.build_server(args)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    sess.attach_features(rf_small, placement="device", quantize=True)
+    try:
+        port = server.server_address[1]
+        ids5 = img_ids[:5]
+        body = {"image_ids": ids5.tolist(), "question_tokens": q_id[:5].tolist(),
+                "answer_tokens": a_id[:5].tolist()}
+        got = np.asarray(post(port, "/logits_by_id", body)["logits"])
+        want = sess.logits_by_id(ids5, q_id[:5], a_id[:5])
+        e_id = float(np.abs(got - want).max())
+        answers = post(port, "/answer_by_id", body)["answers"]
+        assert answers == [labels[i] for i in got.argmax(1)], answers
+        v5, _ = rf_small.gather(ids5)
+        up = np.asarray(post(port, "/logits", {
+            "features": v5, "question_tokens": q_id[:5],
+            "answer_tokens": a_id[:5]}, npz=True)["logits"])
+        e_up = float(np.abs(up - sess.logits(v5, None, q_id[:5], a_id[:5])).max())
+        print(f"HTTP (--feature_split small --micro_batch 32): /logits_by_id vs "
+              f"the session {e_id:.3e} (tol {BYID_TOL:.0e}), /answer_by_id "
+              f"agrees; /logits through the batcher ({served.batches_run} "
+              f"forward) vs the session {e_up:.3e} (tol {BATCHER_TOL:.0e})")
+        assert e_id <= BYID_TOL and e_up <= BATCHER_TOL and served.batches_run == 1
+    finally:
+        server.shutdown()
+        server.server_close()
+        served.close()
+    torch.cuda.synchronize()
+    path_counts["by-id HTTP"] = dict(K.launches)
+    del sess, sess8, store, rf, rf_small, feats, served, server
+    tmp.cleanup()
+
     # -- 8a. training: the full-width trajectory against JAX's golden -----
     tg = np.load(ROOT / "tests" / "data" / "torch_cti_train_golden.npz")
     n8, steps8, lr8 = int(tg["n"]), int(tg["steps"]), float(tg["lr"])
@@ -777,43 +1167,128 @@ def main() -> int:
           f"{len(golden_stats['names'])} leaves)")
     assert e_golden <= TRAIN_TOL and e_cpu <= TRAIN_TOL, (e_golden, e_cpu)
 
+    # -- 8a'. bf16 training: the trajectory within its budget ------------
+    tg16 = np.load(ROOT / "tests" / "data" / "torch_cti_train_golden_bf16.npz")
+    assert all(tg16[k] == tg[k] for k in ("n", "steps", "param_seed",
+                                          "batch_seed", "lr"))
+    K.reset_launches()
+    state = make_train_state(build_model(cfg), seed=int(tg["param_seed"]),
+                             device="cuda")
+    step = make_train_step(state.model, TrainConfig(
+        update_freq=1, deterministic=True, compute_dtype="bfloat16"))
+    metrics = [step(state, b, lr8) for b in batches]
+    torch.cuda.synchronize()
+    path_counts["training bf16"] = dict(K.launches)
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    stats = param_stats(jax_params_from_torch(state.model.state_dict()))
+    assert (stats["names"] == tg16["names"]).all()
+    got16 = {"loss": np.array([float(m["loss"]) for m in metrics]),
+             "grad_norm": np.array([float(m["grad_norm"]) for m in metrics]),
+             "param_l2": stats["l2"]}
+    worst = {}
+    for k, x in got16.items():
+        f32_, b16_ = tg16[f"f32_{k}"], tg16[f"bf16_{k}"]
+        bound = BF16_BUDGET * np.abs(b16_ - f32_) + BF16_FLOOR * np.abs(f32_)
+        worst[k] = float(np.max(np.abs(x - f32_) / bound))
+    print(f"bf16 training trajectory ({steps8} steps, B={n8}): loss "
+          f"{got16['loss'].tolist()}, grad_norm {got16['grad_norm'].tolist()}; "
+          f"error against JAX's float32 over its budget ({BF16_BUDGET:g} x JAX "
+          f"xla bf16's own + {BF16_FLOOR:.2e} x |value|), worst ratio per "
+          f"metric (<= 1 passes): {worst}; launches {path_counts['training bf16']}")
+    assert all(v <= 1.0 for v in worst.values()), worst
+    del state, step, metrics
+
     # -- 8b. training throughput at B=256, dropout on (bench.py) -----------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def train_throughput(label, batch, windows=WINDOWS, **tcfg):
+        """samples/s of the train step at B=256 with dropout on (bench.py's
+        loop: windows of ITERS steps, each ending in a value readback), the
+        median step on CUDA events, the host's time inside a step call
+        (near the step time, the host sets the pace), the calls in one
+        step that wait for the card (``torch.cuda.set_sync_debug_mode``),
+        the launches per step, and a ``torch.profiler`` table of 3 steps
+        with the card's busy share.
+        -> (launch counts, steps, median step ms, the port's kernels' ms a
+        step)."""
+        state = make_train_state(build_model(cfg), seed=0, device="cuda")
+        step = make_train_step(state.model, TrainConfig(
+            update_freq=1, batch_size=TRAIN_B, **tcfg))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(WARMUP):
+            m = step(state, batch, 1e-3, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as waits:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                m = step(state, batch, 1e-3, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        waits = [str(w.message).splitlines()[0] for w in waits
+                 if "called a synchronizing" in str(w.message)]
+        print(f"training {label}: {len(waits)} calls in one step wait for "
+              f"the card ({sorted(set(waits))})")
+        K.reset_launches()
+        thr, events, enqueue = [], [], []
+        for _ in range(windows):
+            t0 = time.perf_counter()
+            for _ in range(ITERS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                t1 = time.perf_counter()
+                m = step(state, batch, 1e-3, gen)
+                enqueue.append(time.perf_counter() - t1)
+                end.record()
+                events.append((start, end))
+            loss = float(m["loss"])  # a value readback ends the window
+            thr.append(TRAIN_B * ITERS / (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        counts = dict(K.launches)
+        n_steps = windows * ITERS
+        step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+        thr.sort()
+        print(f"training {label}: {thr[-1]:.1f} samples/s best window, "
+              f"{statistics.median(thr):.1f} median ({windows} windows of "
+              f"{ITERS} steps); median step on CUDA events {step_ms:.3f} ms; "
+              f"the host's time in a step call {statistics.median(enqueue) * 1e3:.3f} "
+              f"ms (median); last loss {loss:.3f}; launches per step "
+              f"{ {k: v / n_steps for k, v in counts.items() if v} }")
+        assert np.isfinite(loss), loss
+        prof_steps = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(prof_steps):
+                m = step(state, batch, 1e-3, gen)
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        print(f"torch.profiler, {prof_steps} training steps, {label} (times "
+              f"summed over them):")
+        print(averages.table(sort_by="self_device_time_total", row_limit=10))
+        on_card = [e for e in averages if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / prof_steps
+        own = {name: sum(e.self_device_time_total for e in on_card
+                         if name in e.key) / 1e3 / prof_steps
+               for name in ("rank_softmax_kernel", "tri_pool_kernel",
+                            "softmax_backward_kernel")}
+        print(f"profiled step, {label}: {busy_ms:.3f} ms of kernels on the "
+              f"card, {busy_ms / step_ms:.1%} of the {step_ms:.3f} ms median "
+              f"step (idle {1 - busy_ms / step_ms:.1%}); the port's CUDA "
+              f"kernels per step (L2 warm): "
+              + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in own.items()))
+        assert all(v > 0 for v in own.values()), own
+        return counts, n_steps, step_ms
+
     batch = numpy_batch(cfg, TRAIN_B, seed=0, target=True)
     batch["v_mask"] = np.abs(batch["v"]).sum(-1) != 0
     db = {k: torch.from_numpy(x).to(dev) for k, x in batch.items()}
-    state = make_train_state(build_model(cfg), seed=0, device="cuda")
-    step = make_train_step(state.model, TrainConfig(update_freq=1,
-                                                    batch_size=TRAIN_B))
-    gen = torch.Generator(device=dev).manual_seed(1)
-    for _ in range(WARMUP):
-        m = step(state, db, 1e-3, gen)
-    float(m["loss"])
-    K.reset_launches()
-    thr, events = [], []
-    for _ in range(WINDOWS):
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            m = step(state, db, 1e-3, gen)
-            end.record()
-            events.append((start, end))
-        loss = float(m["loss"])  # a value readback ends the window
-        thr.append(TRAIN_B * ITERS / (time.perf_counter() - t0))
-    torch.cuda.synchronize()
-    counts = dict(K.launches)
-    n_steps = WINDOWS * ITERS
+    counts, n_steps, step_ms = train_throughput(
+        f"B={TRAIN_B}, batch on the card", db)
     for k, v in counts.items():
         path_counts["training"][k] += v
-    step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
-    thr.sort()
-    print(f"training B={TRAIN_B}: {thr[-1]:.1f} samples/s best window, "
-          f"{statistics.median(thr):.1f} median ({WINDOWS} windows of {ITERS} "
-          f"steps); median step on CUDA events {step_ms:.3f} ms; last loss "
-          f"{loss:.3f}; launches per step "
-          f"{ {k: v / n_steps for k, v in counts.items()} }")
-    assert np.isfinite(loss), loss
     assert counts["fused_rank_softmax"] == n_steps, counts
     assert counts["softmax_vqa_backward"] == n_steps, counts
     assert counts["trilinear_pool"] == cfg.gamma * n_steps, counts
@@ -824,31 +1299,26 @@ def main() -> int:
           f"per step, phase 4c cold-L2 times) take {k_ms:.3f} ms of the "
           f"{step_ms:.3f} ms step ({k_ms / step_ms:.1%})")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    prof_steps = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(prof_steps):
-            m = step(state, db, 1e-3, gen)
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    print(f"torch.profiler, {prof_steps} training steps at B={TRAIN_B} (times "
-          f"summed over them):")
-    print(averages.table(sort_by="self_device_time_total", row_limit=10))
-    on_card = [e for e in averages if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / prof_steps
-    own = {name: sum(e.self_device_time_total for e in on_card
-                     if name in e.key) / 1e3 / prof_steps
-           for name in ("rank_softmax_kernel", "tri_pool_kernel",
-                        "softmax_backward_kernel")}
-    print(f"profiled step: {busy_ms:.3f} ms of kernels on the card, "
-          f"{busy_ms / step_ms:.1%} of the {step_ms:.3f} ms median step (idle "
-          f"{1 - busy_ms / step_ms:.1%}); the port's CUDA kernels per step "
-          f"(L2 warm): "
-          + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in own.items()))
-    assert all(v > 0 for v in own.values()), own
-    del state, step, db
+    # -- 8c. bf16 compute; the float32 and int8 wires from host batches ----
+    counts, n_steps, _ = train_throughput(
+        f"B={TRAIN_B}, compute_dtype=bfloat16, batch on the card", db,
+        windows=3, compute_dtype="bfloat16")
+    for k, v in counts.items():
+        path_counts["training bf16"][k] += v
+    assert counts["fused_rank_softmax_bf16"] == n_steps, counts
+    assert counts["trilinear_pool_bf16"] == cfg.gamma * n_steps, counts
+    assert counts["softmax_vqa_backward"] == n_steps, counts
+    assert counts["fused_rank_softmax"] == counts["trilinear_pool"] == 0, counts
+    host8 = wire_cast(batch, "int8")  # quantized once, as a loader would
+    for label, host_batch, wire in (("float32", batch, "float32"),
+                                    ("int8", host8, "int8")):
+        counts, n_steps, _ = train_throughput(
+            f"B={TRAIN_B}, the {label} wire (a host batch copied each step)",
+            host_batch, windows=3, transfer_dtype=wire)
+        for k, v in counts.items():
+            path_counts["training"][k] += v
+        assert counts["fused_rank_softmax"] == n_steps, counts
+    del db, batch, host8
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

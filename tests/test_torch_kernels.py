@@ -181,7 +181,9 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing(rng):
                                K.softmax_vqa_backward_ref(att, logits),
                                rtol=0, atol=0)
     assert K.launches == {"fused_rank_softmax": 0, "trilinear_pool": 0,
-                          "masked_softmax_vqa": 0, "softmax_vqa_backward": 0}
+                          "masked_softmax_vqa": 0, "softmax_vqa_backward": 0,
+                          "fused_rank_softmax_bf16": 0,
+                          "trilinear_pool_bf16": 0}
 
 
 # -- gradients ----------------------------------------------------------------
@@ -527,3 +529,192 @@ def test_cuda_grads_match_plain(rng, cuda, kernel):
     for x, y in zip(got, grads(ref)):
         scale = y.abs().max().item()
         torch.testing.assert_close(x, y, rtol=2e-4, atol=max(1e-5, 2e-4 * scale))
+
+
+# -- bf16 operands (compute_dtype="bfloat16") ------------------------------------
+#
+# JAX's Pallas backend passes K1 bf16 v_r and tqa, and K2 bf16 vt with qt/at
+# bf16 at glimpse 0 and float32 at glimpse 1; both kernels compute and
+# return float32.  The same bf16 values go to both sides (numpy float32
+# rounded to nearest even by jnp and by torch), so the plain versions, which
+# upcast exactly, meet the float32 tolerances.  The cotangents JAX returns
+# are float32 (its custom_vjp does not cast them back: the reference fault
+# of ROADMAP queue C); the port's take the primal's dtype, so they are held
+# to JAX's after a bf16 rounding: 2^-8 of each value, plus 2^-8 of the
+# largest for the values that round near zero.
+
+BF16_REL = 2.0 ** -8
+
+
+def bf16_pair(x):
+    """The same bf16 values for JAX and torch."""
+    return jnp.asarray(x).astype(jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("V,n_real,b,g", [
+    pytest.param(10, 8, B, G, id="10-8"),
+    pytest.param(300, 263, B, G, id="300-263")] + K1_EDGES)
+def test_fused_rank_softmax_bf16_matches_pallas(rng, V, n_real, b, g):
+    """K1's plain version on bf16 operands against the Pallas kernel on the
+    same bf16 operands (interpret mode); float32 out, 1e-5."""
+    v_r, q_r, a_r, T, mask = attention_inputs(rng, V, n_real, b, g)
+    mask[-1] &= b == 1
+    tqa = np.array(jax_precontract_qa(*map(jnp.asarray, (q_r, a_r, T))))
+    (jv, tv), (jt, tt) = bf16_pair(v_r), bf16_pair(tqa)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_rank_softmax(jv, jt, jnp.asarray(mask)))
+    got = K.fused_rank_softmax(tv, tt, torch.from_numpy(mask))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert b == 1 or (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("qa_dtype", ["bfloat16", "float32"],
+                         ids=["glimpse0-bf16", "glimpse1-mixed"])
+@pytest.mark.parametrize("V,b,d", [pytest.param(10, B, D, id="10"),
+                                   pytest.param(293, B, D, id="293")]
+                         + K2_EDGES)
+def test_trilinear_pool_bf16_matches_pallas(rng, V, b, d, qa_dtype):
+    """K2's plain version with bf16 ``vt`` and ``qt``/``at`` bf16 or
+    float32, against the Pallas kernel on the same operands; ``w`` one
+    strided float32 glimpse; 2e-4 of the largest output, as in float32."""
+    vt, qt, at, _ = pool_inputs(rng, V, b, d)
+    att = rng.rand(b, V, Q, A, G).astype(np.float32)
+    jvt, tvt = bf16_pair(vt)
+    if qa_dtype == "bfloat16":
+        (jqt, tqt), (jat, tat) = bf16_pair(qt), bf16_pair(at)
+    else:
+        (jqt, jat), (tqt, tat) = map(jnp.asarray, (qt, at)), t(qt, at)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(trilinear_pool_pallas(jvt, jqt, jat,
+                                                jnp.asarray(att)[..., 1]))
+    got = K.trilinear_pool(tvt, tqt, tat, torch.from_numpy(att)[..., 1])
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4 * scale)
+
+
+def assert_bf16_close(got: torch.Tensor, want: np.ndarray):
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_REL,
+                               atol=BF16_REL * np.abs(want).max())
+
+
+def test_fused_rank_softmax_bf16_grads_take_the_primal_dtype(rng):
+    """K1's ``dv`` and ``dtqa`` at bf16: the port's are bf16, JAX's Pallas
+    ``custom_vjp`` returns float32 ones (the reference fault), and they
+    agree to a bf16 rounding."""
+    v_r, q_r, a_r, T, mask = attention_inputs(rng, 10, 8)
+    mask[-1] = False
+    tqa = np.array(jax_precontract_qa(*map(jnp.asarray, (q_r, a_r, T))))
+    g = rng.randn(B, 10, Q, A, G).astype(np.float32)
+    (jv, tv), (jt, tt) = bf16_pair(v_r), bf16_pair(tqa)
+    with pltpu.force_tpu_interpret_mode():
+        _, pull = jax.vjp(lambda v, tq: jax_rank_softmax(v, tq, jnp.asarray(mask)),
+                          jv, jt)
+        want = [np.asarray(x) for x in pull(jnp.asarray(g))]
+    assert [x.dtype for x in want] == [np.float32, np.float32]
+    ts = [tv.requires_grad_(), tt.requires_grad_()]
+    got = torch.autograd.grad(K.fused_rank_softmax(*ts, torch.from_numpy(mask)),
+                              ts, torch.from_numpy(g))
+    assert [x.dtype for x in got] == [torch.bfloat16, torch.bfloat16]
+    for x, y in zip(got, want):
+        assert_bf16_close(x, y)
+
+
+@pytest.mark.parametrize("qa_dtype", ["bfloat16", "float32"],
+                         ids=["glimpse0-bf16", "glimpse1-mixed"])
+def test_trilinear_pool_bf16_grads_take_the_primal_dtype(rng, qa_dtype):
+    """K2's four cotangents with bf16 ``vt`` (and ``qt``/``at``): each in
+    its primal's dtype on the port, float32 from JAX's ``custom_vjp``."""
+    vt, qt, at, _ = pool_inputs(rng, 13)
+    att = rng.rand(B, 13, Q, A, G).astype(np.float32)
+    g = rng.randn(B, D).astype(np.float32)
+    jvt, tvt = bf16_pair(vt)
+    if qa_dtype == "bfloat16":
+        (jqt, tqt), (jat, tat) = bf16_pair(qt), bf16_pair(at)
+    else:
+        (jqt, jat), (tqt, tat) = map(jnp.asarray, (qt, at)), t(qt, at)
+    with pltpu.force_tpu_interpret_mode():
+        _, pull = jax.vjp(lambda a, b_, c, w: trilinear_pool_pallas(a, b_, c, w[..., 0]),
+                          jvt, jqt, jat, jnp.asarray(att))
+        want = [np.asarray(x) for x in pull(jnp.asarray(g))]
+    assert all(x.dtype == np.float32 for x in want)
+    ts = [x.requires_grad_() for x in (tvt, tqt, tat, torch.from_numpy(att))]
+    got = torch.autograd.grad(K.trilinear_pool(*ts[:3], ts[3][..., 0]), ts,
+                              torch.from_numpy(g))
+    assert [x.dtype for x in got] == [x.dtype for x in ts]
+    for x, y in zip(got, want):
+        assert_bf16_close(x, y)
+
+
+@pytest.mark.parametrize("case", ["k1-mixed", "k1-half", "k2-f32-vt-bf16-qa",
+                                  "k2-qt-at-differ", "k2-w-bf16"])
+def test_wrappers_refuse_dtypes_without_an_instance(rng, case):
+    """Only the dtype combinations JAX's Pallas path passes have kernel
+    instances; the wrappers refuse the rest, on the CPU as on the card."""
+    v_r, q_r, a_r, T, mask = attention_inputs(rng, 10, 8)
+    v_r, mask = t(v_r, mask)
+    tqa = K.precontract_qa(*t(q_r, a_r, T))
+    vt, qt, at, w = t(*pool_inputs(rng, 10))
+    bf = torch.bfloat16
+    with pytest.raises(TypeError):
+        if case == "k1-mixed":
+            K.fused_rank_softmax(v_r.to(bf), tqa, mask)
+        elif case == "k1-half":
+            K.fused_rank_softmax(v_r.half(), tqa.half(), mask)
+        elif case == "k2-f32-vt-bf16-qa":
+            K.trilinear_pool(vt, qt.to(bf), at.to(bf), w)
+        elif case == "k2-qt-at-differ":
+            K.trilinear_pool(vt.to(bf), qt.to(bf), at, w)
+        else:
+            K.trilinear_pool(vt.to(bf), qt.to(bf), at.to(bf), w.to(bf))
+
+
+def test_bf16_copies_need_8_element_rows():
+    """A 16-byte copy carries 8 bf16: R*X and D must be multiples of 8 for
+    bf16 operands (4 for float32), checked before anything needs the card."""
+    bf = torch.bfloat16
+    v_r = torch.zeros(1, 2, 3, 4, dtype=bf, device="meta")  # R*X = 12
+    tqa = torch.zeros(1, Q, A, 3, 4, G, dtype=bf, device="meta")
+    mask = torch.ones(1, 2, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K._rank_softmax_kernel(v_r, tqa, mask)
+    vt = torch.zeros(1, 2, 12, dtype=bf, device="meta")
+    qa = [torch.zeros(1, n, 12, dtype=bf, device="meta") for n in (Q, A)]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K._tri_pool_kernel(vt, *qa, torch.zeros(1, 2, Q, A, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,n_real,b,g", [
+    pytest.param(50, 44, B, G, id="50-44"),
+    pytest.param(2048, 1999, B, G, id="2048-1999")] + K1_EDGES)
+def test_cuda_rank_softmax_bf16_matches_plain(rng, cuda, V, n_real, b, g):
+    v_r, q_r, a_r, T, mask = attention_inputs(rng, V, n_real, b, g)
+    mask[-1] &= b == 1
+    v_r, mask = torch.from_numpy(v_r).to(cuda, torch.bfloat16), torch.from_numpy(mask).to(cuda)
+    tqa = K.precontract_qa(*(x.to(cuda) for x in t(q_r, a_r, T))).to(torch.bfloat16)
+    K.reset_launches()
+    got = K.fused_rank_softmax(v_r, tqa, mask)
+    assert K.launches["fused_rank_softmax_bf16"] == 1
+    torch.testing.assert_close(got, K.fused_rank_softmax_ref(v_r, tqa, mask),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qa_dtype", [torch.bfloat16, torch.float32],
+                         ids=["glimpse0-bf16", "glimpse1-mixed"])
+@pytest.mark.parametrize("V,b,d", [pytest.param(50, B, D, id="50"),
+                                   pytest.param(293, B, D, id="293")]
+                         + K2_EDGES)
+def test_cuda_tri_pool_bf16_matches_plain(rng, cuda, V, b, d, qa_dtype):
+    vt, qt, at, _ = pool_inputs(rng, V, b, d)
+    vt = torch.from_numpy(vt).to(cuda, torch.bfloat16)
+    qt, at = (torch.from_numpy(x).to(cuda, qa_dtype) for x in (qt, at))
+    w = torch.from_numpy(rng.rand(b, V, Q, A, G).astype(np.float32)).to(cuda)
+    K.reset_launches()
+    got = K.trilinear_pool(vt, qt, at, w[..., 1])
+    assert K.launches["trilinear_pool_bf16"] == 1
+    want = K.trilinear_pool_ref(vt, qt, at, w[..., 1])
+    torch.testing.assert_close(got, want, rtol=2e-4,
+                               atol=2e-4 * want.abs().max().item())

@@ -407,3 +407,95 @@ def test_cti_dropout_sites_match_jax_under_injected_masks(rng):
         got, _ = model(*(torch.from_numpy(batch[k]) for k in "vqa"), ctx=ctx)
     close(got.numpy(), want)
     ctx.mask_source.assert_exhausted()
+
+
+# -- bf16 compute ------------------------------------------------------------------
+#
+# With bf16 parameters (compute_dtype="bfloat16") each op keeps JAX's dtype:
+# bf16 in and bf16 weights give bf16, and a float32 input against bf16
+# weights is promoted to float32, as jnp promotes (torch's F.linear would
+# raise).  Values are held to JAX's within a few bf16 roundings: BF16_TOL of
+# the largest output (one rounding is 2^-8 relative).
+
+BF16_TOL = 2.0 ** -6
+
+
+def bf16_tree(p):
+    return jax.tree.map(lambda x: jnp.asarray(x).astype(jnp.bfloat16), p)
+
+
+def close_bf16(got, want):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=BF16_TOL * np.abs(want).max())
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+def test_wnlinear_bf16_promotes_like_jax(rng, x_dtype):
+    jm = jlin.WNLinear(12, 9)
+    p = init(jm)
+    p["g"] = np.float32(2.5) * p["g"]
+    x = rng.randn(3, 5, 12).astype(np.float32)
+    m = load(linear.WNLinear(12, 9), p).to(torch.bfloat16)
+    tx = torch.from_numpy(x).to(getattr(torch, x_dtype))
+    jx = jnp.asarray(x).astype(x_dtype)
+    with torch.inference_mode():
+        got = m(tx)
+    want = jm.apply(bf16_tree(p), jx)
+    assert str(got.dtype) == f"torch.{want.dtype}" == f"torch.{x_dtype}"
+    close_bf16(got, want)
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+def test_rank_nets_bf16_promote_like_jax(rng, x_dtype):
+    jm = jtri.TCNet(**TC)
+    p = init(jm, seed=5)
+    x = rng.randn(2, 6, 16).astype(np.float32)
+    m = load(trilinear.TCNet(**TC), p).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = m.v_net(torch.from_numpy(x).to(getattr(torch, x_dtype)))
+    want = jm._rank_project(bf16_tree(p)["v_net"],
+                            jnp.asarray(x).astype(x_dtype), 0.5, None)
+    assert str(got.dtype) == f"torch.{want.dtype}" == f"torch.{x_dtype}"
+    close_bf16(got, want)
+
+
+def test_gru_bf16_matches_jax(rng):
+    """The GRU in bf16: bf16 states, within a few bf16 roundings of JAX's
+    scan (which also rounds every gate to bf16)."""
+    jm = jrnn.QuestionEmbedding(20, 16)
+    p = init(jm, seed=3)
+    x = rng.randn(3, 12, 20).astype(np.float32)
+    m = load(rnn.QuestionEmbedding(20, 16), p).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = m(torch.from_numpy(x).to(torch.bfloat16))
+    want = jm.apply_all(bf16_tree(p), jnp.asarray(x).astype(jnp.bfloat16))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    close_bf16(got, want)
+
+
+@pytest.mark.parametrize("qa_dtype", ["bfloat16", "float32"],
+                         ids=["glimpse0", "glimpse1"])
+def test_tcnet_apply_with_weights_bf16_matches_jax_pallas(rng, qa_dtype):
+    """The joint embedding at bf16: ``v`` bf16, ``q``/``a`` bf16 at the
+    first glimpse and float32 at the second; the pool is float32 on both
+    sides (Pallas backend, interpret mode)."""
+    kw = dict(TC, glimpse=1, k=2)
+    jm = jtri.TCNet(**kw, joint_only=True, backend="pallas")
+    p = init(jm, seed=6)
+    v, q, a = tc_inputs(rng)
+    att = rng.rand(2, 6, 12, 3, 2).astype(np.float32)
+    m = load(trilinear.TCNet(**kw, joint_only=True), p).to(torch.bfloat16)
+    qa = getattr(torch, qa_dtype)
+    with torch.inference_mode():
+        got = m.apply_with_weights(torch.from_numpy(v).to(torch.bfloat16),
+                                   torch.from_numpy(q).to(qa),
+                                   torch.from_numpy(a).to(qa),
+                                   torch.from_numpy(att)[..., 1])
+    with pltpu.force_tpu_interpret_mode():
+        want = jm.apply_with_weights(
+            bf16_tree(p), jnp.asarray(v).astype(jnp.bfloat16),
+            jnp.asarray(q).astype(qa_dtype), jnp.asarray(a).astype(qa_dtype),
+            jnp.asarray(att[..., 1]))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    close_bf16(got, want)

@@ -24,6 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 import optax
+from jax.experimental.pallas import tpu as pltpu
 
 from vqatpu.config import ModelConfig as JaxModelConfig
 from vqatpu.config import TrainConfig as JaxTrainConfig
@@ -38,7 +39,7 @@ from vqatpu_torch.ops.losses import bce_with_logits_sum
 from vqatpu_torch.ops.module import Ctx, MaskSource
 from vqatpu_torch.train import (Adamax, clip_flat_grads, densify_target,
                                 make_eval_step, make_train_state,
-                                make_train_step, lr_for_epoch)
+                                make_train_step, lr_for_epoch, wire_cast)
 from vqatpu_torch.weights import (jax_params_from_torch, numpy_batch,
                                   numpy_params, param_stats,
                                   torch_state_from_jax)
@@ -49,6 +50,7 @@ SMALL = dict(ntoken=50, v_dim=32, num_ans_candidates=17, model="cti",
 FULL = dict(ntoken=20000, v_dim=2048, num_ans_candidates=3129, model="cti",
             num_hid=1024, h_mm=512, rank=32, gamma=2)  # bench.py:50-52
 GOLDEN = Path(__file__).parent / "data" / "torch_cti_train_golden.npz"
+GOLDEN_BF16 = Path(__file__).parent / "data" / "torch_cti_train_golden_bf16.npz"
 GOLDEN_PARAM_SEED, GOLDEN_BATCH_SEED, GOLDEN_N, GOLDEN_STEPS = 0, 40, 4, 3
 GOLDEN_LR = 1e-3
 
@@ -194,11 +196,19 @@ def test_train_config_is_a_copy_of_jax():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("compute_dtype", "bfloat16"), ("transfer_dtype", "int8"),
     ("distillation", True), ("mask_replay", True)])
 def test_unported_train_options_raise(field, value):
     model = build_model(ModelConfig(**SMALL))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step(model, TrainConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("compute_dtype", "float16"), ("transfer_dtype", "int4")])
+def test_unknown_dtypes_raise(field, value):
+    model = build_model(ModelConfig(**SMALL))
+    make_train_state(model, device="cpu")
+    with pytest.raises(ValueError, match=field):
         make_train_step(model, TrainConfig(**{field: value}))
 
 
@@ -474,3 +484,183 @@ def test_full_width_golden_trajectory():
                                    err_msg=k)
     assert_stats_close(param_stats(jax_params_from_torch(
         state.model.state_dict())), golden_stats)
+
+
+# -- the wires and bf16 compute ------------------------------------------------------
+
+@pytest.mark.parametrize("wire", ["int8", "float16", "bfloat16"])
+def test_wire_trajectory_matches_jax(wire):
+    """Four steps with a narrowed wire: JAX's step on its ``wire_cast``
+    batches, the port's step on the float32 batches with
+    ``transfer_dtype`` set (it casts on the host and upcasts on the card);
+    1e-4, the float32 contract.  A batch that already carries its int8
+    ``v`` and ``v_scale`` passes through the port's cast untouched."""
+    params = numpy_params(ModelConfig(**SMALL), seed=3)
+    batches = small_batches(4)
+    kw = dict(update_freq=2, deterministic=True)
+    want, want_params = jax_run(
+        SMALL, params, [jsteps.wire_cast(b, wire) for b in batches],
+        JaxTrainConfig(**kw))
+    got, state = torch_run(SMALL, params, batches,
+                           TrainConfig(transfer_dtype=wire, **kw))
+    assert_metrics_close(got, want)
+    assert_params_close(state.model, want_params)
+    plain, plain_state = torch_run(SMALL, params, batches, TrainConfig(**kw))
+    assert any(not torch.equal(x, y) for x, y in zip(  # the wire narrows
+        plain_state.model.parameters(), state.model.parameters()))
+    if wire == "int8":
+        pre = [wire_cast(b, "int8") for b in batches]
+        assert wire_cast(pre[0], "int8")["v"] is pre[0]["v"]
+        again, _ = torch_run(SMALL, params, pre,
+                             TrainConfig(transfer_dtype=wire, **kw))
+        for g, w in zip(again, got):
+            assert g["loss"] == w["loss"]
+
+
+def test_wire_cast_matches_jax_bits(rng):
+    batch = {"v": rng.randn(3, 5, 16).astype(np.float32),
+             "b": rng.rand(3, 5, 6).astype(np.float32),
+             "q": rng.randint(0, 9, (3, 12))}
+    batch["v"][1, 3] = 0.0
+    for wire in ("int8", "float16", "bfloat16"):
+        got, want = wire_cast(batch, wire), jsteps.wire_cast(batch, wire)
+        assert set(got) == set(want)
+        for k in got:
+            x = got[k].view(torch.int16).numpy() if torch.is_tensor(got[k]) else got[k]
+            y = np.asarray(want[k])
+            np.testing.assert_array_equal(x.view(np.uint8), y.view(np.uint8),
+                                          err_msg=f"{wire} {k}")
+    assert wire_cast(batch, "float32") is batch
+
+
+def test_jax_pallas_backend_cannot_take_a_bf16_step():
+    """The reference fault of ROADMAP queue C: at compute_dtype="bfloat16"
+    JAX's Pallas backend fails under ``value_and_grad``, because the
+    ``custom_vjp``s of its kernels (``vqatpu/kernels/trilinear.py:
+    316-324, 415-426``) return float32 cotangents for bf16 primals and
+    ``vqatpu/ops/linear.py:56`` then multiplies bf16 by float32.  Its
+    default (xla) backend takes the step; so does the port (below)."""
+    params = numpy_params(ModelConfig(**SMALL), seed=3)
+    batch = small_batches(1)
+    tcfg = JaxTrainConfig(update_freq=1, deterministic=True,
+                          compute_dtype="bfloat16")
+    with pltpu.force_tpu_interpret_mode(), \
+            pytest.raises(TypeError, match="same dtypes"):
+        jax_run(dict(SMALL, kernel_backend="pallas"), params, batch, tcfg)
+    metrics, _ = jax_run(SMALL, params, batch, tcfg)
+    assert np.isfinite(metrics[0]["loss"])
+
+
+# bf16 training has no JAX Pallas-backend reference (above), so the port's
+# bf16 trajectory is held by a budget against JAX's float32 one: at each
+# step, for the loss, the pre-clip grad norm and each leaf's l2 norm,
+# |port_bf16 - jax_f32| <= 2 |jax_xla_bf16 - jax_f32| + BF16_FLOOR |jax_f32|.
+# The floor is a quarter of bf16's relative rounding step (2^-8): JAX's own
+# error at one step can fall far below its usual size by chance (0.016% on
+# the first full-width grad norm against 0.27% at the second), and biases,
+# which Adamax moves by ±lr an element, differ by up to 5.8e-4 of their norm
+# (CPU, full width).
+
+BF16_FLOOR = 2.0 ** -10
+
+
+def bf16_trajectory(kw, params, batches, side, compute_dtype, lr=1e-3):
+    tcfg = dict(update_freq=1, deterministic=True, compute_dtype=compute_dtype)
+    if side == "jax":
+        metrics, p = jax_run(kw, params, batches, JaxTrainConfig(**tcfg), lr=lr)
+        stats = param_stats(p)
+    else:
+        metrics, state = torch_run(kw, params, batches, TrainConfig(**tcfg),
+                                   lr=lr)
+        stats = param_stats(jax_params_from_torch(state.model.state_dict()))
+        assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    out = {k: np.array([float(m[k]) for m in metrics]) for k in ("loss", "grad_norm")}
+    out["param_l2"] = stats["l2"]
+    return out
+
+
+def assert_bf16_trajectory_budget(got, jax16, jax32):
+    for k in ("loss", "grad_norm", "param_l2"):
+        bound = 2 * np.abs(jax16[k] - jax32[k]) + BF16_FLOOR * np.abs(jax32[k])
+        err = np.abs(got[k] - jax32[k])
+        assert (err <= bound).all(), (k, err, bound)
+
+
+def test_bf16_trajectory_within_budget():
+    """Three bf16 steps at small width: master parameters, gradients and
+    Adamax stay float32 (the model is never converted)."""
+    params = numpy_params(ModelConfig(**SMALL), seed=3)
+    batches = small_batches(3)
+    jax32 = bf16_trajectory(SMALL, params, batches, "jax", "float32")
+    jax16 = bf16_trajectory(SMALL, params, batches, "jax", "bfloat16")
+    got = bf16_trajectory(SMALL, params, batches, "torch", "bfloat16")
+    assert_bf16_trajectory_budget(got, jax16, jax32)
+
+
+def test_eval_step_bf16_and_wire_match_jax():
+    """bf16 eval against JAX's Pallas-backend bf16 eval (the budget and
+    bound of tests/test_torch_model.py), and a float32 eval of an int8-wire
+    batch against JAX's (1e-5)."""
+    params = numpy_params(ModelConfig(**SMALL), seed=3)
+    batch = small_batches(1, n=5)[0]
+    model = build_model(ModelConfig(**SMALL))
+    model.load_state_dict(torch_state_from_jax(params))
+    jparams = jax.tree.map(jnp.asarray, params)
+
+    def jax_eval(compute_dtype, b, backend="xla"):
+        jm = jax_build_model(JaxModelConfig(**SMALL, kernel_backend=backend))
+        with pltpu.force_tpu_interpret_mode():
+            return np.asarray(jsteps.make_eval_step(jm, compute_dtype=compute_dtype)(
+                jparams, jax_batch(b))["logits"])
+
+    want32 = jax_eval("float32", batch)
+    want16 = jax_eval("bfloat16", batch, "pallas")
+    got16 = make_eval_step(model.eval(), compute_dtype="bfloat16")(batch)["logits"]
+    assert got16.dtype == torch.float32
+    assert next(model.parameters()).dtype == torch.float32
+    own = np.abs(want16 - want32).max()
+    assert np.abs(got16.numpy() - want32).max() <= 2 * own + 1e-4
+    assert np.abs(got16.numpy() - want16).max() <= 1e-2 * np.abs(want32).max()
+    wired = jsteps.wire_cast(batch, "int8")
+    got8 = make_eval_step(model)(wire_cast(batch, "int8"))["logits"]
+    np.testing.assert_allclose(got8.numpy(), jax_eval("float32", wired),
+                               atol=1e-5)
+
+
+def test_full_width_bf16_golden_trajectory():
+    """The golden of the card's bf16 training (chip_smoke.py phase 8): the
+    full-width trajectory of tests/data/torch_cti_train_golden.npz's seeds
+    in float32 and in bf16 on JAX's default (xla) backend, written when
+    missing, else JAX's bf16 run recomputed and checked against it within
+    the floor; the port's CPU bf16 trajectory meets the budget."""
+    cfg = ModelConfig(**FULL)
+    params = numpy_params(cfg, seed=GOLDEN_PARAM_SEED)
+    batches = golden_batches(cfg)
+    jax16 = bf16_trajectory(FULL, params, batches, "jax", "bfloat16",
+                            lr=GOLDEN_LR)
+    if not GOLDEN_BF16.exists():
+        jax32 = bf16_trajectory(FULL, params, batches, "jax", "float32",
+                                lr=GOLDEN_LR)
+        np.savez_compressed(
+            GOLDEN_BF16, n=GOLDEN_N, steps=GOLDEN_STEPS,
+            param_seed=GOLDEN_PARAM_SEED, batch_seed=GOLDEN_BATCH_SEED,
+            lr=GOLDEN_LR, floor=BF16_FLOOR,
+            names=param_stats(params)["names"],
+            **{f"f32_{k}": v for k, v in jax32.items()},
+            **{f"bf16_{k}": v for k, v in jax16.items()})
+    with np.load(GOLDEN_BF16) as z:
+        golden = {k: z[k] for k in z.files}
+    with np.load(GOLDEN) as z:
+        np.testing.assert_allclose(golden["f32_loss"], z["loss"], rtol=TOL)
+        np.testing.assert_allclose(golden["f32_grad_norm"], z["grad_norm"],
+                                   rtol=TOL)
+        np.testing.assert_allclose(golden["f32_param_l2"], z["param_l2"],
+                                   rtol=TOL)
+    assert float(golden["floor"]) == BF16_FLOOR
+    jax32 = {k: golden[f"f32_{k}"] for k in jax16}
+    golden16 = {k: golden[f"bf16_{k}"] for k in jax16}
+    for k in jax16:
+        np.testing.assert_allclose(jax16[k], golden16[k], rtol=BF16_FLOOR)
+    got = bf16_trajectory(FULL, params, batches, "torch", "bfloat16",
+                          lr=GOLDEN_LR)
+    assert_bf16_trajectory_budget(got, golden16, jax32)

@@ -8,15 +8,24 @@ Endpoints:
                             "answer_tokens": [[a]]}
                      -> {"answers": [...], "latency_ms": ...}
 - ``POST /logits``   same body -> raw logits
+- ``POST /answer_by_id`` / ``/logits_by_id`` (``--feature_split``): body
+                     {"image_ids": [N], "question_tokens" | "questions",
+                     "answer_tokens"}; the features stay with the server
+                     (on the card by default), so a request carries no
+                     feature payload
 
-Both POST endpoints also take ``Content-Type: application/x-npz`` (``np.savez``
-bytes with the same keys); an npz ``/logits`` request gets an npz response
-(key ``logits``).  ``/answer_mc`` and the by-id endpoints answer 400, as the
-JAX server does when it was not started for them; ``--feature_split`` and
-``--micro_batch`` are refused (ROADMAP queue A items 3 and 7).
+``/answer`` and ``/logits`` also take ``Content-Type: application/x-npz``
+(``np.savez`` bytes with the same keys); an npz ``/logits`` request gets an
+npz response (key ``logits``).  ``--transfer_dtype`` narrows the feature
+copy to the card, ``--compute_dtype bfloat16`` runs the forward in bf16,
+and ``--micro_batch N`` coalesces concurrent requests into forwards of up
+to N rows.  ``/answer_mc`` answers 400, as the JAX server does when it was
+not started with ``--task mc`` (MC is ROADMAP queue A item 7); the by-id
+endpoints answer 400 without ``--feature_split``.
 
 Run: ``python -m vqatpu_torch.cli.serve --input saved_models/cti --epoch 12
-     --dataroot data_vqa --model cti --port 8399 --device cuda``
+     --dataroot data_vqa --model cti --port 8399 --device cuda
+     [--feature_split val --micro_batch 32]``
 """
 
 from __future__ import annotations
@@ -63,6 +72,8 @@ def build_session(args):
 
 
 def make_handler(session, dictionary, model_name: str):
+    """``session`` is an InferenceSession or a MicroBatcher over one (the
+    same answer/logits surface)."""
     class Handler(BaseHTTPRequestHandler):
         def _json(self, code: int, payload: dict):
             body = json.dumps(payload).encode()
@@ -114,14 +125,41 @@ def make_handler(session, dictionary, model_name: str):
             a = None if a is None else np.asarray(a, np.int32)
             return v, b, q, a
 
+        def _by_id(self):
+            """``/answer_by_id`` and ``/logits_by_id``: image ids and tokens,
+            no features (``vqatpu/cli/serve.py:113-138``)."""
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                req = json.loads(self.rfile.read(length))
+                ids = req["image_ids"]
+                if "question_tokens" in req:
+                    q = np.asarray(req["question_tokens"], np.int32)
+                else:
+                    q = np.asarray([dictionary.tokenize_padded(s, 12)
+                                    for s in req["questions"]], np.int32)
+                a = req.get("answer_tokens")
+                a = None if a is None else np.asarray(a, np.int32)
+                t0 = time.perf_counter()
+                if self.path == "/answer_by_id":
+                    out = {"answers": session.answer_by_id(ids, q, a)}
+                else:
+                    out = {"logits": session.logits_by_id(ids, q, a).tolist()}
+                out["latency_ms"] = round((time.perf_counter() - t0) * 1e3, 2)
+                self._json(200, out)
+            except Exception as e:  # surface errors as JSON, keep serving
+                self._json(400, {"error": f"{type(e).__name__}: {e}"})
+
         def do_POST(self):
             if self.path not in ("/answer", "/logits", "/answer_mc",
                                  "/answer_by_id", "/logits_by_id"):
                 self._json(404, {"error": "unknown path"})
                 return
             if self.path.endswith("_by_id"):
-                self._json(400, {"error": "server not started with "
-                                          "--feature_split"})
+                if getattr(session, "features", None) is None:
+                    self._json(400, {"error": "server not started with "
+                                              "--feature_split"})
+                    return
+                self._by_id()
                 return
             if self.path == "/answer_mc":
                 self._json(400, {"error": "server not started with "
@@ -201,29 +239,67 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--feature_split", type=str, default=None,
-                   help="by-id serving (not ported yet)")
+                   help="serve POST /answer_by_id and /logits_by_id from a "
+                        "server-resident feature store: the split "
+                        "({split}_imgid2idx.pkl with {split}.npz, or "
+                        "{split}.hdf5 where h5py is installed, under "
+                        "--dataroot) whose images requests name by id")
+    p.add_argument("--feature_placement", type=str, default="device",
+                   choices=("device", "host"),
+                   help="device: the store's box rows live on the card "
+                        "(int8 with their scales unless --feature_f32) and "
+                        "each request's boxes are gathered there; host: "
+                        "gathered on the host and copied per request")
+    p.add_argument("--feature_f32", action="store_true", default=False,
+                   help="keep card-resident features float32 (4x the memory "
+                        "of int8; the upload path's logits exactly)")
+    p.add_argument("--quantize_store", action="store_true", default=False,
+                   help="keep the --feature_split store int8 in host memory")
     p.add_argument("--micro_batch", type=int, default=0,
-                   help="request coalescing (not ported yet)")
+                   help="coalesce concurrent requests into one forward of up "
+                        "to this many rows (0: off); adds at most "
+                        "--micro_batch_wait_ms of latency")
+    p.add_argument("--micro_batch_wait_ms", type=float, default=3.0,
+                   help="the longest wait after the first queued request "
+                        "before the coalesced forward runs")
     return p
 
 
-def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.feature_split:
-        parser.error("--feature_split: by-id serving is not ported to "
-                     "vqatpu_torch yet (ROADMAP queue A item 3)")
-    if args.micro_batch > 0:
-        parser.error("--micro_batch: the MicroBatcher is not ported to "
-                     "vqatpu_torch yet (ROADMAP queue A item 3)")
+def build_server(args):
+    """The session of ``args``, with its features attached and behind a
+    MicroBatcher as the flags ask, and its HTTP server (not started)."""
+    from vqatpu_torch.serve import MicroBatcher, ResidentFeatures
+
     session, dictionary = build_session(args)
-    server = make_server(session, dictionary, args.model, args.port, args.host)
+    if args.feature_split:
+        rf = ResidentFeatures.from_dataroot(
+            args.dataroot, args.feature_split, max_boxes=args.max_boxes,
+            quantize=args.quantize_store)
+        session.attach_features(rf, placement=args.feature_placement,
+                                quantize=not args.feature_f32)
+        print(f"by-id serving: {args.feature_split} features "
+              f"({len(rf.img_id2idx)} images) resident on "
+              f"{args.feature_placement}")
+    if args.micro_batch > 0:
+        session = MicroBatcher(session, max_batch=args.micro_batch,
+                               max_wait_ms=args.micro_batch_wait_ms)
+    return session, make_server(session, dictionary, args.model, args.port,
+                                args.host)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    session, server = build_server(args)
     print(f"serving {args.model} on http://{args.host}:{args.port} "
-          f"({session.device})")
+          f"({args.device})")
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+    finally:
+        server.server_close()
+        if hasattr(session, "close"):
+            session.close()
 
 
 if __name__ == "__main__":

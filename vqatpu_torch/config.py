@@ -4,9 +4,9 @@ and ``vqatpu.config.TrainConfig``.
 The fields and defaults are the JAX package's, so a configuration written
 for one side constructs on the other.  ``kernel_backend``, ``v_block_size``,
 ``fused_v_tucker`` and ``remat_glimpse`` are kept for that reason only: the
-port has one CTI path (the fused attention and pooling kernels), and the
-blockwise, fused-tucker and remat variants are not ported yet (ROADMAP
-queue A).
+port has one CTI path, that of JAX's ``kernel_backend="pallas"`` (the fused
+attention and pooling kernels, and its dtypes at bf16 compute), and the
+blockwise, fused-tucker and remat variants are ROADMAP queue A item 8.
 """
 
 from __future__ import annotations
@@ -61,10 +61,11 @@ class TrainConfig:
     ``rng_impl``, ``data_axis``, ``device_features``,
     ``shard_feature_store`` and ``ckpt_backend`` select TPU or loop
     machinery of the JAX package; they are accepted and select nothing
-    here.  ``compute_dtype="bfloat16"``, a ``transfer_dtype`` other than
-    float32 (ROADMAP queue A item 2), ``distillation`` (queue A item 5) and
-    ``mask_replay`` (not ported: autograd keeps the mask) make
-    :func:`vqatpu_torch.train.make_train_step` raise
+    here (the training device feature store waits for ROADMAP queue A item
+    4).  ``compute_dtype`` (float32 or bfloat16) and ``transfer_dtype``
+    (float32, float16, bfloat16 or int8) are ported.  ``distillation``
+    (queue A item 5) and ``mask_replay`` (not ported: autograd keeps the
+    mask) make :func:`vqatpu_torch.train.make_train_step` raise
     ``NotImplementedError``.
     """
 

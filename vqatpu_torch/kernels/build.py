@@ -27,12 +27,17 @@ _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # cudaError_t as an int
 ENTRY_POINTS = {
     "rank_softmax": {
-        # v_r, tqa, mask, att, B, V, RX, QA, G, device, stream
+        # v_r, tqa, mask, att, B, V, RX, QA, G, device, stream; v_r and tqa
+        # float32, or bfloat16 in the _bf16 entry point
         "rank_softmax_forward": [_PTR] * 4 + [_INT] * 6 + [_PTR],
+        "rank_softmax_forward_bf16": [_PTR] * 4 + [_INT] * 6 + [_PTR],
     },
     "tri_pool": {
-        # vt, qt, at, w, w's 4 strides, out, B, V, Q, A, D, device, stream
+        # vt, qt, at, w, w's 4 strides, out, B, V, Q, A, D, device, stream;
+        # the _bf16 entry point takes vt bfloat16 and, before the device,
+        # a flag: qt and at bfloat16 (1) or float32 (0)
         "tri_pool_forward": [_PTR] * 4 + [_I64] * 4 + [_PTR] + [_INT] * 6 + [_PTR],
+        "tri_pool_forward_bf16": [_PTR] * 4 + [_I64] * 4 + [_PTR] + [_INT] * 7 + [_PTR],
     },
     "softmax_vqa": {
         # in, mask or cotangent, out, B, V, QA, G, device, stream

@@ -55,9 +55,25 @@
 // stages, or chunks of 16 columns, measured no faster.  The f32 FMAs and
 // the copy issue are the next limits: tensor cores (3xTF32) and TMA.
 //
-// Needs RX % 4 == 0 and 16-byte aligned v_r and tqa (the 16-byte copies),
-// and QA <= 256; the entry point refuses anything else.
+// bf16 operands (`compute_dtype="bfloat16"`, where the Pallas kernel takes
+// bf16 v_r and tqa and multiplies with preferred_element_type=f32, :268):
+// the same kernel with the operand type T a template parameter.  The ring
+// holds T, so a 16-byte copy carries 8 bf16 and a stage half the bytes; each
+// shared read of 4 operands is 8 bytes, widened to f32 in registers (a bf16
+// is the top half of an f32), so the products are exact and the sums, the
+// softmax and att are f32 as in the f32 instance.  Rows are padded by one
+// 16-byte unit either way.  Where a glimpse group is not contiguous in tqa
+// (G other than 1 or 2) a bf16 element is 2 bytes, below cp.async's
+// smallest copy, so those rows are copied through registers.  The bound
+// halves in bytes (about 5 us at B=128); the FMAs stay f32 on the CUDA
+// cores, so this instance is for correctness first: tensor-core MMA
+// (mma.sync m16n8k16 or wgmma, f32 accumulators) is later work.
+//
+// Needs RX % (16 / sizeof(T)) == 0 (4 f32, 8 bf16) and 16-byte aligned v_r
+// and tqa (the 16-byte copies), and QA <= 256; the entry points refuse
+// anything else.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -73,11 +89,19 @@ constexpr int TM = 4;             // rows of a thread's micro-tile
 constexpr int MAX_RG = 16;        // row groups: V tile <= 64 rows
 constexpr int MAX_COLS = 256;     // QA * GG columns per block
 constexpr int MAX_QA = 256;
-constexpr int VROW = KC + 4;      // padded shared row of the v_r tile
 constexpr float NEG_BIG = -1e30f;
 
+// operands of T in one 16-byte unit: 4 f32, 8 bf16
+template <typename T>
+__host__ __device__ constexpr int unit() { return 16 / (int)sizeof(T); }
+
+// padded shared row of the v_r tile
+template <typename T>
+__host__ __device__ constexpr int vrow() { return KC + unit<T>(); }
+
 // padded shared row of the tqa tile: KC columns of GG glimpses
-__host__ __device__ constexpr int wrow(int gg) { return KC * gg + 4; }
+template <typename T>
+__host__ __device__ constexpr int wrow(int gg) { return KC * gg + unit<T>(); }
 
 // glimpses per block
 int glimpse_group(int QA, int G) {
@@ -89,6 +113,7 @@ struct Tiling {
   size_t smem;  // bytes of the ring
 };
 
+template <typename T>
 Tiling tiling(int QA, int G) {
   Tiling t;
   t.gg = glimpse_group(QA, G);
@@ -96,13 +121,25 @@ Tiling tiling(int QA, int G) {
   t.cq = (QA + tq - 1) / tq;
   t.rg = MAX_THREADS / t.cq < MAX_RG ? MAX_THREADS / t.cq : MAX_RG;
   t.threads = (t.rg * t.cq + 31) / 32 * 32;
-  const size_t stage = (size_t)t.cq * tq * wrow(t.gg) + (size_t)t.rg * TM * VROW;
-  t.smem = STAGES * stage * sizeof(float);
+  const size_t stage =
+      (size_t)t.cq * tq * wrow<T>(t.gg) + (size_t)t.rg * TM * vrow<T>();
+  t.smem = STAGES * stage * sizeof(T);
   return t;
 }
 
 __device__ __forceinline__ float lane(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// 4 consecutive operands from shared memory as f32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 // (m, s) <- the running max and sum of two partial softmax reductions
@@ -113,15 +150,17 @@ __device__ __forceinline__ void combine(float& m, float& s, float m2, float s2) 
   m = mx;
 }
 
-template <int GG, bool CONTIG>
+template <typename T, int GG, bool CONTIG>
 __global__ void __launch_bounds__(MAX_THREADS, 2)
-rank_softmax_kernel(const float* __restrict__ v_r, const float* __restrict__ tqa,
+rank_softmax_kernel(const T* __restrict__ v_r, const T* __restrict__ tqa,
                     const unsigned char* __restrict__ mask, float* __restrict__ att,
                     int V, int RX, int QA, int G, int CQ, int RG) {
   constexpr int TQ = 4 / GG;
-  constexpr int WROW = wrow(GG);
+  constexpr int WROW = wrow<T>(GG);
+  constexpr int VROW = vrow<T>();
+  constexpr int U = unit<T>();
   extern __shared__ float4 ring4[];
-  float* ring = reinterpret_cast<float*>(ring4);
+  T* ring = reinterpret_cast<T*>(ring4);
   __shared__ float red_m[MAX_THREADS / 32][GG];
   __shared__ float red_s[MAX_THREADS / 32][GG];
 
@@ -136,8 +175,8 @@ rank_softmax_kernel(const float* __restrict__ v_r, const float* __restrict__ tqa
   const bool active = tid < RG * CQ;
   const int cq = tid % CQ, rg = tid / CQ;
 
-  const float* vb = v_r + (size_t)b * V * RX;
-  const float* tb = tqa + (size_t)b * QA * RX * G;
+  const T* vb = v_r + (size_t)b * V * RX;
+  const T* tb = tqa + (size_t)b * QA * RX * G;
   const unsigned char* mb = mask + (size_t)b * V;
   float* ob = att + (size_t)b * V * QA * G;
   const int n_tiles = (V + VT - 1) / VT;
@@ -157,31 +196,37 @@ rank_softmax_kernel(const float* __restrict__ v_r, const float* __restrict__ tqa
     // chunk c of tqa (QAP rows of KC*GG floats) and of v_r (VT rows of KC)
     // into ring slot c % STAGES
     auto load = [&](int c) {
-      float* ws = ring + (c % STAGES) * stage;
-      float* vs = ws + w_stage;
+      T* ws = ring + (c % STAGES) * stage;
+      T* vs = ws + w_stage;
       const int k0 = c * KC;
       if constexpr (CONTIG) {
-        constexpr int UPR = KC * GG / 4;  // 16-byte units per row
+        constexpr int UPR = KC * GG / U;  // 16-byte units per row
         for (int u = tid; u < QAP * UPR; u += nthreads) {
           const int qa = u / UPR, cu = u % UPR;
-          const bool ok = qa < QA && k0 + cu * 4 / GG < RX;
-          cp_async<16>(ws + qa * WROW + cu * 4,
-                       ok ? tb + ((size_t)qa * RX + k0) * G + cu * 4 : tb, ok);
+          const bool ok = qa < QA && k0 + cu * U / GG < RX;
+          cp_async<16>(ws + qa * WROW + cu * U,
+                       ok ? tb + ((size_t)qa * RX + k0) * G + cu * U : tb, ok);
         }
       } else {
         for (int u = tid; u < QAP * KC; u += nthreads) {
           const int qa = u / KC, kk = u % KC;
           const bool ok = qa < QA && k0 + kk < RX;
-          cp_async<4 * GG>(ws + qa * WROW + kk * GG,
-                           ok ? tb + ((size_t)qa * RX + k0 + kk) * G + g0 : tb, ok);
+          if constexpr (sizeof(T) * GG >= 4) {
+            cp_async<(int)sizeof(T) * GG>(
+                ws + qa * WROW + kk * GG,
+                ok ? tb + ((size_t)qa * RX + k0 + kk) * G + g0 : tb, ok);
+          } else {  // one bf16: through registers
+            ws[qa * WROW + kk * GG] =
+                ok ? tb[((size_t)qa * RX + k0 + kk) * G + g0] : T(0.f);
+          }
         }
       }
-      constexpr int VU = KC / 4;
+      constexpr int VU = KC / U;
       for (int u = tid; u < VT * VU; u += nthreads) {
         const int r = u / VU, cu = u % VU;
-        const bool ok = i0 + r < V && k0 + cu * 4 < RX;
-        cp_async<16>(vs + r * VROW + cu * 4,
-                     ok ? vb + (size_t)(i0 + r) * RX + k0 + cu * 4 : vb, ok);
+        const bool ok = i0 + r < V && k0 + cu * U < RX;
+        cp_async<16>(vs + r * VROW + cu * U,
+                     ok ? vb + (size_t)(i0 + r) * RX + k0 + cu * U : vb, ok);
       }
     };
 
@@ -204,21 +249,20 @@ rank_softmax_kernel(const float* __restrict__ v_r, const float* __restrict__ tqa
       if (c + STAGES - 1 < n_chunks) load(c + STAGES - 1);
       cp_async_commit();
       if (active) {
-        const float* ws = ring + (c % STAGES) * stage;
-        const float* vs = ws + w_stage;
+        const T* ws = ring + (c % STAGES) * stage;
+        const T* vs = ws + w_stage;
 #pragma unroll
         for (int kk = 0; kk < KC; kk += 4) {
           float4 a[TM];
 #pragma unroll
           for (int s = 0; s < TM; ++s)
-            a[s] = *reinterpret_cast<const float4*>(vs + (rg + s * RG) * VROW + kk);
+            a[s] = load4(vs + (rg + s * RG) * VROW + kk);
           float4 w[TQ][GG];  // k = kk..kk+3 times the group's glimpses
 #pragma unroll
           for (int q = 0; q < TQ; ++q)
 #pragma unroll
             for (int h = 0; h < GG; ++h)
-              w[q][h] = *reinterpret_cast<const float4*>(
-                  ws + (cq + q * CQ) * WROW + kk * GG + 4 * h);
+              w[q][h] = load4(ws + (cq + q * CQ) * WROW + kk * GG + 4 * h);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -358,18 +402,18 @@ rank_softmax_kernel(const float* __restrict__ v_r, const float* __restrict__ tqa
   }
 }
 
-template <int GG, bool CONTIG>
+template <typename T, int GG, bool CONTIG>
 cudaError_t launch(const Tiling& t, dim3 grid, cudaStream_t stream, int device,
-                   const float* v_r, const float* tqa, const unsigned char* mask,
+                   const T* v_r, const T* tqa, const unsigned char* mask,
                    float* att, int V, int RX, int QA, int G) {
   // the ring can exceed the 48 KB default: allow, once per device, the most
   // any tiling of this instance asks for
   constexpr int MAX_DEVICES = 64;
   static bool raised[MAX_DEVICES] = {};
   constexpr size_t most =
-      STAGES * ((size_t)MAX_COLS / GG * wrow(GG) + (size_t)MAX_RG * TM * VROW) *
-      sizeof(float);
-  auto kernel = rank_softmax_kernel<GG, CONTIG>;
+      STAGES * ((size_t)MAX_COLS / GG * wrow<T>(GG) + (size_t)MAX_RG * TM * vrow<T>()) *
+      sizeof(T);
+  auto kernel = rank_softmax_kernel<T, GG, CONTIG>;
   if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (!raised[device]) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -382,26 +426,40 @@ cudaError_t launch(const Tiling& t, dim3 grid, cudaStream_t stream, int device,
   return cudaGetLastError();
 }
 
+template <typename T>
+int forward(const T* v_r, const T* tqa, const unsigned char* mask, float* att,
+            int B, int V, int RX, int QA, int G, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (QA < 1 || QA > MAX_QA || RX % unit<T>() != 0 ||
+      ((uintptr_t)v_r | (uintptr_t)tqa) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || V == 0 || G == 0) return 0;
+  const Tiling t = tiling<T>(QA, G);
+  const dim3 grid(B, G / t.gg);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (t.gg == 2)
+    err = G == 2 ? launch<T, 2, true>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G)
+                 : launch<T, 2, false>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G);
+  else
+    err = G == 1 ? launch<T, 1, true>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G)
+                 : launch<T, 1, false>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G);
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" int rank_softmax_forward(const float* v_r, const float* tqa,
                                     const unsigned char* mask, float* att,
                                     int B, int V, int RX, int QA, int G,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (QA < 1 || QA > MAX_QA || RX % 4 != 0 ||
-      ((uintptr_t)v_r | (uintptr_t)tqa) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || V == 0 || G == 0) return 0;
-  const Tiling t = tiling(QA, G);
-  const dim3 grid(B, G / t.gg);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (t.gg == 2)
-    err = G == 2 ? launch<2, true>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G)
-                 : launch<2, false>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G);
-  else
-    err = G == 1 ? launch<1, true>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G)
-                 : launch<1, false>(t, grid, s, device, v_r, tqa, mask, att, V, RX, QA, G);
-  return (int)err;
+  return forward(v_r, tqa, mask, att, B, V, RX, QA, G, device, stream);
+}
+
+extern "C" int rank_softmax_forward_bf16(const __nv_bfloat16* v_r,
+                                         const __nv_bfloat16* tqa,
+                                         const unsigned char* mask, float* att,
+                                         int B, int V, int RX, int QA, int G,
+                                         int device, void* stream) {
+  return forward(v_r, tqa, mask, att, B, V, RX, QA, G, device, stream);
 }

@@ -44,9 +44,23 @@
 // vqatpu_torch.kernels.probe).  Like K1's, its copies are
 // 16-byte (vt) and 4-byte (w) cp.async requests, a cycle or so each.
 //
-// Needs D % 4 == 0 and 16-byte aligned vt, qt, at and out; the entry point
-// refuses anything else.
+// bf16 operands (`compute_dtype="bfloat16"`): vt is bf16, and qt and at
+// are bf16 at glimpse 0 and f32 at glimpse 1, where the residual has
+// promoted the question and answer states (vqatpu/models/ffoe.py:321-322);
+// w, the sums and out stay f32, as in the Pallas kernel, whose dots take
+// the bf16 operands with preferred_element_type=f32 (:362).  The same
+// kernel with vt's type TV and qt/at's type TQ as template parameters: the
+// ring holds vt as TV, so a 16-byte copy carries 8 bf16 and a thread's 2 d
+// are one 4-byte shared read, widened to f32 in registers (a bf16 is the
+// top half of an f32); qt and at are read the same way.  Instances <bf16,
+// bf16> and <bf16, f32> beside <f32, f32>; the bound falls by vt's halved
+// bytes (about 6 us at B=128).  A simple, correct instance: the FMAs stay
+// f32 on the CUDA cores.
+//
+// Needs D % (16 / sizeof(TV)) == 0 (4 f32, 8 bf16) and 16-byte aligned vt,
+// qt, at and out; the entry points refuse anything else.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,19 +75,35 @@ constexpr int STAGES = 4;           // ring depth
 constexpr int MAX_Q = 32;
 constexpr int MAX_A = 8;
 
-template <int NQ, int NA>
-__host__ __device__ constexpr int stage_floats() { return VR * (DSPAN + NQ * NA); }
+// floats of the ring a vt row of the d span takes
+template <typename TV>
+__host__ __device__ constexpr int vspan() { return DSPAN * (int)sizeof(TV) / 4; }
+
+template <typename TV, int NQ, int NA>
+__host__ __device__ constexpr int stage_floats() { return VR * (vspan<TV>() + NQ * NA); }
+
+// 2 adjacent operands as f32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
 
 // ONE_PASS: the caller guarantees Q <= NQ, so m is not live in the V loop
-template <int NQ, int NA, bool ONE_PASS>
+template <typename TV, typename TQ, int NQ, int NA, bool ONE_PASS>
 __global__ void __launch_bounds__(THREADS, 4)
-tri_pool_kernel(const float* __restrict__ vt, const float* __restrict__ qt,
-                const float* __restrict__ at, const float* __restrict__ w,
+tri_pool_kernel(const TV* __restrict__ vt, const TQ* __restrict__ qt,
+                const TQ* __restrict__ at, const float* __restrict__ w,
                 long long w_sb, long long w_sv, long long w_sq, long long w_sa,
                 float* __restrict__ out, int V, int Q, int A, int D) {
   constexpr int P = NQ * NA;          // (j, l) pairs of a pass
-  constexpr int STAGE = stage_floats<NQ, NA>();
-  constexpr int UPR = DSPAN / 4;      // 16-byte units of a vt row
+  constexpr int STAGE = stage_floats<TV, NQ, NA>();
+  constexpr int EPU = 16 / (int)sizeof(TV);  // vt elements of a 16-byte unit
+  constexpr int UPR = DSPAN / EPU;    // 16-byte units of a vt row
+  constexpr int TPF = 4 / (int)sizeof(TV);   // vt elements of a ring float
   static_assert(P % 4 == 0, "w rows are read as float4");
   static_assert(VR * UPR % THREADS == 0, "vt units per thread");
   extern __shared__ float4 ring4[];
@@ -84,11 +114,11 @@ tri_pool_kernel(const float* __restrict__ vt, const float* __restrict__ qt,
   const int d0 = blockIdx.y * DSPAN;
   const int d = d0 + 2 * tid;  // D % 4 == 0: d < D means d + 1 < D
   // this thread's 16-byte units of a vt chunk: rows tid / UPR + k * RSTEP,
-  // columns d0 + tid % UPR * 4
+  // columns d0 + tid % UPR * EPU
   constexpr int RSTEP = THREADS / UPR;
-  const int dd = d0 + tid % UPR * 4;
-  const float* vsrc = vt + ((size_t)b * V + tid / UPR) * D + dd;
-  float* vdst = ring + tid * 4;
+  const int dd = d0 + tid % UPR * EPU;
+  const TV* vsrc = vt + ((size_t)b * V + tid / UPR) * D + dd;
+  TV* vdst = reinterpret_cast<TV*>(ring) + tid * EPU;
   const float* wb = w + b * w_sb;
   // offsets inside one sample's w fit an int (the entry point checks)
   const int sv = (int)w_sv, sq = (int)w_sq, sa = (int)w_sa;
@@ -103,13 +133,13 @@ tri_pool_kernel(const float* __restrict__ vt, const float* __restrict__ qt,
     // pass's pairs) into ring slot c % STAGES
     auto load = [&](int c) {
       const int slot = (c % STAGES) * STAGE;
-      float* ws = ring + slot + VR * DSPAN;
+      float* ws = ring + slot + VR * vspan<TV>();
       const int i0 = c * VR;
 #pragma unroll
       for (int k = 0; k < VR / RSTEP; ++k) {
         const int i = i0 + tid / UPR + k * RSTEP;
         const bool ok = i < V && dd < D;
-        cp_async<16>(vdst + slot + k * RSTEP * DSPAN,
+        cp_async<16>(vdst + slot * TPF + k * RSTEP * DSPAN,
                      ok ? vsrc + (size_t)(i0 + k * RSTEP) * D : vt, ok);
       }
       for (int x = tid; x < VR * P; x += THREADS) {
@@ -136,11 +166,11 @@ tri_pool_kernel(const float* __restrict__ vt, const float* __restrict__ qt,
       if (c + STAGES - 1 < n_chunks) load(c + STAGES - 1);
       cp_async_commit();
       const float* vs = ring + (c % STAGES) * STAGE;
-      const float* ws = vs + VR * DSPAN;
+      const float* ws = vs + VR * vspan<TV>();
       // not unrolled: 72 accumulators of 128 registers (0 spilled)
 #pragma unroll 1
       for (int r = 0; r < VR; ++r) {
-        const float2 v = *reinterpret_cast<const float2*>(vs + r * DSPAN + 2 * tid);
+        const float2 v = load2(reinterpret_cast<const TV*>(vs) + r * DSPAN + 2 * tid);
         const float4* wr = reinterpret_cast<const float4*>(ws + r * P);
 #pragma unroll
         for (int p = 0; p < P / 4; ++p) {
@@ -161,8 +191,7 @@ tri_pool_kernel(const float* __restrict__ vt, const float* __restrict__ qt,
 #pragma unroll
       for (int jj = 0; jj < NQ; ++jj) {
         if (j0 + jj >= Q) continue;
-        const float2 q = *reinterpret_cast<const float2*>(
-            qt + ((size_t)b * Q + j0 + jj) * D + d);
+        const float2 q = load2(qt + ((size_t)b * Q + j0 + jj) * D + d);
 #pragma unroll
         for (int l = 0; l < NA; ++l) {
           m[l][0] = fmaf(q.x, u[jj * NA + l][0], m[l][0]);
@@ -177,7 +206,7 @@ tri_pool_kernel(const float* __restrict__ vt, const float* __restrict__ qt,
 #pragma unroll
     for (int l = 0; l < NA; ++l) {
       if (l >= A) continue;
-      const float2 a = *reinterpret_cast<const float2*>(at + ((size_t)b * A + l) * D + d);
+      const float2 a = load2(at + ((size_t)b * A + l) * D + d);
       o.x = fmaf(a.x, m[l][0], o.x);
       o.y = fmaf(a.y, m[l][1], o.y);
     }
@@ -185,16 +214,38 @@ tri_pool_kernel(const float* __restrict__ vt, const float* __restrict__ qt,
   }
 }
 
-template <int NQ, int NA, bool ONE_PASS>
-cudaError_t launch(dim3 grid, cudaStream_t stream, const float* vt,
-                   const float* qt, const float* at, const float* w,
+template <typename TV, typename TQ, int NQ, int NA, bool ONE_PASS>
+cudaError_t launch(dim3 grid, cudaStream_t stream, const TV* vt,
+                   const TQ* qt, const TQ* at, const float* w,
                    long long w_sb, long long w_sv, long long w_sq, long long w_sa,
                    float* out, int V, int Q, int A, int D) {
-  constexpr int smem = STAGES * stage_floats<NQ, NA>() * (int)sizeof(float);
+  constexpr int smem = STAGES * stage_floats<TV, NQ, NA>() * (int)sizeof(float);
   static_assert(smem <= 48 * 1024, "the ring fits the default shared memory");
-  tri_pool_kernel<NQ, NA, ONE_PASS><<<grid, THREADS, smem, stream>>>(
+  tri_pool_kernel<TV, TQ, NQ, NA, ONE_PASS><<<grid, THREADS, smem, stream>>>(
       vt, qt, at, w, w_sb, w_sv, w_sq, w_sa, out, V, Q, A, D);
   return cudaGetLastError();
+}
+
+template <typename TV, typename TQ>
+int forward(const TV* vt, const TQ* qt, const TQ* at, const float* w,
+            long long w_sb, long long w_sv, long long w_sq, long long w_sa,
+            float* out, int B, int V, int Q, int A, int D, int device,
+            void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (Q < 1 || A < 1 || Q > MAX_Q || A > MAX_A || D % (16 / (int)sizeof(TV)) != 0 ||
+      ((uintptr_t)vt | (uintptr_t)qt | (uintptr_t)at | (uintptr_t)out) % 16 != 0 ||
+      w_sv < 0 || w_sq < 0 || w_sa < 0 ||
+      (V - 1LL) * w_sv + (Q - 1LL) * w_sq + (A - 1LL) * w_sa > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || D == 0) return 0;
+  const dim3 grid(B, (D + DSPAN - 1) / DSPAN);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (Q <= 12 && A <= 3)
+    return (int)launch<TV, TQ, 12, 3, true>(grid, s, vt, qt, at, w, w_sb, w_sv,
+                                            w_sq, w_sa, out, V, Q, A, D);
+  return (int)launch<TV, TQ, 4, 8, false>(grid, s, vt, qt, at, w, w_sb, w_sv,
+                                          w_sq, w_sa, out, V, Q, A, D);
 }
 
 }  // namespace
@@ -204,19 +255,20 @@ extern "C" int tri_pool_forward(const float* vt, const float* qt,
                                 long long w_sb, long long w_sv, long long w_sq,
                                 long long w_sa, float* out, int B, int V,
                                 int Q, int A, int D, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (Q < 1 || A < 1 || Q > MAX_Q || A > MAX_A || D % 4 != 0 ||
-      ((uintptr_t)vt | (uintptr_t)qt | (uintptr_t)at | (uintptr_t)out) % 16 != 0 ||
-      w_sv < 0 || w_sq < 0 || w_sa < 0 ||
-      (V - 1LL) * w_sv + (Q - 1LL) * w_sq + (A - 1LL) * w_sa > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || D == 0) return 0;
-  const dim3 grid(B, (D + DSPAN - 1) / DSPAN);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (Q <= 12 && A <= 3)
-    return (int)launch<12, 3, true>(grid, s, vt, qt, at, w, w_sb, w_sv, w_sq,
-                              w_sa, out, V, Q, A, D);
-  return (int)launch<4, 8, false>(grid, s, vt, qt, at, w, w_sb, w_sv, w_sq,
-                           w_sa, out, V, Q, A, D);
+  return forward(vt, qt, at, w, w_sb, w_sv, w_sq, w_sa, out, B, V, Q, A, D,
+                 device, stream);
+}
+
+// vt bf16; qt and at bf16 when qa_bf16 is nonzero, else f32
+extern "C" int tri_pool_forward_bf16(const __nv_bfloat16* vt, const void* qt,
+                                     const void* at, const float* w,
+                                     long long w_sb, long long w_sv, long long w_sq,
+                                     long long w_sa, float* out, int B, int V,
+                                     int Q, int A, int D, int qa_bf16,
+                                     int device, void* stream) {
+  if (qa_bf16)
+    return forward(vt, (const __nv_bfloat16*)qt, (const __nv_bfloat16*)at, w,
+                   w_sb, w_sv, w_sq, w_sa, out, B, V, Q, A, D, device, stream);
+  return forward(vt, (const float*)qt, (const float*)at, w, w_sb, w_sv, w_sq,
+                 w_sa, out, B, V, Q, A, D, device, stream);
 }

@@ -91,7 +91,7 @@ TIMELINE = [
     ("  // normalise: from registers, or rereading the parked logits\n",
      "  STAMP(42);\n  // normalise: from registers, or rereading the parked logits\n"),
 ]
-KERNEL_END = "\ntemplate <int GG, bool CONTIG>\ncudaError_t launch("
+KERNEL_END = "\ntemplate <typename T, int GG, bool CONTIG>\ncudaError_t launch("
 
 K1_VARIANTS = {
     "ring of 2 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")],

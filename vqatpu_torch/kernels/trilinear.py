@@ -14,6 +14,13 @@ their wrappers (``vqatpu/kernels/trilinear.py``).
   :func:`softmax_vqa_backward`, the softmax VJP that K1's and K3's
   backwards both begin with.
 
+Under ``compute_dtype="bfloat16"`` K1 takes bf16 ``v_r`` and ``tqa``, and
+K2 bf16 ``vt`` with ``qt``/``at`` bf16 (glimpse 0) or float32 (glimpse 1),
+as JAX's Pallas backend passes them; each has a bf16-operand instance (its
+own launch counter, ``*_bf16``) and computes in float32, with a float32
+output.  The plain versions upcast bf16 operands to float32 first (exact),
+which is the kernels' math.  Any other dtype combination raises.
+
 A wrapper runs the plain version for CPU tensors, and autograd
 differentiates it there.  For CUDA tensors it launches its kernel, or
 raises: nothing falls back.  The CUDA path goes through a
@@ -44,7 +51,8 @@ SOFTMAX_VQA_MAX_G = 8           # glimpses (the configs use 1 and 2)
 SOFTMAX_VQA_MAX_SLICE = 2**31 - 1  # floats of one sample, V*Q*A*G
 
 launches = {"fused_rank_softmax": 0, "trilinear_pool": 0,
-            "masked_softmax_vqa": 0, "softmax_vqa_backward": 0}
+            "masked_softmax_vqa": 0, "softmax_vqa_backward": 0,
+            "fused_rank_softmax_bf16": 0, "trilinear_pool_bf16": 0}
 _launch_lock = threading.Lock()
 
 
@@ -103,15 +111,16 @@ def softmax_vqa_backward_ref(att: torch.Tensor,
 
 def fused_rank_softmax_ref(v_r: torch.Tensor, tqa: torch.Tensor,
                            v_mask: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`fused_rank_softmax`."""
+    """Plain version of :func:`fused_rank_softmax`, in float32."""
     return masked_softmax_vqa_ref(
-        torch.einsum("birx,bjlrxg->bijlg", v_r, tqa), v_mask)
+        torch.einsum("birx,bjlrxg->bijlg", v_r.float(), tqa.float()), v_mask)
 
 
 def trilinear_pool_ref(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
                        w: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`trilinear_pool`
-    (``vqatpu/kernels/trilinear.py:177-185``)."""
+    (``vqatpu/kernels/trilinear.py:177-185``), in float32."""
+    vt, qt, at, w = vt.float(), qt.float(), at.float(), w.float()
     wv = torch.einsum("bvqa,bvd->bqad", w, vt)
     m = torch.einsum("bqad,bqd->bad", wv, qt)
     return torch.einsum("bad,bad->bd", m, at)
@@ -126,7 +135,10 @@ def rank_contraction_grads(dl: torch.Tensor, v_r: torch.Tensor,
     """``dv = einsum('bijlg,bjlrxg->birx')`` and ``dtqa =
     einsum('bijlg,birx->bjlrxg')`` of ``dl`` [B,V,Q,A,G]
     (``vqatpu/kernels/trilinear.py:322-323``), each one ``torch.bmm``:
-    ``dl`` as [B, V, QA*G] against ``tqa`` laid out [B, QA*G, RX]."""
+    ``dl`` as [B, V, QA*G] against ``tqa`` laid out [B, QA*G, RX].  bf16
+    ``v_r``/``tqa`` are promoted against the float32 ``dl``, as jnp does;
+    the products are float32."""
+    v_r, tqa = v_r.float(), tqa.float()
     B, V, R, X = v_r.shape
     Q, A, G = tqa.shape[1], tqa.shape[2], tqa.shape[5]
     dl2 = dl.reshape(B, V, Q * A * G)
@@ -141,7 +153,9 @@ def trilinear_pool_grads(g: torch.Tensor, vt: torch.Tensor, qt: torch.Tensor,
     """The four cotangents of the pool (``vqatpu/kernels/trilinear.py:
     415-426``) for ``g`` [B, D].  With ``P[b,(j,l),d] = qt[b,j,d]·at[b,l,d]``
     and ``wv = wᵀ vt`` [B, QA, D], each product is one ``torch.bmm``: no
-    [B, V, Q, D] intermediate is formed."""
+    [B, V, Q, D] intermediate is formed.  bf16 operands are promoted
+    against the float32 ``g``, as jnp does; the products are float32."""
+    vt, qt, at = vt.float(), qt.float(), at.float()
     B, V, D = vt.shape
     Q, A = qt.shape[1], at.shape[1]
     w2 = w.reshape(B, V, Q * A)
@@ -168,11 +182,20 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
+def _check_operand(t: torch.Tensor, name: str) -> None:
+    """K1's and K2's operands have float32 and bfloat16 instances."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {t.dtype}, expected float32 or "
+                        "bfloat16")
+
+
 def _check5(t: torch.Tensor, name: str) -> None:
     if t.dim() != 5:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected [B,V,Q,A,G]")
     if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {torch.float32}")
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {torch.float32} "
+                        "(the softmax kernels have no bfloat16 instance yet: "
+                        "ROADMAP queue B)")
 
 
 def _check_cuda(device: torch.device, **contiguous: torch.Tensor) -> None:
@@ -198,26 +221,36 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
 
 
+def _unit(t: torch.Tensor) -> int:
+    """Elements of ``t`` in one of the kernels' 16-byte copies."""
+    return 16 // t.element_size()
+
+
+def _bf16_suffix(t: torch.Tensor) -> str:
+    return "_bf16" if t.dtype == torch.bfloat16 else ""
+
+
 def _rank_softmax_kernel(v_r, tqa, v_mask) -> torch.Tensor:
     B, V, R, X = v_r.shape
     Q, A, G = tqa.shape[1], tqa.shape[2], tqa.shape[-1]
     dev = v_r.device
-    _check_cuda(dev, v_r=v_r, tqa=tqa, v_mask=v_mask)
     if Q * A > RANK_SOFTMAX_MAX_QA:
         raise ValueError(f"Q*A = {Q * A} exceeds the kernel's "
                          f"{RANK_SOFTMAX_MAX_QA}")
-    if (R * X) % 4:
-        raise ValueError(f"R*X = {R * X} must be a multiple of 4 "
-                         "(the kernel's 16-byte copies)")
+    if (R * X) % _unit(v_r):
+        raise ValueError(f"R*X = {R * X} must be a multiple of {_unit(v_r)} "
+                         f"for {v_r.dtype} (the kernel's 16-byte copies)")
+    _check_cuda(dev, v_r=v_r, tqa=tqa, v_mask=v_mask)
     _check_aligned(v_r=v_r, tqa=tqa)
     out = torch.empty((B, V, Q, A, G), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    fn = build.load("rank_softmax").rank_softmax_forward
+    sfx = _bf16_suffix(v_r)
+    fn = getattr(build.load("rank_softmax"), "rank_softmax_forward" + sfx)
     _raise_on(fn(v_r.data_ptr(), tqa.data_ptr(), v_mask.data_ptr(),
                  out.data_ptr(), B, V, R * X, Q * A, G, dev.index or 0,
-                 _stream(dev)), "rank_softmax_forward")
-    _count("fused_rank_softmax")
+                 _stream(dev)), "rank_softmax_forward" + sfx)
+    _count("fused_rank_softmax" + sfx)
     return out
 
 
@@ -225,22 +258,26 @@ def _tri_pool_kernel(vt, qt, at, w) -> torch.Tensor:
     B, V, D = vt.shape
     Q, A = qt.shape[1], at.shape[1]
     dev = vt.device
-    _check_cuda(dev, vt=vt, qt=qt, at=at)
     if Q > TRI_POOL_MAX_Q or A > TRI_POOL_MAX_A:
         raise ValueError(f"Q={Q}, A={A} exceed the kernel's "
                          f"{TRI_POOL_MAX_Q}, {TRI_POOL_MAX_A}")
-    if D % 4:
-        raise ValueError(f"D = {D} must be a multiple of 4 "
-                         "(the kernel's 16-byte copies)")
+    if D % _unit(vt):
+        raise ValueError(f"D = {D} must be a multiple of {_unit(vt)} for "
+                         f"{vt.dtype} (the kernel's 16-byte copies)")
+    _check_cuda(dev, vt=vt, qt=qt, at=at)
     _check_aligned(vt=vt, qt=qt, at=at)
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    fn = build.load("tri_pool").tri_pool_forward
-    _raise_on(fn(vt.data_ptr(), qt.data_ptr(), at.data_ptr(), w.data_ptr(),
-                 *w.stride(), out.data_ptr(), B, V, Q, A, D, dev.index or 0,
-                 _stream(dev)), "tri_pool_forward")
-    _count("trilinear_pool")
+    lib = build.load("tri_pool")
+    args = (vt.data_ptr(), qt.data_ptr(), at.data_ptr(), w.data_ptr(),
+            *w.stride(), out.data_ptr(), B, V, Q, A, D)
+    sfx = _bf16_suffix(vt)
+    if sfx:
+        args += (int(qt.dtype == torch.bfloat16),)
+    _raise_on(getattr(lib, "tri_pool_forward" + sfx)(
+        *args, dev.index or 0, _stream(dev)), "tri_pool_forward" + sfx)
+    _count("trilinear_pool" + sfx)
     return out
 
 
@@ -295,7 +332,7 @@ class _FusedRankSoftmax(torch.autograd.Function):
         att, v_r, tqa = ctx.saved_tensors
         dl = _softmax_backward_kernel(att, g.contiguous())
         dv, dtqa = rank_contraction_grads(dl, v_r, tqa)
-        return dv, dtqa, None
+        return dv.to(v_r.dtype), dtqa.to(tqa.dtype), None
 
 
 class _TrilinearPool(torch.autograd.Function):
@@ -308,7 +345,9 @@ class _TrilinearPool(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return trilinear_pool_grads(g, *ctx.saved_tensors)
+        saved = ctx.saved_tensors
+        return tuple(x.to(p.dtype) for x, p in
+                     zip(trilinear_pool_grads(g, *saved), saved))
 
 
 class _MaskedSoftmaxVQA(torch.autograd.Function):
@@ -335,14 +374,16 @@ def fused_rank_softmax(v_r: torch.Tensor, tqa: torch.Tensor,
     """att [B,V,Q,A,G] = masked softmax over (V,Q,A) of
     ``einsum('birx,bjlrxg->bijlg', v_r, tqa)``.
 
-    ``v_r`` [B,V,R,X] and ``tqa`` [B,Q,A,R,X,G] float32, ``v_mask`` [B,V]
-    bool; on CUDA all three contiguous, ``v_r`` and ``tqa`` 16-byte aligned,
-    R*X a multiple of 4 and Q*A <= 256."""
+    ``v_r`` [B,V,R,X] and ``tqa`` [B,Q,A,R,X,G], both float32 or both
+    bfloat16, ``v_mask`` [B,V] bool; att is float32.  On CUDA all three
+    contiguous, ``v_r`` and ``tqa`` 16-byte aligned, R*X a multiple of 4
+    (float32) or 8 (bfloat16) and Q*A <= 256."""
     B, V, R, X = v_r.shape
     Q, A, G = tqa.shape[1], tqa.shape[2], tqa.shape[-1]
     dev = v_r.device
-    _check(tqa, "tqa", (B, Q, A, R, X, G), torch.float32, dev)
-    _check(v_r, "v_r", (B, V, R, X), torch.float32, dev)
+    _check_operand(v_r, "v_r")
+    _check(tqa, "tqa", (B, Q, A, R, X, G), v_r.dtype, dev)
+    _check(v_r, "v_r", (B, V, R, X), v_r.dtype, dev)
     _check(v_mask, "v_mask", (B, V), torch.bool, dev)
     if dev.type == "cpu":
         return fused_rank_softmax_ref(v_r, tqa, v_mask)
@@ -353,19 +394,26 @@ def trilinear_pool(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
     """out [B,D] = sum_{i,j,l} vt[b,i,d] w[b,i,j,l] qt[b,j,d] at[b,l,d].
 
-    ``vt`` [B,V,D], ``qt`` [B,Q,D], ``at`` [B,A,D], ``w`` [B,V,Q,A], all
-    float32; on CUDA ``vt``/``qt``/``at`` contiguous and 16-byte aligned,
-    D a multiple of 4, Q <= 32 and A <= 8.
+    ``vt`` [B,V,D], ``qt`` [B,Q,D], ``at`` [B,A,D], ``w`` [B,V,Q,A]; ``w``
+    and the output float32, and (``vt``, ``qt`` and ``at``) float32, or
+    ``vt`` bfloat16 with ``qt`` and ``at`` both bfloat16 or both float32.
+    On CUDA ``vt``/``qt``/``at`` contiguous and 16-byte aligned, D a
+    multiple of 4 (``vt`` float32) or 8 (bfloat16), Q <= 32 and A <= 8.
     ``w`` may have any strides: the kernel reads one glimpse of the
     [B,V,Q,A,G] attention (``att[..., g]``, stride G) in place, and the
     backward's ``gw`` flows back into the attention's gradient."""
     B, V, D = vt.shape
     Q, A = qt.shape[1], at.shape[1]
     dev = vt.device
-    _check(qt, "qt", (B, Q, D), torch.float32, dev)
-    _check(at, "at", (B, A, D), torch.float32, dev)
+    _check_operand(vt, "vt")
+    _check_operand(qt, "qt")
+    if vt.dtype == torch.float32 and qt.dtype != torch.float32:
+        raise TypeError(f"qt: dtype {qt.dtype} with vt {vt.dtype}: no kernel "
+                        "instance takes it")
+    _check(qt, "qt", (B, Q, D), qt.dtype, dev)
+    _check(at, "at", (B, A, D), qt.dtype, dev)
     _check(w, "w", (B, V, Q, A), torch.float32, dev)
-    _check(vt, "vt", (B, V, D), torch.float32, dev)
+    _check(vt, "vt", (B, V, D), vt.dtype, dev)
     if dev.type == "cpu":
         return trilinear_pool_ref(vt, qt, at, w)
     return _TrilinearPool.apply(vt, qt, at, w)

@@ -7,6 +7,13 @@ no dropout), and returns ``(logits [B, num_classes], att [B, V, Q, A,
 G])``.  Dropout sites fire in the order of
 ``vqatpu/models/ffoe.py:241-325``.  The blockwise large-V path,
 ``fused_v_tucker`` and ``remat_glimpse`` are not ported yet.
+
+With bf16 parameters and a bf16 ``v`` (``compute_dtype="bfloat16"``) the
+dtypes follow JAX's Pallas backend: the GRU states, the rank projections
+and ``vt`` are bf16; ``att`` and each glimpse's joint embedding are
+float32 (the kernels' outputs); the residuals promote ``q_state`` and
+``a_state`` to float32 after the first glimpse (``:321-322``), so ``qt``
+and ``at`` are float32 at the second, and the logits are float32.
 """
 
 from __future__ import annotations

@@ -4,6 +4,11 @@
 ``weight_norm(nn.Linear, dim=None)`` reparameterizes the whole weight by its
 Frobenius norm, ``W = g * v / ||v||_F`` with a scalar ``g``.  The parameters
 are stored as ``v``, ``g`` and ``b``, the names of the JAX param tree.
+
+Under ``compute_dtype="bfloat16"`` the weight norm is taken in the
+parameters' dtype (``vqatpu/ops/linear.py:55``), and a float32 input
+against bf16 weights is promoted to float32, as jnp promotes ``x @ v.T``
+(``:56``).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqatpu_torch.numerics import promote
 from vqatpu_torch.ops.activation import get_activation
 from vqatpu_torch.ops.module import Ctx, dropout
 
@@ -46,7 +52,7 @@ class WNLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (x @ vᵀ)·s rather than x @ (s·v)ᵀ, as the JAX package does: the
         # scale multiplies the GEMM output and no scaled weight is formed
-        y = F.linear(x, self.v) * (self.g / frobenius(self.v))
+        y = F.linear(*promote(x, self.v)) * (self.g / frobenius(self.v))
         if self.b is not None:
             y = y + self.b
         return y

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vqatpu_torch.kernels.trilinear import attention_logits_ref, trilinear_pool
+from vqatpu_torch.numerics import promote
 from vqatpu_torch.ops.activation import get_activation
 from vqatpu_torch.ops.linear import FCNet, frobenius, uniform_
 from vqatpu_torch.ops.module import Ctx, dropout
@@ -60,10 +61,10 @@ class RankNets(nn.Module):
         scale = p.g / frobenius(p.v.flatten(1), 1)
         if ctx is not None and ctx.mask_source is not None:
             return torch.stack([
-                act(F.linear(dropout(x, self.drop, ctx), p.v[r]) * scale[r]
-                    + p.b[r]) for r in range(R)], dim=-2)
+                act(F.linear(*promote(dropout(x, self.drop, ctx), p.v[r]))
+                    * scale[r] + p.b[r]) for r in range(R)], dim=-2)
         x = dropout(x, self.drop, ctx)
-        out = act(F.linear(x, p.v.reshape(R * h_sub, d))
+        out = act(F.linear(*promote(x, p.v.reshape(R * h_sub, d)))
                   * scale.repeat_interleave(h_sub) + p.b.reshape(-1))
         return out.reshape(*x.shape[:-1], R, h_sub)
 
@@ -113,6 +114,8 @@ class TCNet(nn.Module):
     def apply_with_weights(self, v, q, a, w,
                            ctx: Optional[Ctx] = None) -> torch.Tensor:
         """Joint embedding with attention ``w`` [B, V, Q, A] -> [B, d]
-        (``tc.py:54-61``), through the trilinear pool kernel."""
+        (``tc.py:54-61``), through the trilinear pool kernel.  At bf16
+        compute ``v`` and the weights are bf16, ``q`` and ``a`` bf16 at
+        the first glimpse and float32 after it; the pool is float32."""
         return trilinear_pool(self.v_tucker(v, ctx), self.q_tucker(q, ctx),
                               self.a_tucker(a, ctx), w)

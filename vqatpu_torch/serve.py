@@ -1,19 +1,31 @@
-"""Inference session: checkpoint -> answer strings
-(``vqatpu/serve.py:146-298``).
+"""Inference session: checkpoint -> answer strings (``vqatpu/serve.py``).
 
-- Requests are packed into the smallest batch bucket (1, 8, 32, 128 by
-  default) and the padded rows are fully masked; a request larger than the
-  largest bucket is chunked.
-- Boxes beyond ``max_boxes`` are cut, fewer are zero-padded, and a box is
-  real where its features are not all zero.
-- The forward runs under ``torch.inference_mode()`` on ``device`` (``cuda``
-  unless the caller asks for ``cpu``), in float32 throughout: the session
-  turns TF32 off for cuBLAS and for cuDNN (the GRU) and refuses to run if
-  either is turned back on.
+- :class:`InferenceSession` (``:146-298``) packs requests into the smallest
+  batch bucket (1, 8, 32, 128 by default) with the padded rows fully
+  masked, and chunks a request larger than the largest bucket.  Boxes
+  beyond ``max_boxes`` are cut, fewer are zero-padded, and a box is real
+  where its features are not all zero.  The forward runs under
+  ``torch.inference_mode()`` on ``device`` (``cuda`` unless the caller asks
+  for ``cpu``) with the math policy of :mod:`vqatpu_torch.numerics`, which
+  the session sets and checks on every forward.
+- ``transfer_dtype`` narrows the features on the host before they are
+  copied to the card: float16, bfloat16 (rounded to nearest even by
+  torch: numpy has no bf16) or int8 (per-box symmetric quantization with a
+  float32 scale, dequantized on the card).  CTI takes no spatials, so
+  ``b`` is not shipped.
+- ``compute_dtype="bfloat16"`` runs the forward on a bf16 copy of the
+  model that the session holds, cast once; features are cast on the card
+  and the logits come back float32.
+- By-id serving (:meth:`InferenceSession.attach_features`,
+  :class:`ResidentFeatures`, ``:39-143, 300-404``): the features stay with
+  the server, and a request carries image ids and tokens.  With
+  ``placement="device"`` the int8 (or float32) box rows, their scales, the
+  spatials and an all-zero sentinel row live on the card, and each request
+  ships only its ``[N, max_boxes]`` row indices.
+- :class:`MicroBatcher` (``:459-625``) coalesces concurrent requests into
+  one bucketed forward.
 
-Only the float32 wire and float32 compute are ported; the narrowed wires,
-bf16 compute, ``MicroBatcher`` and by-id serving are ROADMAP queue A items 2
-and 3.
+MC scoring (``mc_scores``, ``answer_mc``) waits for ROADMAP queue A item 7.
 
 Usage::
 
@@ -24,16 +36,118 @@ Usage::
 from __future__ import annotations
 
 import bisect
+import copy
+import os
+import pickle
+import queue
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from vqatpu_torch.config import ModelConfig
+from vqatpu_torch.data.device_store import store_flat_arrays, store_rows_table
+from vqatpu_torch.data.features import FeatureStore
+from vqatpu_torch.data.quantize import quantize_rows
 from vqatpu_torch.models import build_model
 from vqatpu_torch.numerics import check_f32_math, require_f32_math
+from vqatpu_torch.train.steps import wire_cast
 from vqatpu_torch.weights import load_jax_params, load_params_file
+
+_MC = "MC scoring is not ported (ROADMAP queue A item 7)"
+
+
+def wire_name(transfer_dtype) -> str:
+    """The wire ``transfer_dtype`` names: float32 (None), float16, bfloat16
+    or int8, given as a name, a numpy type or a torch dtype."""
+    if transfer_dtype is None:
+        return "float32"
+    name = (str(transfer_dtype).replace("torch.", "")
+            if isinstance(transfer_dtype, (str, torch.dtype))
+            else np.dtype(transfer_dtype).name)
+    if name not in ("float32", "float16", "bfloat16", "int8"):
+        raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}; expected "
+                         "float32, float16, bfloat16 or int8")
+    return name
+
+
+class ResidentFeatures:
+    """Server-resident image features for by-id serving: a split's
+    :class:`~vqatpu_torch.data.features.FeatureStore` and its image-id
+    index."""
+
+    def __init__(self, store: FeatureStore, img_id2idx: dict,
+                 max_boxes: int = 50):
+        self.store = store
+        self.img_id2idx = img_id2idx
+        self.max_boxes = max_boxes
+
+    @classmethod
+    def from_dataroot(cls, dataroot: str, split: str = "val",
+                      max_boxes: int = 50,
+                      quantize: bool = False) -> "ResidentFeatures":
+        """``{split}_imgid2idx.pkl`` with ``{split}.hdf5`` (needs h5py) or
+        ``{split}.npz``, the adaptive layout, else the fixed-36
+        ``{split}36`` files.  ``quantize`` keeps the features int8."""
+        for suffix, adaptive in (("", True), ("36", False)):
+            idx_path = os.path.join(dataroot, f"{split}{suffix}_imgid2idx.pkl")
+            if not os.path.exists(idx_path):
+                continue
+            with open(idx_path, "rb") as f:
+                img_id2idx = pickle.load(f)
+            h5 = os.path.join(dataroot, f"{split}{suffix}.hdf5")
+            if os.path.exists(h5):
+                store = FeatureStore.from_hdf5(h5, adaptive=adaptive,
+                                               quantize=quantize)
+            else:
+                store = FeatureStore.from_npz(
+                    os.path.join(dataroot, f"{split}{suffix}.npz"))
+                if quantize:
+                    store = store.quantize()
+            return cls(store, img_id2idx, max_boxes)
+        raise FileNotFoundError(
+            f"no {split}_imgid2idx.pkl or {split}36_imgid2idx.pkl under "
+            f"{dataroot}")
+
+    def image_index(self, image_ids: Sequence[int]) -> np.ndarray:
+        try:
+            return np.asarray([self.img_id2idx[int(i)] for i in image_ids],
+                              np.int64)
+        except KeyError as e:
+            raise KeyError(f"unknown image_id {e.args[0]}: not in this "
+                           "split's imgid2idx") from None
+
+    def gather(self, image_ids: Sequence[int]):
+        """Host gather and pad: -> (v [N, max_boxes, v_dim] float32,
+        b [N, max_boxes, s_dim] float32)."""
+        vs, bs = [], []
+        for idx in self.image_index(image_ids):
+            v, b, _ = self.store.get(int(idx), self.max_boxes)
+            vs.append(v)
+            bs.append(b)
+        return np.stack(vs, 0), np.stack(bs, 0)
+
+    def device_tables(self, quantize: bool = True):
+        """The gather tables by-id serving puts on the card: -> ``(feats
+        [T+1, v_dim] int8 (float32 when ``quantize`` is False on a float32
+        store), scales [T+1] float32 or None, spats [T+1, s_dim], rows_table
+        [n_images, max_boxes] int32, sentinel T)``.  Row T is all zero and
+        pads every image's row indices."""
+        flat_f, scales, flat_sp = store_flat_arrays(self.store)
+        if quantize and scales is None:
+            flat_f, scales = quantize_rows(flat_f)
+        T = flat_f.shape[0]
+        feats = np.concatenate(
+            [flat_f, np.zeros((1, flat_f.shape[1]), flat_f.dtype)], 0)
+        spats = np.concatenate(
+            [flat_sp, np.zeros((1, flat_sp.shape[1]), flat_sp.dtype)], 0)
+        if scales is not None:
+            scales = np.concatenate(
+                [np.asarray(scales, np.float32), np.ones((1,), np.float32)])
+        rows_table = store_rows_table(self.store, self.max_boxes, sentinel=T)
+        return feats, scales, spats, rows_table, T
 
 
 class InferenceSession:
@@ -41,26 +155,31 @@ class InferenceSession:
                  batch_buckets: Sequence[int] = (1, 8, 32, 128),
                  max_boxes: int = 50, transfer_dtype=None,
                  compute_dtype: str = "float32", device="cuda"):
-        if transfer_dtype not in (None, "float32", np.float32):
-            raise NotImplementedError(
-                f"transfer_dtype={transfer_dtype!r}: only the float32 wire "
-                "is ported (ROADMAP queue A item 2)")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: only float32 compute is "
-                "ported (ROADMAP queue A item 2)")
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r}; "
+                             "expected float32 or bfloat16")
+        self.transfer_dtype = wire_name(transfer_dtype)
         require_f32_math()
         self.device = torch.device(device)
+        self.compute_dtype = compute_dtype
+        self._act = (torch.bfloat16 if compute_dtype == "bfloat16"
+                     else torch.float32)
+        if compute_dtype == "bfloat16":
+            model = copy.deepcopy(model).to(self.device, torch.bfloat16)
         self.model = model.to(self.device).eval()
         self.label2ans = list(label2ans)
         self.batch_buckets = sorted(batch_buckets)
         self.max_boxes = max_boxes
-        self.transfer_dtype = transfer_dtype
-        self.compute_dtype = compute_dtype
         # forwards run, in all and per bucket size
         self.forwards = 0
         self.bucket_calls: Dict[int, int] = {}
         self._lock = threading.Lock()
+        # by-id serving (attach_features)
+        self.features: Optional[ResidentFeatures] = None
+        self._placement: Optional[str] = None
+        self._tables = None  # (feats, scales or None, spats) on the card
+        self._rows_table: Optional[np.ndarray] = None
+        self._sentinel = -1
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: ModelConfig,
@@ -78,9 +197,9 @@ class InferenceSession:
 
     def logits(self, v: np.ndarray, b: Optional[np.ndarray], q: np.ndarray,
                a: Optional[np.ndarray] = None) -> np.ndarray:
-        """Batched raw logits [N, num_classes].  ``v`` [N, boxes, v_dim],
-        ``q`` [N, Q] and ``a`` [N, A] int tokens; ``b`` (spatials) is
-        unused by CTI.  N may exceed the largest bucket."""
+        """Batched raw logits [N, num_classes] float32.  ``v`` [N, boxes,
+        v_dim], ``q`` [N, Q] and ``a`` [N, A] int tokens; ``b`` (spatials)
+        is unused by CTI.  N may exceed the largest bucket."""
         if a is None:
             raise ValueError("CTI needs answer tokens")
         n = v.shape[0]
@@ -89,12 +208,17 @@ class InferenceSession:
         largest = self.batch_buckets[-1]
         # every chunk is enqueued before the first is read back, so the
         # host packs chunk i+1 while the card runs chunk i
-        outs = [self._forward_chunk(v[s:s + largest], q[s:s + largest],
-                                    a[s:s + largest])
-                for s in range(0, n, largest)]
+        outs = []
+        for s in range(0, n, largest):
+            host, rows = self.pack(v[s:s + largest], q[s:s + largest],
+                                   a[s:s + largest])
+            outs.append(self.forward(self.upload(host))[:rows])
         return torch.cat(outs).cpu().numpy()
 
-    def _forward_chunk(self, v, q, a) -> torch.Tensor:
+    def pack(self, v, q, a):
+        """One chunk's host arrays as the wire ships them: -> (dict of
+        ``v`` (and ``v_scale`` on the int8 wire), ``v_mask``, ``q``, ``a``
+        padded to the bucket; the number of real rows)."""
         v = v[:, :self.max_boxes]
         n, boxes = v.shape[:2]
         bucket = self._bucket_for(n)
@@ -106,18 +230,280 @@ class InferenceSession:
         qp[:n] = q
         ap = np.zeros((bucket, a.shape[1]), np.int64)
         ap[:n] = a
-        dev = self.device
+        return wire_cast({"v": vp, "v_mask": mask, "q": qp, "a": ap},
+                         self.transfer_dtype), n
+
+    def upload(self, host: dict) -> dict:
+        """Copy :meth:`pack`'s arrays to the session's device."""
+        return {k: torch.as_tensor(x).to(self.device) for k, x in host.items()}
+
+    def forward(self, batch: dict) -> torch.Tensor:
+        """float32 logits of a bucket on the device; the wire's ``v`` is
+        dequantized or cast to the compute dtype there
+        (``vqatpu/serve.py:197-204``)."""
+        act = self._act
+        v = batch["v"]
+        if "v_scale" in batch:
+            v = v.to(act) * batch["v_scale"][..., None].to(act)
+        elif v.dtype != act:
+            v = v.to(act)
+        bucket = v.shape[0]
         with self._lock, torch.inference_mode():
             check_f32_math("serving path")
-            logits, _ = self.model(torch.from_numpy(vp).to(dev),
-                                   torch.from_numpy(qp).to(dev),
-                                   torch.from_numpy(ap).to(dev),
-                                   torch.from_numpy(mask).to(dev))
+            logits, _ = self.model(v, batch["q"], batch["a"], batch["v_mask"])
             self.forwards += 1
             self.bucket_calls[bucket] = self.bucket_calls.get(bucket, 0) + 1
-        return logits[:n]
+        return logits.float()
 
     def answer(self, v, b, q, a=None) -> List[str]:
         """Argmax answer strings for a batch of requests."""
         logits = self.logits(v, b, q, a)
         return [self.label2ans[int(i)] for i in logits.argmax(1)]
+
+    def answer_by_embedding(self, v, b, q, ans_emb: np.ndarray,
+                            a=None) -> List[str]:
+        """Embedding-distance decoding (``FFOE/test.py:68-75``): the model
+        output is an embedding, answered with the nearest row of ``ans_emb
+        [num_ans, D]``."""
+        pred = self.logits(v, b, q, a)
+        d = np.linalg.norm(pred[:, None, :] - ans_emb[None, :, :], axis=2)
+        return [self.label2ans[int(i)] for i in d.argmin(1)]
+
+    def mc_scores(self, v, b, q, ans_mc):
+        raise NotImplementedError(_MC)
+
+    def answer_mc(self, v, b, q, ans_mc, candidates=None):
+        raise NotImplementedError(_MC)
+
+    # -- by-id serving ----------------------------------------------------
+    def attach_features(self, features: ResidentFeatures,
+                        placement: str = "device",
+                        quantize: bool = True) -> None:
+        """Enable :meth:`logits_by_id` and :meth:`answer_by_id`.
+        ``placement="device"`` copies the store's gather tables to the card
+        once (int8 rows unless ``quantize`` is False on a float32 store);
+        ``placement="host"`` gathers on the host and takes the upload
+        path."""
+        if placement not in ("device", "host"):
+            raise ValueError(f"placement {placement!r}: device or host")
+        if features.max_boxes != self.max_boxes:
+            raise ValueError(f"the features pad to {features.max_boxes} "
+                             f"boxes, the session to {self.max_boxes}")
+        self.features = features
+        self._placement = placement
+        self._tables = self._rows_table = None
+        if placement == "device":
+            feats, scales, spats, self._rows_table, self._sentinel = (
+                features.device_tables(quantize=quantize))
+            self._tables = tuple(
+                None if x is None else torch.from_numpy(x).to(self.device)
+                for x in (feats, scales, spats))
+
+    def logits_by_id(self, image_ids: Sequence[int], q: np.ndarray,
+                     a: Optional[np.ndarray] = None) -> np.ndarray:
+        """Batched raw logits from server-resident features: ``image_ids``
+        [N] (the split's image ids), ``q`` [N, Q] and ``a`` [N, A] tokens.
+        Chunked like :meth:`logits`.  On the card each bucket's boxes are
+        gathered from the resident rows, dequantized, and masked where a
+        row index is the sentinel (``vqatpu/serve.py:333-351``)."""
+        if self.features is None:
+            raise RuntimeError("call attach_features() first")
+        if a is None:
+            raise ValueError("CTI needs answer tokens")
+        if len(image_ids) == 0:
+            return np.zeros((0, self.num_classes), np.float32)
+        if self._placement == "host":
+            v, b = self.features.gather(image_ids)
+            return self.logits(v, b, q, a)
+        rows_all = self._rows_table[self.features.image_index(image_ids)]
+        largest = self.batch_buckets[-1]
+        outs = []
+        for s in range(0, rows_all.shape[0], largest):
+            rows, qc, ac = (x[s:s + largest] for x in (rows_all, q, a))
+            m = rows.shape[0]
+            bucket = self._bucket_for(m)
+            rp = np.full((bucket, rows.shape[1]), self._sentinel, np.int32)
+            rp[:m] = rows
+            qp = np.zeros((bucket, qc.shape[1]), np.int64)
+            qp[:m] = qc
+            ap = np.zeros((bucket, ac.shape[1]), np.int64)
+            ap[:m] = ac
+            outs.append(self.forward_by_id(
+                *(torch.from_numpy(x).to(self.device) for x in (rp, qp, ap)))[:m])
+        return torch.cat(outs).cpu().numpy()
+
+    def forward_by_id(self, rows: torch.Tensor, q: torch.Tensor,
+                      a: torch.Tensor) -> torch.Tensor:
+        """float32 logits of one bucket whose boxes are ``rows`` [bucket,
+        max_boxes] into the resident tables, on the device."""
+        feats, scales, _ = self._tables
+        flat = rows.reshape(-1).long()
+        v = feats.index_select(0, flat).view(*rows.shape, feats.shape[1])
+        act = self._act
+        if scales is not None:
+            v = v.to(act) * scales.index_select(0, flat).view(rows.shape)[
+                ..., None].to(act)
+        elif v.dtype != act:
+            v = v.to(act)
+        return self.forward({"v": v, "q": q, "a": a,
+                             "v_mask": rows != self._sentinel})
+
+    def answer_by_id(self, image_ids: Sequence[int], q: np.ndarray,
+                     a: Optional[np.ndarray] = None) -> List[str]:
+        logits = self.logits_by_id(image_ids, q, a)
+        return [self.label2ans[int(i)] for i in logits.argmax(1)]
+
+
+class MicroBatcher:
+    """Coalesces concurrent requests into one bucketed forward of an
+    :class:`InferenceSession` (``vqatpu/serve.py:459-625``).
+
+    The HTTP server runs a thread per connection; without coalescing, K
+    concurrent single-row requests run K bucket-1 forwards one after
+    another.  The batcher parks each caller on an event, drains the queue
+    up to ``max_batch`` rows (waiting at most ``max_wait_ms`` after the
+    first request), runs one forward per compatibility group (requests that
+    agree on spatials and answer tokens being present, question width,
+    feature width and answer width) and hands each caller its rows.  A
+    malformed request fails only its own caller, and the worker thread
+    never dies.  By-id requests carry no features and bypass it."""
+
+    def __init__(self, session: InferenceSession, max_batch: int = 32,
+                 max_wait_ms: float = 3.0):
+        self.session = session
+        self.max_batch = max_batch
+        self.max_wait = max_wait_ms / 1e3
+        self._q: queue.Queue = queue.Queue()
+        self._stop = False
+        self.batches_run = 0  # forwards dispatched
+        self.rows_served = 0
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="vqatpu-torch-microbatcher")
+        self._thread.start()
+
+    # -- caller side ------------------------------------------------------
+    def logits(self, v, b, q, a=None) -> np.ndarray:
+        """Blocking; the contract of ``InferenceSession.logits``."""
+        v = np.asarray(v, np.float32)
+        done = threading.Event()
+        slot: dict = {}
+        self._q.put((v, b, q, a, done, slot))
+        done.wait()
+        if "err" in slot:
+            raise slot["err"]
+        return slot["out"]
+
+    def answer(self, v, b, q, a=None) -> List[str]:
+        logits = self.logits(v, b, q, a)
+        return [self.session.label2ans[int(i)] for i in logits.argmax(1)]
+
+    def mc_scores(self, v, b, q, ans_mc):
+        raise NotImplementedError(_MC)
+
+    def answer_mc(self, v, b, q, ans_mc, candidates=None):
+        raise NotImplementedError(_MC)
+
+    @property
+    def features(self):
+        return self.session.features
+
+    def logits_by_id(self, image_ids, q, a=None):
+        return self.session.logits_by_id(image_ids, q, a)
+
+    def answer_by_id(self, image_ids, q, a=None):
+        return self.session.answer_by_id(image_ids, q, a)
+
+    def close(self):
+        self._stop = True
+        self._q.put(None)  # wake the worker
+        self._thread.join(timeout=5)
+
+    # -- worker side ------------------------------------------------------
+    def _drain(self, first):
+        """Up to max_batch rows, waiting at most max_wait after the first
+        request arrived."""
+        items = [first]
+        rows = first[0].shape[0]
+        deadline = time.monotonic() + self.max_wait
+        while rows < self.max_batch:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                break
+            try:
+                item = self._q.get(timeout=timeout)
+            except queue.Empty:
+                break
+            if item is None:  # close(): requeue for the loop
+                self._q.put(None)
+                break
+            items.append(item)
+            rows += item[0].shape[0]
+        return items
+
+    @staticmethod
+    def _group_key(v, b, q, a):
+        return (b is None, a is None, q.shape[1],
+                v.shape[2] if v.ndim == 3 else -1,
+                None if a is None else np.asarray(a).shape[1])
+
+    def _run_group(self, items):
+        sess = self.session
+
+        def pad_boxes(x):
+            if x.shape[1] >= sess.max_boxes:
+                return x[:, :sess.max_boxes]
+            pad = np.zeros((x.shape[0], sess.max_boxes - x.shape[1])
+                           + x.shape[2:], x.dtype)
+            return np.concatenate([x, pad], 1)
+
+        # assembly is inside the try: a malformed request must fail its
+        # waiting callers, not kill the worker thread
+        try:
+            counts = [it[0].shape[0] for it in items]
+            V = np.concatenate([pad_boxes(it[0]) for it in items], 0)
+            b0 = items[0][1]
+            B = (None if b0 is None else np.concatenate(
+                [pad_boxes(np.asarray(it[1], np.float32)) for it in items], 0))
+            Q = np.concatenate([np.asarray(it[2], np.int32) for it in items], 0)
+            a0 = items[0][3]
+            A = (None if a0 is None else np.concatenate(
+                [np.asarray(it[3], np.int32) for it in items], 0))
+            out = sess.logits(V, B, Q, A)
+            self.batches_run += 1
+            self.rows_served += sum(counts)
+        except Exception as e:
+            for _v, _b, _q, _a, done, slot in items:
+                slot["err"] = e
+                done.set()
+            return
+        at = 0
+        for (_v, _b, _q, _a, done, slot), n in zip(items, counts):
+            slot["out"] = out[at:at + n]
+            at += n
+            done.set()
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                if self._stop:
+                    return
+                continue
+            items = self._drain(item)
+            groups: dict = {}
+            for it in items:
+                try:
+                    key = self._group_key(*it[:4])
+                except Exception as e:  # malformed: fail only its caller
+                    it[5]["err"] = e
+                    it[4].set()
+                    continue
+                groups.setdefault(key, []).append(it)
+            for group in groups.values():
+                try:
+                    self._run_group(group)
+                except BaseException as e:  # the worker must never die:
+                    # parked callers would wait forever
+                    for _v, _b, _q, _a, done, slot in group:
+                        slot.setdefault("err", e)
+                        done.set()

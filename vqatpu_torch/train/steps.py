@@ -24,6 +24,16 @@ reference's ``Trainer`` hot loop (``FFOE/trainer.py:97-272``).
 The update cadence is decided on the host (the microbatch count is known
 there), where the JAX step uses ``lax.cond``.  Compute is float32 with TF32
 off for cuBLAS and cuDNN, as in serving (:mod:`vqatpu_torch.numerics`).
+
+``compute_dtype="bfloat16"`` casts the float32 master parameters to bf16
+inside the differentiated forward (``torch.func.functional_call``,
+``steps.py:225-231``), with ``v`` cast to bf16; gradients, the clip,
+Adamax, the loss and the logits stay float32, and the model is never
+converted.  ``transfer_dtype`` narrows the batch on the host
+(:func:`wire_cast`: float16, bfloat16, or int8 ``v`` with a ``v_scale`` and
+float16 ``b``); the step dequantizes and upcasts on the card
+(:func:`upcast_wire`) before it computes.  Eval takes ``compute_dtype``
+too and accepts wire-cast batches.
 """
 
 from __future__ import annotations
@@ -31,10 +41,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from vqatpu_torch.config import TrainConfig
+from vqatpu_torch.data.quantize import quantize_rows
 from vqatpu_torch.numerics import check_f32_math, require_f32_math
 from vqatpu_torch.ops.losses import bce_with_logits_sum
 from vqatpu_torch.ops.module import Ctx
@@ -83,6 +96,75 @@ def _on_device(batch: dict, dev: torch.device) -> dict:
 
 
 _STATE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+WIRES = ("float32", "float16", "bfloat16", "int8")
+
+
+def _to_bf16(x) -> torch.Tensor:
+    """A host bf16 tensor, rounded to nearest even (numpy has no bf16)."""
+    return torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+def wire_cast(db: dict, transfer_dtype: str = "float32") -> dict:
+    """The host half of the wire (``steps.py:124-149``): shrink ``v`` and
+    ``b`` before they are copied to the card.  ``int8`` ships ``v``
+    quantized per box (:func:`~vqatpu_torch.data.quantize.quantize_rows`,
+    JAX's ``quantize_v``) with a float32 ``v_scale`` and ``b`` as float16;
+    a ``v`` that already has its ``v_scale`` passes through untouched.
+    ``float16`` gives numpy arrays, ``bfloat16`` host torch tensors."""
+    if transfer_dtype == "float32":
+        return db
+    if transfer_dtype == "int8":
+        out = dict(db)
+        if "v" in db and "v_scale" not in db:
+            out["v"], out["v_scale"] = quantize_rows(db["v"])
+        if "b" in db:
+            out["b"] = np.asarray(db["b"]).astype(np.float16)
+        return out
+    if transfer_dtype == "float16":
+        def cast(x):
+            return np.asarray(x).astype(np.float16)
+    elif transfer_dtype == "bfloat16":
+        cast = _to_bf16
+    else:
+        raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}; "
+                         f"expected one of {WIRES}")
+    return dict(db, **{k: cast(db[k]) for k in ("v", "b") if k in db})
+
+
+def upcast_wire(batch: dict) -> dict:
+    """The card's half of the wire (``steps.py:173-189``): dequantize an
+    int8 ``v`` with its ``v_scale`` (dropped here), and upcast float16 or
+    bf16 ``v`` and ``b`` to float32."""
+    if "v_scale" in batch:
+        batch = dict(batch)
+        scale = batch.pop("v_scale")
+        batch["v"] = batch["v"].float() * scale[..., None]
+    cast = {k: batch[k].float() for k in ("v", "b")
+            if k in batch and batch[k].dtype in (torch.float16, torch.bfloat16)}
+    return dict(batch, **cast) if cast else batch
+
+
+def _check_compute_dtype(compute_dtype: str):
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}; expected "
+                         f"one of {tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[compute_dtype]
+
+
+def forward_in(model: nn.Module, half, batch: dict, ctx=None):
+    """``model``'s forward on a batch on its device, float32 logits.  With
+    ``half`` (bf16) the parameters are cast inside the call, so autograd
+    carries their gradients back to the float32 masters, and ``v`` is cast
+    too (``steps.py:225-231``)."""
+    args = (batch["v"], batch["q"], batch["a"], batch.get("v_mask"), ctx)
+    if half is None:
+        logits, _ = model(*args)
+    else:
+        params = {n: p.to(half) for n, p in model.named_parameters()}
+        logits, _ = functional_call(model, params,
+                                    (batch["v"].to(half),) + args[1:])
+    return logits.float()
 
 
 def make_train_state(model: nn.Module, seed: Optional[int] = None,
@@ -118,11 +200,10 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
     step raises on a state with other Adamax storage).  ``ctx_factory``
     (zero-argument -> :class:`Ctx`) replaces the step's own context: the
     mask-injection hook of the parity tests."""
-    if cfg.compute_dtype != "float32" or cfg.transfer_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}, transfer_dtype="
-            f"{cfg.transfer_dtype!r}: only float32 is ported (ROADMAP queue "
-            "A item 2)")
+    half = _check_compute_dtype(cfg.compute_dtype)
+    if cfg.transfer_dtype not in WIRES:
+        raise ValueError(f"unknown transfer_dtype {cfg.transfer_dtype!r}; "
+                         f"expected one of {WIRES}")
     if cfg.distillation:
         raise NotImplementedError(
             "distillation is not ported (ROADMAP queue A item 5)")
@@ -168,12 +249,13 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
             model.train()
         params = state.optimizer.params
         dev = params[0].device
-        batch = densify_target(_on_device(batch, dev), n_ans)
+        batch = upcast_wire(_on_device(wire_cast(batch, cfg.transfer_dtype),
+                                       dev))
+        batch = densify_target(batch, n_ans)
         ctx = (ctx_factory() if ctx_factory is not None else
                Ctx(train=not cfg.deterministic, generator=generator,
                    mask_bits=cfg.mask_bits))
-        logits, _ = model(batch["v"], batch["q"], batch["a"],
-                          batch.get("v_mask"), ctx)
+        logits = forward_in(model, half, batch, ctx)
         target = batch["target"].float()
         loss = bce_with_logits_sum(logits, target) / logits.shape[0]
         grads = list(torch.autograd.grad(loss, params))
@@ -212,14 +294,13 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
 
 def make_eval_step(model: nn.Module, mc_scoring: bool = False,
                    compute_dtype: str = "float32"):
-    """Eval (``steps.py:321-353``): ``eval_step(batch)`` -> ``logits`` and,
-    where the batch has a ``target``, the soft ``score`` and its
-    ``upper_bound``, as tensors on the model's device.  Zero-padded rows add
-    0 to both."""
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: only float32 is ported "
-            "(ROADMAP queue A item 2)")
+    """Eval (``steps.py:321-353``): ``eval_step(batch)`` -> float32
+    ``logits`` and, where the batch has a ``target``, the soft ``score``
+    and its ``upper_bound``, as tensors on the model's device.  Zero-padded
+    rows add 0 to both.  A wire-cast batch (:func:`wire_cast`) is upcast on
+    the card; ``compute_dtype="bfloat16"`` casts the parameters and ``v``
+    for the forward."""
+    half = _check_compute_dtype(compute_dtype)
     if mc_scoring:
         raise NotImplementedError(
             "MC scoring is not ported (ROADMAP queue A item 7)")
@@ -229,8 +310,8 @@ def make_eval_step(model: nn.Module, mc_scoring: bool = False,
         check_f32_math("eval step")
         dev = next(model.parameters()).device
         with torch.inference_mode():
-            b = _on_device(batch, dev)
-            logits, _ = model(b["v"], b["q"], b["a"], b.get("v_mask"))
+            b = upcast_wire(_on_device(batch, dev))
+            logits = forward_in(model, half, b)
             out = {"logits": logits}
             if "target" in b:
                 target = b["target"].float()
