@@ -75,10 +75,28 @@ phases:
     samples/s at B=256 for bf16 compute and for the float32 and int8 wires
     from host batches, each with a ``torch.profiler`` table.
 
-Each path (serving at each wire and compute dtype, the logits path, by-id
-serving, training in float32 and bf16) is driven with the launch counts set
-to 0 just before it and read just after; the kernels' ``launches`` in the
-JSON line are their sums.
+K3's bf16-logits instance adds to 3b (the full-width bf16 model's logits at
+batch 1, 128 and 256, 1 and 3 glimpses, V at the register-resident limit
+and one past it, slices of no whole number of 16-byte units and logits off
+a 16-byte boundary, and its gradient, which comes back bf16), to 4d (its
+times at B=256 beside bf16-in ``torch.softmax``) and to 7 (the logits path
+at ``compute_dtype="bfloat16"``).  Then:
+
+9.  the free-form entry points on the card (:func:`phase9`): a synthetic
+    dataroot (1,024 train and 512 val questions, 256 images of 2048-d
+    ``.npz`` features, 3,129 answers), ``vqatpu_torch.cli.ffoe_train.main``
+    at full width and B=256 for 10 epochs (``log.txt``, checkpoints,
+    launches per step), a resume for an 11th, ``ffoe_test.main`` on epoch 9
+    (EvalAI JSON, teacher logits, the swept logits against
+    ``InferenceSession`` on the same checkpoint and rows) and 2 epochs at
+    bf16 compute; seconds per epoch, the loop's samples/s and the share of
+    an epoch spent waiting on the loader.
+
+Each path (serving at each wire and compute dtype, the logits path in
+float32 and bf16, by-id serving, training in float32 and bf16, each entry
+point call of phase 9) is driven with the launch counts set to 0 just
+before it and read just after; the kernels' ``launches`` in the JSON line
+are their sums.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or outside the repository, it exits non-zero with no result.
@@ -87,10 +105,12 @@ Without CUDA, or outside the repository, it exits non-zero with no result.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import io
 import json
 import os
 import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -160,6 +180,228 @@ def post(port: int, path: str, payload, npz: bool = False):
             with np.load(io.BytesIO(body)) as z:
                 return {"logits": z["logits"]}
         return json.loads(body)
+
+
+def loop_timers(train_loop, record):
+    """Wrap the epoch loop's step, loader and eval (``vqatpu_torch.train.
+    loop``'s module functions) with host clocks: per epoch, ``record``
+    gains the seconds spent waiting on the loader, inside step calls and in
+    the eval, and the training part's wall time (to the card's last step,
+    synchronised).  Returns a function that undoes the wrapping."""
+    originals = (train_loop.make_train_step, train_loop._make_loader,
+                 train_loop.evaluate_ffoe)
+    make_step, make_loader, evaluate = originals
+
+    def timed_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed_step(*a, **kw):
+            t = time.perf_counter()
+            out = step(*a, **kw)
+            record[-1]["step"] += time.perf_counter() - t
+            return out
+        return timed_step
+
+    class TimedLoader:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def __len__(self):
+            return len(self.inner)
+
+        def __iter__(self):
+            rec = {"wait": 0.0, "step": 0.0, "eval": 0.0}
+            record.append(rec)
+            t0 = time.perf_counter()
+            it = iter(self.inner)
+            while True:
+                t = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                rec["wait"] += time.perf_counter() - t
+                yield batch
+            torch.cuda.synchronize()
+            rec["train"] = time.perf_counter() - t0
+
+    def timed_evaluate(*args, **kwargs):
+        t = time.perf_counter()
+        out = evaluate(*args, **kwargs)
+        record[-1]["eval"] += time.perf_counter() - t
+        return out
+
+    train_loop.make_train_step = timed_make_step
+    train_loop._make_loader = lambda *a, **kw: TimedLoader(make_loader(*a, **kw))
+    train_loop.evaluate_ffoe = timed_evaluate
+
+    def undo():
+        (train_loop.make_train_step, train_loop._make_loader,
+         train_loop.evaluate_ffoe) = originals
+    return undo
+
+
+def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> None:
+    """The free-form entry points on the card: a dataroot of 1,024 train and
+    512 val questions over 256 images (2048-d ``.npz`` features, 10-20
+    boxes), 3,129 answers (targets on the first 12); ``ffoe_train`` for 10
+    epochs at full width and B=256, a resume for an 11th, ``ffoe_test`` on
+    epoch 9 against ``InferenceSession`` on the same checkpoint and rows,
+    and 2 epochs at bf16 compute.  Each call runs with the launch counts
+    set to 0 just before it and read just after."""
+    from vqatpu_torch.cli import ffoe_test, ffoe_train
+    from vqatpu_torch.data import Dictionary, VQAFeatureDataset
+    from vqatpu_torch.data.synthetic import ANSWERS, make_vqa_fixture
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.serve import InferenceSession
+    from vqatpu_torch.train import loop as train_loop
+    from vqatpu_torch.train.checkpoints import load_checkpoint
+
+    n_train, n_val, epochs = 1024, 512, 10
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "data_vqa")
+    make_vqa_fixture(root, n_train=n_train, n_val=n_val, n_images=256,
+                     v_dim=cfg.v_dim)
+    labels = list(ANSWERS) + [f"ans{i}" for i in range(
+        len(ANSWERS), cfg.num_ans_candidates)]
+    with open(os.path.join(root, "cache", "trainval_ans2label.pkl"), "wb") as f:
+        pickle.dump({a: i for i, a in enumerate(labels)}, f)
+    with open(os.path.join(root, "cache", "trainval_label2ans.pkl"), "wb") as f:
+        pickle.dump(labels, f)
+    print(f"phase 9 dataroot: {n_train} train and {n_val} val questions over "
+          f"256 images, {len(labels)} answers, features "
+          f"{sorted(x for x in os.listdir(root) if x[:4] in ('trai', 'val.'))}, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    args = ["--model", "cti", "--dataroot", root, "--num_hid", str(cfg.num_hid),
+            "--h_mm", str(cfg.h_mm), "--rank", str(cfg.rank), "--gamma",
+            str(cfg.gamma), "--batch_size", str(TRAIN_B), "--max_boxes", str(V),
+            "--device", "cuda", "--print_interval", "1000"]
+    out = os.path.join(tmp.name, "saved_models", "cti")
+    steps = n_train // TRAIN_B
+    evals = -(-n_val // (2 * TRAIN_B))
+
+    def run(label, argv):
+        record = []
+        undo = loop_timers(train_loop, record)
+        K.reset_launches()
+        t = time.perf_counter()
+        try:
+            ffoe_train.main(argv)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        path_counts[label] = counts = dict(K.launches)
+        return counts, record, wall
+
+    def log_of(path):
+        text = open(path).read()
+        losses = [float(x) for x in re.findall(r"train_loss: (\S+),", text)]
+        scores = [float(x) / 100 for x in re.findall(r"eval score: (\S+) ", text)]
+        secs = [float(x) for x in re.findall(r"epoch \d+, time: (\S+)", text)]
+        return text, losses, scores, secs
+
+    counts, record, wall = run("ffoe_train", args + [
+        "--output", out, "--epochs", str(epochs)])
+    text, losses, scores, secs = log_of(os.path.join(out, "log.txt"))
+    files = sorted(os.listdir(out))
+    print(f"ffoe_train, {epochs} epochs of {steps} steps at B={TRAIN_B} "
+          f"(float32) in {wall:.1f} s: losses {losses}; eval scores "
+          f"{scores}; files {files}; launches {counts}")
+    assert len(losses) == epochs and all(np.isfinite(losses)), losses
+    assert {"model_epoch9.ckpt", "model_epoch_best.ckpt"} <= set(files), files
+    assert "native loader OFF (not ported" in text
+    n_fwd = epochs * (steps + evals)
+    assert counts["fused_rank_softmax"] == n_fwd, counts
+    assert counts["trilinear_pool"] == cfg.gamma * n_fwd, counts
+    assert counts["softmax_vqa_backward"] == epochs * steps, counts
+    assert counts["masked_softmax_vqa"] == 0, counts
+    # where an epoch's time goes: epoch 0 pays the first calls' set-up
+    rest = record[1:]
+    train_s = statistics.mean(r["train"] for r in rest)
+    wait_s = statistics.mean(r["wait"] for r in rest)
+    step_s = statistics.mean(r["step"] for r in rest)
+    eval_s = statistics.mean(r["eval"] for r in rest)
+    rate = n_train // TRAIN_B * TRAIN_B / train_s
+    print(f"ffoe_train epochs 1-{epochs - 1} (mean): {statistics.mean(secs[1:]):.3f} s "
+          f"an epoch by log.txt; training {train_s:.3f} s ({rate:.1f} samples/s), "
+          f"of which the loader {wait_s:.3f} s ({wait_s / train_s:.1%}) and the "
+          f"host inside step calls {step_s:.3f} s ({step_s / train_s:.1%}); "
+          f"eval of {n_val} questions {eval_s:.3f} s; epoch 0 "
+          f"{record[0]['train']:.3f} s training, {record[0]['eval']:.3f} s eval")
+    print(f"ffoe_train samples/s {rate:.1f} against phase 8b's step alone: "
+          f"{TRAIN_B / wire_step_ms * 1e3:.1f} from a host batch (float32 "
+          f"wire), {TRAIN_B / card_step_ms * 1e3:.1f} with the batch on the card "
+          f"(median steps on CUDA events)")
+
+    best9 = load_checkpoint(os.path.join(out, "model_epoch9.ckpt"))["extra"]
+    counts, _, wall = run("ffoe_train resume", args + [
+        "--output", out, "--epochs", str(epochs + 1), "--input",
+        os.path.join(out, "model_epoch9.ckpt")])
+    text, losses, scores, _ = log_of(os.path.join(out, "log.txt"))
+    ck10 = load_checkpoint(os.path.join(out, f"model_epoch{epochs}.ckpt"))
+    best = load_checkpoint(os.path.join(out, "model_epoch_best.ckpt"))
+    print(f"resume from model_epoch9.ckpt (best_eval {best9['best_eval']:.4f}): "
+          f"epoch {ck10['epoch']} in {wall:.1f} s, loss {losses[-1]}, eval "
+          f"{scores[-1]:.4f}; best_eval now {ck10['extra']['best_eval']:.4f}, "
+          f"model_epoch_best from epoch {best['epoch']}; launches {counts}")
+    assert len(losses) == epochs + 1 and f"epoch {epochs}, time" in text
+    assert ck10["epoch"] == epochs and np.isfinite(losses[-1])
+    # eval scores print as percents with 2 decimals
+    assert abs(ck10["extra"]["best_eval"]
+               - max(best9["best_eval"], scores[-1])) <= 1e-4, ck10["extra"]
+    assert best["epoch"] == (epochs if ck10["extra"]["best_eval"] >
+                             best9["best_eval"] else 9), best["epoch"]
+    assert counts["fused_rank_softmax"] == steps + evals, counts
+
+    results = os.path.join(tmp.name, "results")
+    K.reset_launches()
+    paths = ffoe_test.main(args + ["--split", "val", "--input", out, "--epoch",
+                                   "9", "--results", results, "--logits", "1"])
+    torch.cuda.synchronize()
+    path_counts["ffoe_test"] = counts = dict(K.launches)
+    with open(paths["json"]) as f:
+        answers = json.load(f)
+    with open(paths["teacher_logits"], "rb") as f:
+        teacher = pickle.load(f)
+    with np.load(paths["raw_logits"]) as z:
+        swept = z["logits"]
+    dictionary = Dictionary.load_from_file(os.path.join(root, "dictionary.pkl"))
+    val = VQAFeatureDataset("val", dictionary, dataroot=root, max_boxes=V)
+    rows8 = [val.sample(i) for i in range(8)]
+    mcfg = dataclasses.replace(cfg, ntoken=dictionary.ntoken,
+                               num_ans_candidates=len(labels))
+    session = InferenceSession.from_checkpoint(
+        os.path.join(out, "model_epoch9.ckpt"), mcfg, labels, device="cuda")
+    want = session.logits(*(np.stack([r[k] for r in rows8])
+                            for k in ("v", "b", "q", "a")))
+    e_sess = float(np.abs(swept[:8] - want).max())
+    print(f"ffoe_test --split val --epoch 9: {len(answers)} EvalAI answers, "
+          f"{len(teacher)} teacher logits ({next(iter(teacher.values())).dtype}), "
+          f"raw logits {swept.shape}; first 8 rows vs InferenceSession on the "
+          f"checkpoint: max_abs_err {e_sess:.3e} (tol {SERVE_TOL:.0e}); "
+          f"launches {counts}")
+    assert len(answers) == len(teacher) == n_val == swept.shape[0]
+    assert e_sess <= SERVE_TOL and np.isfinite(swept).all(), e_sess
+    assert counts["fused_rank_softmax"] == -(-n_val // TRAIN_B), counts
+    del session
+
+    counts, record, wall = run("ffoe_train bf16", args + [
+        "--output", os.path.join(tmp.name, "bf16"), "--epochs", "2",
+        "--compute_dtype", "bfloat16"])
+    _, losses, scores, secs = log_of(os.path.join(tmp.name, "bf16", "log.txt"))
+    print(f"ffoe_train --compute_dtype bfloat16, 2 epochs in {wall:.1f} s "
+          f"(log.txt {secs} s; epoch 1: training {record[1]['train']:.3f} s, "
+          f"loader {record[1]['wait']:.3f} s, host in step calls "
+          f"{record[1]['step']:.3f} s): losses {losses}, eval {scores}; "
+          f"launches {counts}")
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert counts["fused_rank_softmax_bf16"] == 2 * (steps + evals), counts
+    assert counts["trilinear_pool_bf16"] == 2 * cfg.gamma * (steps + evals)
+    assert counts["softmax_vqa_backward"] == 2 * steps, counts
+    assert counts["fused_rank_softmax"] == counts["trilinear_pool"] == 0, counts
+    tmp.cleanup()
 
 
 def main() -> int:
@@ -457,9 +699,11 @@ def main() -> int:
             a1 = model16.a_prj0(joint) + a_s
             d = dict(v_r=v_r, tqa=tqa, mask=mask, att=att, vt=vt, qt=qt, at=at,
                      vt1=tn1.v_tucker(v), qt1=tn1.q_tucker(q1),
-                     at1=tn1.a_tucker(a1))
-        assert [d[k].dtype for k in ("v_r", "tqa", "vt", "qt", "vt1", "qt1")] == [
-            bf16] * 5 + [torch.float32], {k: x.dtype for k, x in d.items()}
+                     at1=tn1.a_tucker(a1),
+                     logits=K.attention_logits_ref(v_r, q_r, a_r, T))
+        assert [d[k].dtype for k in ("v_r", "tqa", "vt", "qt", "vt1", "qt1",
+                                     "logits")] == [bf16] * 5 + [
+            torch.float32, bf16], {k: x.dtype for k, x in d.items()}
         return {k: x.clone() for k, x in d.items()}
 
     def k2_glimpse1(d):
@@ -477,14 +721,32 @@ def main() -> int:
             return
         raise SystemExit(f"a misaligned or ragged bf16 operand was accepted: {label}")
 
+    def check3_bf16(label, logits, mask):
+        """K3's bf16 instance against its plain version (float32 out);
+        fully masked rows exact zeros."""
+        got = K.masked_softmax_vqa(logits, mask)
+        want = K.masked_softmax_vqa_ref(logits, mask)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        masked = ~mask.any(1)
+        masked_max = got[masked].abs().max().item() if masked.any() else 0.0
+        print(f"K3 bf16 {label}: max_abs_err {e:.3e} (tol {K3_TOL:.0e}), "
+              f"{int(masked.sum())} fully masked rows, max there {masked_max}")
+        if not (e <= K3_TOL and masked_max == 0.0 and got.dtype == torch.float32
+                and bool(got.isfinite().all())):
+            raise SystemExit(f"K3 bf16 disagrees with its plain version: {label}")
+        return e
+
     # plain tensors, made outside inference mode: the gradients below take them
-    errs16 = {}
+    errs16, errs3_16 = {}, {}
     for n in (1, 128, TRAIN_B):
         d = path_inputs_bf16(n, seed=30 + n, pad_row=n > 1)
         errs16[n] = (check_k1(f"bf16 B={n} V={V}", k1_of(d)),
                      max(check_k2(f"bf16 B={n} V={V} glimpse 0", k2_of(d)),
                          check_k2(f"bf16 B={n} V={V} glimpse 1 (qt, at f32)",
                                   k2_glimpse1(d))))
+        errs3_16[n] = check3_bf16(f"B={n} V={V} (the bf16 model's logits)",
+                                  d["logits"], d["mask"])
     for n, v_edge, G_ in ((1, 57, 2), (2, 65, 1), (2, 65, 3)):
         k1_edge = to_bf16(ragged_inputs(n, v_edge, seed=50 + G_, G=G_)[0])
         check_k1(f"bf16 edge B={n} V={v_edge} G={G_}", k1_edge)
@@ -493,6 +755,28 @@ def main() -> int:
         check_k2(f"bf16 edge B={n} V={v_edge} D={d_edge}", to_bf16(k2_edge, 3))
         check_k2(f"bf16 edge B={n} V={v_edge} D={d_edge} (qt, at f32)",
                  to_bf16(k2_edge, 1))
+    # 8 bf16 a thread in one 16-byte load: the resident limits are the
+    # float32 kernel's (113 boxes at G=2, 227 at G=1, 71 at G=3); 7*5*3
+    # bf16 are no whole number of 16-byte units; a shift of 1 or 3 bf16
+    # puts the logits out of phase with att (units of 1), 4 in phase after
+    # a head of 4
+    for n, v_edge, q_, a_, G_, shift in (
+            (2, 65, Q, A, 1, 0), (2, 65, Q, A, 3, 0), (3, 7, 5, 3, 1, 0),
+            (2, 113, Q, A, 2, 0), (2, 114, Q, A, 2, 0), (2, 227, Q, A, 1, 0),
+            (2, 228, Q, A, 1, 0), (2, 71, Q, A, 3, 0), (2, 72, Q, A, 3, 0),
+            (1, V, Q, A, 2, 0), (2, 10, Q, A, 2, 1), (4, 293, Q, A, 2, 3),
+            (4, 293, Q, A, 2, 4), (3, 7, 5, 3, 1, 2)):
+        lg, mk = softmax_edge(n, v_edge, q_, a_, G_, 0, seed=80 + v_edge)
+        lg = lg.to(bf16)
+        errs3_16[("edge", n, v_edge, q_, G_, shift)] = check3_bf16(
+            f"edge B={n} V={v_edge} Q*A={q_ * a_} G={G_} shift={shift} bf16",
+            offset_copy(lg, shift) if shift else lg, mk)
+    grad_check(f"K3 bf16 B={TRAIN_B}", ["dlogits"],
+               lambda x: K.masked_softmax_vqa(x, d["mask"]),
+               lambda x: K.masked_softmax_vqa_ref(x, d["mask"]),
+               (d["logits"],), cotangent(d["logits"].shape, 13),
+               lambda want: K3_TOL, grad_rel=BF16_GRAD_REL_TOL)
+
     v_r, tqa, mask = k1_of(d)
     refused("K1 bf16 v_r 2 bytes off a 16-byte boundary", K.fused_rank_softmax,
             offset_copy(v_r, 1), tqa, mask)
@@ -697,7 +981,22 @@ def main() -> int:
              max(e[1] for e in errs16.values()))))[:2]
         d16 = path_inputs_bf16(TRAIN_B, seed=276, pad_row=True)
         time_forwards_bf16(d16, f"B={TRAIN_B}")
-        del d16
+        # K3 on the bf16 model's logits: bf16 in, float32 out; the
+        # yardstick is torch.softmax reading bf16 and writing float32
+        lg16, m16 = d16["logits"], d16["mask"]
+        mf16 = m16.repeat_interleave(QA, 1)[..., None]
+        n16 = lg16.numel()
+        rows.append(timed(
+            "masked_softmax_vqa_bf16", f"B={B}",
+            (lambda lg, m, mf: K.masked_softmax_vqa(lg, m),
+             lambda lg, m, mf: K.masked_softmax_vqa_ref(lg, m),
+             lambda lg, m, mf: torch.softmax(lg.reshape(
+                 B, V * QA, G).masked_fill(~mf, float("-inf")), dim=1,
+                 dtype=torch.float32)),
+            (lg16, m16, mf16), n16 * (2 + f32) + m16.numel(), 5 * n16,
+            row=("softmax_vqa.cu", "vqatpu/kernels/trilinear.py:207",
+                 max(errs3_16.values()))))
+        del d16, lg16, m16, mf16
 
     # -- 4c. K1 and K2 forward + backward at the training batch -----------
     v_r, tqa = (d[k].requires_grad_() for k in ("v_r", "tqa"))
@@ -971,7 +1270,35 @@ def main() -> int:
     assert counts["masked_softmax_vqa"] == 1, counts
     assert counts["softmax_vqa_backward"] == 1, counts
     assert counts["fused_rank_softmax"] == 0, counts
+
+    # the logits path at compute_dtype="bfloat16": bf16 weights and inputs
+    # give K3 bf16 logits; att stays float32, the gradients come back bf16
+    v16, q16, a16 = (x.to(dev, bf16) for x in (v7, q7, a7))
+    q16, a16 = q16.requires_grad_(), a16.requires_grad_()
+    K.reset_launches()
+    att16, logits16 = model16.t_att(v16, q16, a16, mask7.to(dev),
+                                    return_logits=True)
+    wrt16 = [q16, a16] + list(model16.t_att.parameters())
+    grads16 = torch.autograd.grad(att16, wrt16, cot7.to(dev))
+    torch.cuda.synchronize()
+    path_counts["logits bf16"] = counts = dict(K.launches)
+    e_own = (att16 - K.masked_softmax_vqa_ref(logits16, mask7.to(dev))
+             ).abs().max().item()
+    e_f32 = (att16 - att7).abs().max().item()
+    bound16 = BF16_DIRECT * att7.abs().max().item()
+    print(f"logits path at bf16 (B=8): att {att16.dtype} from {logits16.dtype} "
+          f"logits; vs the plain softmax of those logits {e_own:.3e} (tol "
+          f"{K3_TOL:.0e}); vs the float32 path {e_f32:.3e} (bound "
+          f"{BF16_DIRECT:g} x max att = {bound16:.3e}); gradients "
+          f"{sorted({str(g.dtype) for g in grads16})}; launches {counts}")
+    assert att16.dtype == torch.float32 and logits16.dtype == bf16
+    assert e_own <= K3_TOL and e_f32 <= bound16, (e_own, e_f32)
+    assert all(g.dtype == bf16 and bool(g.isfinite().all()) for g in grads16)
+    assert counts["masked_softmax_vqa_bf16"] == 1, counts
+    assert counts["softmax_vqa_backward"] == 1, counts
+    assert counts["masked_softmax_vqa"] == counts["fused_rank_softmax_bf16"] == 0
     del fused, att7, logits7, grads7, att_c, logits_c, grads_c, cpu, session
+    del att16, logits16, grads16, v16, q16, a16, wrt16, model16
 
     # -- 7b. by-id serving from a card-resident store; MicroBatcher; HTTP --
     t0 = time.perf_counter()
@@ -1310,15 +1637,19 @@ def main() -> int:
     assert counts["softmax_vqa_backward"] == n_steps, counts
     assert counts["fused_rank_softmax"] == counts["trilinear_pool"] == 0, counts
     host8 = wire_cast(batch, "int8")  # quantized once, as a loader would
+    wire_step_ms = {}
     for label, host_batch, wire in (("float32", batch, "float32"),
                                     ("int8", host8, "int8")):
-        counts, n_steps, _ = train_throughput(
+        counts, n_steps, wire_step_ms[label] = train_throughput(
             f"B={TRAIN_B}, the {label} wire (a host batch copied each step)",
             host_batch, windows=3, transfer_dtype=wire)
         for k, v in counts.items():
             path_counts["training"][k] += v
         assert counts["fused_rank_softmax"] == n_steps, counts
     del db, batch, host8
+
+    # -- 9. the entry points on the card: ffoe_train, resume, ffoe_test ---
+    phase9(cfg, path_counts, wire_step_ms["float32"], step_ms)
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

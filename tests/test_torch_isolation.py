@@ -28,6 +28,10 @@ import torch
 import vqatpu_torch, vqatpu_torch.cli.serve, vqatpu_torch.weights
 import vqatpu_torch.train, vqatpu_torch.train.optim, vqatpu_torch.train.steps
 import vqatpu_torch.ops.losses, vqatpu_torch.numerics
+import vqatpu_torch.cli.ffoe_train, vqatpu_torch.cli.ffoe_test
+import vqatpu_torch.data.synthetic, vqatpu_torch.data.tfidf
+import vqatpu_torch.train.loop, vqatpu_torch.eval.ffoe
+from vqatpu_torch.train.checkpoints import restore_train_state
 from vqatpu_torch.config import ModelConfig, TrainConfig
 from vqatpu_torch.serve import InferenceSession
 from vqatpu_torch.train import make_train_state, make_train_step
@@ -39,6 +43,8 @@ out = sess.logits(rs.randn(2, 5, 16).astype(np.float32), None,
                   rs.randint(0, 31, (2, 12)), rs.randint(0, 31, (2, 3)))
 assert out.shape == (2, 7) and np.isfinite(out).all()
 state = make_train_state(sess.model, device="cpu")
+state, start, _ = restore_train_state(sys.argv[1], state)  # optax's classes
+assert start == 1 and state.optimizer.count == 0
 step = make_train_step(state.model, TrainConfig(update_freq=1))
 m = step(state, {"v": rs.randn(2, 5, 16).astype(np.float32),
                  "q": rs.randint(0, 31, (2, 12)), "a": rs.randint(0, 31, (2, 3)),

@@ -183,7 +183,8 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing(rng):
     assert K.launches == {"fused_rank_softmax": 0, "trilinear_pool": 0,
                           "masked_softmax_vqa": 0, "softmax_vqa_backward": 0,
                           "fused_rank_softmax_bf16": 0,
-                          "trilinear_pool_bf16": 0}
+                          "trilinear_pool_bf16": 0,
+                          "masked_softmax_vqa_bf16": 0}
 
 
 # -- gradients ----------------------------------------------------------------
@@ -647,6 +648,37 @@ def test_trilinear_pool_bf16_grads_take_the_primal_dtype(rng, qa_dtype):
         assert_bf16_close(x, y)
 
 
+@pytest.mark.parametrize("V,n_real,b,q,a,g", [
+    pytest.param(10, 8, B, Q, A, G, id="10-8"),
+    pytest.param(300, 263, B, Q, A, G, id="300-263")] + K3_EDGES)
+def test_masked_softmax_vqa_bf16_matches_pallas(rng, V, n_real, b, q, a, g):
+    """K3 on bf16 logits, as ``compute_dtype="bfloat16"`` gives them to it
+    through ``return_logits=True``: the forward (float32) against
+    ``masked_softmax_vqa_pallas`` on the same bf16 logits (interpret mode),
+    1e-5; the gradient comes back bf16, JAX's custom_vjp's float32 (the
+    reference fault), within a bf16 rounding of each other."""
+    logits, mask = softmax_inputs(rng, V, n_real, b, q, a, g)
+    jl, tl = bf16_pair(logits)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(masked_softmax_vqa_pallas(jl, jnp.asarray(mask)))
+        _, pull = jax.vjp(lambda x: _masked_softmax_pallas_vjp(
+            x, jnp.asarray(mask)), jl)
+        cot = rng.randn(*logits.shape).astype(np.float32)
+        (want_g,) = [np.asarray(x) for x in pull(jnp.asarray(cot))]
+    assert want.dtype == np.float32 and want_g.dtype == np.float32
+    tl.requires_grad_()
+    K.reset_launches()
+    got = K.masked_softmax_vqa(tl, torch.from_numpy(mask))
+    (got_g,) = torch.autograd.grad(got, (tl,), torch.from_numpy(cot))
+    assert got.dtype == torch.float32 and got_g.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5)
+    assert_bf16_close(got_g, want_g)
+    if b > 1:
+        np.testing.assert_array_equal(got.detach()[-1].numpy(), 0.0)
+        np.testing.assert_array_equal(got_g[-1].float().numpy(), 0.0)
+    assert sum(K.launches.values()) == 0  # the plain version, on the CPU
+
+
 @pytest.mark.parametrize("case", ["k1-mixed", "k1-half", "k2-f32-vt-bf16-qa",
                                   "k2-qt-at-differ", "k2-w-bf16"])
 def test_wrappers_refuse_dtypes_without_an_instance(rng, case):
@@ -699,6 +731,39 @@ def test_cuda_rank_softmax_bf16_matches_plain(rng, cuda, V, n_real, b, g):
     assert K.launches["fused_rank_softmax_bf16"] == 1
     torch.testing.assert_close(got, K.fused_rank_softmax_ref(v_r, tqa, mask),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,n_real,b,q,a,g,shift", [
+    pytest.param(50, 44, B, Q, A, G, 0, id="50-44"),
+    pytest.param(2048, 1999, B, Q, A, G, 0, id="2048-1999")] + [
+    pytest.param(*p.values, 0, id=p.id) for p in K3_EDGES] + [
+    pytest.param(10, 8, B, Q, A, G, 1, id="10-8-2-bytes-off"),
+    pytest.param(300, 263, B, Q, A, G, 4, id="300-263-8-bytes-off"),
+    pytest.param(7, 5, 3, 5, 3, 1, 3, id="B3-7-5-Q5A3G1-6-bytes-off")])
+def test_cuda_masked_softmax_bf16_matches_plain(rng, cuda, V, n_real, b, q, a,
+                                                g, shift):
+    """The bf16 instance of K3 against its plain version (float32 out) and
+    its gradient in bf16.  With ``shift`` the logits start that many bf16
+    past a 16-byte boundary: out of phase with att where the shift is odd
+    or not a multiple of 4 (units of 1 element), in phase at 4 (8-element
+    units after a 4-element head)."""
+    logits, mask = softmax_inputs(rng, V, n_real, b, q, a, g)
+    logits, mask = torch.from_numpy(logits).to(cuda, torch.bfloat16), torch.from_numpy(mask).to(cuda)
+    if shift:
+        buf = torch.empty(logits.numel() + 8, dtype=logits.dtype, device=cuda)
+        logits = buf[shift:shift + logits.numel()].view(logits.shape).copy_(logits)
+    logits.requires_grad_()
+    K.reset_launches()
+    got = K.masked_softmax_vqa(logits, mask)
+    assert K.launches["masked_softmax_vqa_bf16"] == 1
+    want = K.masked_softmax_vqa_ref(logits.detach(), mask)
+    torch.testing.assert_close(got.detach(), want, rtol=0, atol=1e-5)
+    cot = torch.randn(got.shape, device=cuda)
+    (g_,) = torch.autograd.grad(got, (logits,), cot)
+    assert g_.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        g_, K.softmax_vqa_backward_ref(want, cot).to(torch.bfloat16))
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ from vqatpu.ops import trilinear as jtri
 from vqatpu.ops.activation import get_activation as jax_activation
 from vqatpu.ops.module import Ctx as JaxCtx
 from vqatpu.ops.module import dropout as jax_dropout
+from vqatpu_torch.kernels import trilinear as K
 from vqatpu_torch.ops import attention, classifier, embedding, linear, rnn
 from vqatpu_torch.ops import trilinear
 from vqatpu_torch.ops.activation import get_activation
@@ -499,3 +500,38 @@ def test_tcnet_apply_with_weights_bf16_matches_jax_pallas(rng, qa_dtype):
             jnp.asarray(att[..., 1]))
     assert got.dtype == torch.float32 and want.dtype == jnp.float32
     close_bf16(got, want)
+
+
+def test_triattention_return_logits_at_bf16_matches_jax_apply(rng):
+    """At ``compute_dtype="bfloat16"`` (bf16 weights and inputs, as the
+    step casts them) ``return_logits=True`` hands K3 bf16 logits, as JAX's
+    ``apply`` with the Pallas backend does: bf16 masked logits, float32
+    attention, within bf16 roundings of JAX's; the attention is K3's
+    plain version of the port's own logits, exactly."""
+    kw = dict(v_dim=10, q_dim=8, a_dim=8, h_dim=16, h_out=1, rank=4,
+              glimpse=2, k=1)
+    jm = jatt.TriAttention(**kw, backend="pallas")
+    p = init(jm, seed=9)
+    v, q, a = tc_inputs(rng)
+    mask = np.abs(v).sum(-1) != 0
+    mask[1] = False
+    m = load(attention.TriAttention(**kw), p).to(torch.bfloat16)
+    args = [torch.from_numpy(x).to(torch.bfloat16) for x in (v, q, a)]
+    with torch.inference_mode():
+        att, logits = m(*args, torch.from_numpy(mask), return_logits=True)
+    assert att.dtype == torch.float32 and logits.dtype == torch.bfloat16
+    p16 = jax.tree.map(lambda x: jnp.asarray(x, jnp.bfloat16), p)
+    with pltpu.force_tpu_interpret_mode():
+        want_att, want_logits = jm.apply(
+            p16, *(jnp.asarray(x, jnp.bfloat16) for x in (v, q, a)),
+            jnp.asarray(mask))
+    assert want_att.dtype == jnp.float32 and want_logits.dtype == jnp.bfloat16
+    finite = np.isfinite(np.asarray(want_logits, np.float32))
+    np.testing.assert_array_equal(np.isfinite(logits.float().numpy()), finite)
+    close_bf16(logits.float()[torch.from_numpy(finite)],
+               np.asarray(want_logits, np.float32)[finite])
+    close_bf16(att, want_att)
+    # the -inf of masked boxes are replaced before the softmax
+    torch.testing.assert_close(
+        att, K.masked_softmax_vqa_ref(logits, torch.from_numpy(mask)),
+        rtol=0, atol=0)

@@ -195,12 +195,66 @@ def test_train_config_is_a_copy_of_jax():
     assert mine == theirs
 
 
-@pytest.mark.parametrize("field,value", [
-    ("distillation", True), ("mask_replay", True)])
+@pytest.mark.parametrize("field,value", [("mask_replay", True)])
 def test_unported_train_options_raise(field, value):
     model = build_model(ModelConfig(**SMALL))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(model, TrainConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("deterministic,remat,refused", [
+    (False, False, True), (True, False, False), (False, True, False)],
+    ids=["dropout", "deterministic", "remat_glimpse"])
+def test_fused_v_tucker_is_refused_where_dropout_differs(deterministic, remat,
+                                                         refused):
+    """JAX draws one dropout mask on v for the 1+gamma v-side tuckers under
+    fused_v_tucker, unless remat_glimpse turns the fusion off
+    (vqatpu/models/ffoe.py:253-258); the port would draw 1+gamma, so its
+    train step refuses the flag with dropout on.  Without dropout the math
+    is the same, and the step is built."""
+    model = build_model(ModelConfig(**SMALL, fused_v_tucker=True,
+                                    remat_glimpse=remat))
+    make_train_state(model, device="cpu")
+    tcfg = TrainConfig(deterministic=deterministic)
+    if refused:
+        with pytest.raises(NotImplementedError, match="queue A item 8"):
+            make_train_step(model, tcfg)
+    else:
+        make_train_step(model, tcfg)
+
+
+def test_blockwise_regime_is_refused():
+    """v_block_size below the box count selects JAX's blockwise path, which
+    returns att=None (vqatpu/models/ffoe.py:357): the port's forward
+    refuses it and still runs at or below the block size."""
+    cfg = ModelConfig(**SMALL, v_block_size=6)
+    model = build_model(cfg).eval()
+    batch = numpy_batch(cfg, 2, seed=1, boxes=8, real_boxes=6)
+    v, q, a = (torch.from_numpy(batch[k]) for k in "vqa")
+    with pytest.raises(NotImplementedError, match="queue A item 8"):
+        model(v, q, a)
+    logits, att = model(v[:, :6], q, a)
+    assert logits.shape == (2, 17) and att is not None
+
+
+def test_cti_step_ignores_distillation():
+    """JAX applies the distillation loss to BAN and SAN only
+    (vqatpu/train/steps.py:208); a CTI step with distillation=True and
+    teacher logits in the batch equals one without, on the same batch and
+    state."""
+    params = numpy_params(ModelConfig(**SMALL), seed=3)
+    batches = small_batches(2)
+    kd = [dict(b, t_logits=np.random.RandomState(i).randn(4, 17).astype(
+        np.float32)) for i, b in enumerate(batches)]
+    plain, s_plain = torch_run(SMALL, params, batches,
+                               TrainConfig(update_freq=1, deterministic=True))
+    distilled, s_kd = torch_run(SMALL, params, kd, TrainConfig(
+        update_freq=1, deterministic=True, distillation=True))
+    for a, b in zip(plain, distilled):
+        for k in ("loss", "grad_norm", "batch_score"):
+            assert a[k] == b[k], k
+    for a, b in zip(s_plain.model.parameters(), s_kd.model.parameters()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("field,value", [

@@ -2,11 +2,16 @@
 and ``vqatpu.config.TrainConfig``.
 
 The fields and defaults are the JAX package's, so a configuration written
-for one side constructs on the other.  ``kernel_backend``, ``v_block_size``,
-``fused_v_tucker`` and ``remat_glimpse`` are kept for that reason only: the
-port has one CTI path, that of JAX's ``kernel_backend="pallas"`` (the fused
-attention and pooling kernels, and its dtypes at bf16 compute), and the
-blockwise, fused-tucker and remat variants are ROADMAP queue A item 8.
+for one side constructs on the other.  The port has one CTI path, that of
+JAX's ``kernel_backend="pallas"`` (the fused attention and pooling kernels,
+and its dtypes at bf16 compute); the blockwise, fused-tucker and remat
+variants are ROADMAP queue A item 8.  ``kernel_backend`` and
+``remat_glimpse`` select nothing here and change no result.
+``fused_v_tucker`` changes no eval result (``vqatpu/config.py:47-50``), but
+with dropout on JAX draws one mask on ``v`` for the 1+γ v-side tuckers, so
+:func:`vqatpu_torch.train.make_train_step` refuses it there.
+``v_block_size`` > 0 with more boxes than it makes JAX's forward return no
+attention (``vqatpu/models/ffoe.py:357``); the port's forward refuses it.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ class ModelConfig:
     rank: int = 32
     k: int = 1
     task: str = "ffoe"  # ffoe | mc
-    # accepted for compatibility with the JAX package; selects nothing here
+    # accepted for compatibility with the JAX package (see the docstring)
     kernel_backend: str = "xla"
     v_block_size: int = 0
     fused_v_tucker: bool = False
@@ -58,14 +63,16 @@ class TrainConfig:
     """Training configuration, a copy of ``vqatpu.config.TrainConfig`` with
     the same fields and defaults.
 
-    ``rng_impl``, ``data_axis``, ``device_features``,
-    ``shard_feature_store`` and ``ckpt_backend`` select TPU or loop
-    machinery of the JAX package; they are accepted and select nothing
-    here (the training device feature store waits for ROADMAP queue A item
-    4).  ``compute_dtype`` (float32 or bfloat16) and ``transfer_dtype``
+    ``rng_impl`` and ``data_axis`` select TPU machinery of the JAX package
+    and nothing here.  The epoch loop (:func:`vqatpu_torch.train.loop.
+    train`) reads the rest: ``device_features="auto"`` builds no card
+    store there (the training device feature store is ROADMAP queue A item
+    4e) and says so in the log, while ``"on"``, ``shard_feature_store`` and
+    ``ckpt_backend="orbax"`` (item 9) raise.  ``compute_dtype`` (float32 or bfloat16) and ``transfer_dtype``
     (float32, float16, bfloat16 or int8) are ported.  ``distillation``
-    (queue A item 5) and ``mask_replay`` (not ported: autograd keeps the
-    mask) make :func:`vqatpu_torch.train.make_train_step` raise
+    applies to BAN and SAN only (``vqatpu/train/steps.py:208``), so the CTI
+    step ignores it, as JAX's does.  ``mask_replay`` (not ported: autograd
+    keeps the mask) makes :func:`vqatpu_torch.train.make_train_step` raise
     ``NotImplementedError``.
     """
 

@@ -9,8 +9,10 @@ Layouts:
 Every sample is padded to a static ``max_boxes`` (:meth:`FeatureStore.get`).
 ``quantize`` keeps the resident features int8 with a float32 scale per box
 row (:func:`vqatpu_torch.data.quantize.quantize_rows`), 4x less memory.
-Stores are read whole into memory (the JAX store's streaming HDF5 mode
-feeds its training loaders, ROADMAP queue A item 4).  ``.npz`` files need
+``from_hdf5(in_memory=False)`` keeps the file open and reads each image's
+rows when it is asked for (the streaming mode, for hosts with less memory
+than the split), with the small ``pos_boxes`` table resident; ``close``
+closes the file and ``materialize`` reads it whole.  ``.npz`` files need
 only numpy; ``.hdf5`` files need ``h5py``, imported when one is opened.
 """
 
@@ -38,12 +40,13 @@ def _h5py():
 
 
 class FeatureStore:
-    def __init__(self, features: np.ndarray, spatials: np.ndarray,
-                 pos_boxes: Optional[np.ndarray] = None,
+    def __init__(self, features, spatials,
+                 pos_boxes: Optional[np.ndarray] = None, h5file=None,
                  feat_scales: Optional[np.ndarray] = None):
         self.features = features
         self.spatials = spatials
         self.pos_boxes = pos_boxes
+        self._h5 = h5file  # the open file of a streaming store
         # int8-resident mode: per-box-row scales ([total_boxes] adaptive,
         # [N, K] fixed); None for float32 stores
         self.feat_scales = feat_scales
@@ -58,6 +61,11 @@ class FeatureStore:
         return self.feat_scales is not None
 
     @property
+    def in_memory(self) -> bool:
+        """False when features and spatials are open HDF5 datasets."""
+        return self._h5 is None
+
+    @property
     def v_dim(self) -> int:
         return int(self.features.shape[1 if self.adaptive else 2])
 
@@ -67,9 +75,21 @@ class FeatureStore:
 
     @classmethod
     def from_hdf5(cls, path: str, adaptive: bool = True,
-                  quantize: bool = False) -> "FeatureStore":
+                  in_memory: bool = True, quantize: bool = False
+                  ) -> "FeatureStore":
         """With ``quantize`` the features are quantized chunk by chunk as
-        they are read, so the float32 block is never whole in memory."""
+        they are read, so the float32 block is never whole in memory (a
+        resident store only).  ``in_memory=False`` streams: the file stays
+        open until :meth:`close`."""
+        if quantize and not in_memory:
+            raise ValueError(
+                "quantize=True requires a resident store: the int8 store is "
+                "the low-memory mode (4x less memory than float32)")
+        if not in_memory:
+            hf = _h5py().File(path, "r")
+            pos_boxes = np.asarray(hf.get("pos_boxes")) if adaptive else None
+            return cls(hf["image_features"], hf["spatial_features"],
+                       pos_boxes, h5file=hf)
         with _h5py().File(path, "r") as hf:
             feats = hf["image_features"]
             spatials = np.asarray(hf.get("spatial_features"))
@@ -92,13 +112,29 @@ class FeatureStore:
             return cls(data["image_features"], data["spatial_features"], pos)
 
     def quantize(self) -> "FeatureStore":
-        """An int8-resident copy of a float32 store (itself when already
-        quantized)."""
+        """An int8-resident copy of a float32 resident store (itself when
+        already quantized)."""
         if self.quantized:
             return self
+        if not self.in_memory:
+            raise ValueError("quantize a streaming store with "
+                             "from_hdf5(quantize=True)")
         q, scales = quantize_rows(self.features)
         return FeatureStore(q, self.spatials, self.pos_boxes,
                             feat_scales=scales)
+
+    def materialize(self) -> "FeatureStore":
+        """A resident copy of a streaming store (itself when resident)."""
+        if self.in_memory:
+            return self
+        return FeatureStore(np.asarray(self.features),
+                            np.asarray(self.spatials), self.pos_boxes)
+
+    def close(self) -> None:
+        """Close a streaming store's file; a resident store has none."""
+        if self._h5 is not None:
+            self._h5.close()
+            self._h5 = None
 
     def get(self, image_idx: int, max_boxes: int
             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -40,8 +40,10 @@ ENTRY_POINTS = {
         "tri_pool_forward_bf16": [_PTR] * 4 + [_I64] * 4 + [_PTR] + [_INT] * 7 + [_PTR],
     },
     "softmax_vqa": {
-        # in, mask or cotangent, out, B, V, QA, G, device, stream
+        # in, mask or cotangent, out, B, V, QA, G, device, stream; the
+        # _bf16 entry point takes bfloat16 logits
         "masked_softmax_vqa_forward": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+        "masked_softmax_vqa_forward_bf16": [_PTR] * 3 + [_INT] * 5 + [_PTR],
         "softmax_vqa_backward": [_PTR] * 3 + [_INT] * 5 + [_PTR],
     },
 }

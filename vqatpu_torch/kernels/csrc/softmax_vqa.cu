@@ -67,6 +67,20 @@
 // stride G, two passes from L2, a 64-bit divide per element for the mask,
 // short dependent loops of 4-byte loads) are each gone on the resident
 // path.  Slices of more than 2^31 - 1 floats are refused.
+//
+// bf16 logits: `masked_softmax_vqa_forward_bf16` is the same kernel with
+// the logits' element type a template parameter (JAX's Pallas kernel reads
+// the bf16 logits of `compute_dtype="bfloat16"`, :192-204, and computes and
+// returns float32).  A 16-byte unit carries 8 bf16, widened to float32 in
+// registers (a bf16 is the high half of a float32: exact); a thread holds
+// one unit, so RES and the block sizes are the float32 kernel's, and att
+// stays float32, written as two float4 per unit.  The edge path takes up
+// to 7 bf16 before the first whole unit and 7 after the last.  Units need
+// the output in phase with the input: att + e 16-byte aligned wherever
+// logits + e is, which holds for every sample of a call or for none
+// (`in_phase`); otherwise the kernel runs on units of 1 element.  Its bound
+// at B=256, V=50, QA=36, G=2: 1.84 MB of bf16 in and 3.69 MB of float32
+// out, 1.65 us at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -77,7 +91,7 @@ namespace {
 constexpr int MAX_G = 8;            // glimpses; the wrapper raises beyond
 constexpr int MAX_THREADS = 1024;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
-constexpr int RES = 8;              // floats of each input a thread holds
+constexpr int RES = 8;              // elements of each input a thread holds
 
 // Threads of a block for slices of n floats at G glimpses: a multiple of
 // lcm(32, G), enough for RES floats a thread where that fits in
@@ -101,16 +115,34 @@ struct Pack {
   float v[VW];
 };
 
-template <int VW>
-__device__ __forceinline__ Pack<VW> load_pack(const float* p);
-template <>
-__device__ __forceinline__ Pack<4> load_pack<4>(const float* p) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  return {{t.x, t.y, t.z, t.w}};
+// a bf16 as its raw 16 bits: the high half of the float32 it widens to
+using bf16_t = unsigned short;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16_t x) {
+  return __uint_as_float((unsigned)x << 16);
 }
-template <>
-__device__ __forceinline__ Pack<1> load_pack<1>(const float* p) {
-  return {{__ldg(p)}};
+
+// one unit of VW elements of type T at `p`, widened to float32
+template <int VW, class T>
+__device__ __forceinline__ Pack<VW> load_pack(const T* p) {
+  static_assert(VW == 1 || VW * sizeof(T) == 16, "a unit is 1 element or 16 bytes");
+  Pack<VW> out;
+  if constexpr (VW == 1) {
+    out.v[0] = widen(__ldg(p));
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    out = {{t.x, t.y, t.z, t.w}};
+  } else {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // little endian: element 2k is the low half
+      out.v[2 * k] = __uint_as_float(w[k] << 16);
+      out.v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+  return out;
 }
 
 template <int VW>
@@ -120,19 +152,26 @@ __device__ __forceinline__ void store_pack<4>(float* p, const Pack<4>& x) {
   *reinterpret_cast<float4*>(p) = make_float4(x.v[0], x.v[1], x.v[2], x.v[3]);
 }
 template <>
+__device__ __forceinline__ void store_pack<8>(float* p, const Pack<8>& x) {
+  auto* q = reinterpret_cast<float4*>(p);
+  q[0] = make_float4(x.v[0], x.v[1], x.v[2], x.v[3]);
+  q[1] = make_float4(x.v[4], x.v[5], x.v[6], x.v[7]);
+}
+template <>
 __device__ __forceinline__ void store_pack<1>(float* p, const Pack<1>& x) {
   *p = x.v[0];
 }
 
-// One sample's slice of n floats starting at `p`: `head` floats before the
-// first 16-byte-aligned unit, `units` whole units of VW floats, then the
-// tail.  `edge` is the float that thread `t` takes outside the units, or -1.
-template <int VW>
+// One sample's slice of n elements of type T starting at `p`: `head`
+// elements before the first 16-byte-aligned unit, `units` whole units of VW
+// elements, then the tail.  `edge` is the element that thread `t` takes
+// outside the units, or -1.
+template <int VW, class T>
 struct Slice {
   int head, units, tail_start, edges;
 
-  __device__ Slice(const float* p, int n) {
-    head = VW == 4 ? min(n, (int)(((16 - ((size_t)p & 15)) & 15) >> 2)) : 0;
+  __device__ Slice(const T* p, int n) {
+    head = VW > 1 ? min(n, (int)(((16 - ((size_t)p & 15)) & 15) / sizeof(T))) : 0;
     units = (n - head) / VW;
     tail_start = head + units * VW;
     edges = head + n - tail_start;
@@ -212,7 +251,7 @@ softmax_backward_kernel(const float* __restrict__ att,
   const float* a = att + off;
   const float* g = grad + off;
   float* d = dl + off;
-  const Slice<VW> s(a, n);
+  const Slice<VW, float> s(a, n);
   const int tid = threadIdx.x, T = blockDim.x;
   int gpos[VW];
   positions(gpos, s.head, G);
@@ -292,20 +331,23 @@ __device__ __forceinline__ unsigned keep_bits(int e0, int qag, bool whole,
   return k;
 }
 
-template <int VW, bool RESIDENT>
+// the forward, on logits of element type TIn (float or bf16_t); VW is 16
+// bytes of TIn or 1
+template <int VW, bool RESIDENT, class TIn>
 __global__ void __launch_bounds__(MAX_THREADS)
-masked_softmax_kernel(const float* __restrict__ logits,
+masked_softmax_kernel(const TIn* __restrict__ logits,
                       const unsigned char* __restrict__ mask,
                       float* __restrict__ att, int n, int V, int qag, int G) {
+  static_assert(RES % VW == 0 || VW % RES == 0, "a thread holds whole units");
   __shared__ float red_m[MAX_WARPS][MAX_G], out_m[MAX_G];
   __shared__ float red_s[MAX_WARPS][MAX_G], out_s[MAX_G];
   // the resident path's mask: V <= n <= RES * MAX_THREADS
   __shared__ unsigned char smask[RESIDENT ? RES * MAX_THREADS : 1];
   const size_t off = (size_t)blockIdx.x * n;
-  const float* x = logits + off;
+  const TIn* x = logits + off;
   float* o = att + off;
   const unsigned char* mb = mask + (size_t)blockIdx.x * V;
-  const Slice<VW> s(x, n);
+  const Slice<VW, TIn> s(x, n);
   const int tid = threadIdx.x, T = blockDim.x;
   // a unit's floats share a box when boxes start on unit boundaries
   const bool whole = VW == 1 || (qag % VW == 0 && s.head == 0);
@@ -313,11 +355,12 @@ masked_softmax_kernel(const float* __restrict__ logits,
   positions(gpos, s.head, G);
   const int ee = s.edge(tid);
   const int eg = ee >= 0 ? ee % G : -1;
-  float ex = ee >= 0 ? x[ee] : 0.f;
+  float ex = ee >= 0 ? widen(x[ee]) : 0.f;
 
   float acc[VW], m[VW], inv[VW], em, esum;
   if constexpr (RESIDENT) {
-    constexpr int UPT = RES / VW;
+    // whole units: one at least (8 bf16 where RES is below 8)
+    constexpr int UPT = RES >= VW ? RES / VW : 1;
     Pack<VW> px[UPT];
 #pragma unroll
     for (int i = 0; i < UPT; ++i) {
@@ -436,28 +479,52 @@ bool same_phase(const void* a, const void* b) {
   return ((size_t)a & 15) == ((size_t)b & 15);
 }
 
+// the float32 output of a forward whose input has elements of type T: att
+// + e is 16-byte aligned wherever logits + e is, for every sample (the
+// sample offsets cancel: logits and att advance by the same n elements)
+template <class T>
+bool in_phase(const T* logits, const float* att) {
+  return (((size_t)att - (size_t)logits * (4 / sizeof(T))) & 15) == 0;
+}
+
+template <class T>
+int launch_forward(const T* logits, const unsigned char* mask, float* att,
+                   int B, int V, int QA, int G, int device, void* stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  int n = 0, threads = 0;
+  bool resident = false;
+  const int ok = prepare(device, B, V, QA, G, n, threads, resident);
+  if (ok != 0) return ok < 0 ? 0 : ok;
+  const bool vec = in_phase(logits, att);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int qag = QA * G;
+  if (vec && resident)
+    masked_softmax_kernel<VEC, true><<<B, threads, 0, st>>>(logits, mask, att, n, V, qag, G);
+  else if (vec)
+    masked_softmax_kernel<VEC, false><<<B, threads, 0, st>>>(logits, mask, att, n, V, qag, G);
+  else if (resident)
+    masked_softmax_kernel<1, true><<<B, threads, 0, st>>>(logits, mask, att, n, V, qag, G);
+  else
+    masked_softmax_kernel<1, false><<<B, threads, 0, st>>>(logits, mask, att, n, V, qag, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int masked_softmax_vqa_forward(const float* logits,
                                           const unsigned char* mask,
                                           float* att, int B, int V, int QA,
                                           int G, int device, void* stream) {
-  int n = 0, threads = 0;
-  bool resident = false;
-  const int ok = prepare(device, B, V, QA, G, n, threads, resident);
-  if (ok != 0) return ok < 0 ? 0 : ok;
-  const bool vec = same_phase(logits, att);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int qag = QA * G;
-  if (vec && resident)
-    masked_softmax_kernel<4, true><<<B, threads, 0, st>>>(logits, mask, att, n, V, qag, G);
-  else if (vec)
-    masked_softmax_kernel<4, false><<<B, threads, 0, st>>>(logits, mask, att, n, V, qag, G);
-  else if (resident)
-    masked_softmax_kernel<1, true><<<B, threads, 0, st>>>(logits, mask, att, n, V, qag, G);
-  else
-    masked_softmax_kernel<1, false><<<B, threads, 0, st>>>(logits, mask, att, n, V, qag, G);
-  return (int)cudaGetLastError();
+  return launch_forward(logits, mask, att, B, V, QA, G, device, stream);
+}
+
+// logits bf16 (raw 16-bit values), att float32
+extern "C" int masked_softmax_vqa_forward_bf16(const bf16_t* logits,
+                                               const unsigned char* mask,
+                                               float* att, int B, int V,
+                                               int QA, int G, int device,
+                                               void* stream) {
+  return launch_forward(logits, mask, att, B, V, QA, G, device, stream);
 }
 
 extern "C" int softmax_vqa_backward(const float* att, const float* grad,

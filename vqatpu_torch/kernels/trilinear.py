@@ -10,14 +10,16 @@ their wrappers (``vqatpu/kernels/trilinear.py``).
   CUDA source ``csrc/tri_pool.cu``.
 - :func:`masked_softmax_vqa` (K3) replaces ``masked_softmax_vqa_pallas``
   (``vqatpu/kernels/trilinear.py:207-243``): the masked softmax of given
-  logits.  CUDA source ``csrc/softmax_vqa.cu``, which also holds
-  :func:`softmax_vqa_backward`, the softmax VJP that K1's and K3's
-  backwards both begin with.
+  logits, float32 or bf16, into float32.  CUDA source
+  ``csrc/softmax_vqa.cu``, which also holds :func:`softmax_vqa_backward`,
+  the softmax VJP that K1's and K3's backwards both begin with (float32:
+  it reads ``att``).
 
 Under ``compute_dtype="bfloat16"`` K1 takes bf16 ``v_r`` and ``tqa``, and
 K2 bf16 ``vt`` with ``qt``/``at`` bf16 (glimpse 0) or float32 (glimpse 1),
-as JAX's Pallas backend passes them; each has a bf16-operand instance (its
-own launch counter, ``*_bf16``) and computes in float32, with a float32
+as JAX's Pallas backend passes them, and K3 bf16 logits
+(``TriAttention(return_logits=True)``); each has a bf16-operand instance
+(its own launch counter, ``*_bf16``) and computes in float32, with a float32
 output.  The plain versions upcast bf16 operands to float32 first (exact),
 which is the kernels' math.  Any other dtype combination raises.
 
@@ -48,11 +50,12 @@ RANK_SOFTMAX_MAX_QA = 256
 TRI_POOL_MAX_Q = 32
 TRI_POOL_MAX_A = 8
 SOFTMAX_VQA_MAX_G = 8           # glimpses (the configs use 1 and 2)
-SOFTMAX_VQA_MAX_SLICE = 2**31 - 1  # floats of one sample, V*Q*A*G
+SOFTMAX_VQA_MAX_SLICE = 2**31 - 1  # elements of one sample, V*Q*A*G
 
 launches = {"fused_rank_softmax": 0, "trilinear_pool": 0,
             "masked_softmax_vqa": 0, "softmax_vqa_backward": 0,
-            "fused_rank_softmax_bf16": 0, "trilinear_pool_bf16": 0}
+            "fused_rank_softmax_bf16": 0, "trilinear_pool_bf16": 0,
+            "masked_softmax_vqa_bf16": 0}
 _launch_lock = threading.Lock()
 
 
@@ -94,7 +97,9 @@ def masked_softmax_vqa_ref(logits: torch.Tensor,
     """Softmax over (V, Q, A) for each glimpse with masked boxes zeroed
     (``vqatpu/kernels/trilinear.py:163-170``): masked logits become -1e30
     and their exponentials are multiplied by the mask, so a fully masked
-    sample gives zeros."""
+    sample gives zeros.  bf16 logits are upcast first (exact), as the
+    kernel widens them; the result is float32."""
+    logits = logits.float()
     mask5 = v_mask[:, :, None, None, None]
     neg = torch.where(mask5, logits, torch.full_like(logits, NEG_BIG))
     m = neg.amax(dim=(1, 2, 3), keepdim=True)
@@ -189,13 +194,11 @@ def _check_operand(t: torch.Tensor, name: str) -> None:
                         "bfloat16")
 
 
-def _check5(t: torch.Tensor, name: str) -> None:
+def _check5(t: torch.Tensor, name: str, dtypes=(torch.float32,)) -> None:
     if t.dim() != 5:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected [B,V,Q,A,G]")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {torch.float32} "
-                        "(the softmax kernels have no bfloat16 instance yet: "
-                        "ROADMAP queue B)")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
 
 
 def _check_cuda(device: torch.device, **contiguous: torch.Tensor) -> None:
@@ -284,17 +287,18 @@ def _tri_pool_kernel(vt, qt, at, w) -> torch.Tensor:
 def _softmax_vqa_call(fn_name: str, counter: str, names, a: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """Launch one of ``csrc/softmax_vqa.cu``'s kernels: ``a`` [B,V,Q,A,G]
-    float32 and ``b`` (the mask [B,V] or the cotangent [B,V,Q,A,G]) in,
-    one [B,V,Q,A,G] out; ``names`` name ``a`` and ``b`` in errors."""
+    (float32, or bf16 logits) and ``b`` (the mask [B,V] or the cotangent
+    [B,V,Q,A,G]) in, one float32 [B,V,Q,A,G] out; ``names`` name ``a`` and
+    ``b`` in errors."""
     B, V, Q, A, G = a.shape
     dev = a.device
     if G > SOFTMAX_VQA_MAX_G:
         raise ValueError(f"G = {G} exceeds the kernel's {SOFTMAX_VQA_MAX_G}")
     if V * Q * A * G > SOFTMAX_VQA_MAX_SLICE:
         raise ValueError(f"V*Q*A*G = {V * Q * A * G} exceeds the kernel's "
-                         f"{SOFTMAX_VQA_MAX_SLICE} floats a sample")
+                         f"{SOFTMAX_VQA_MAX_SLICE} elements a sample")
     _check_cuda(dev, **dict(zip(names, (a, b))))
-    out = torch.empty_like(a, memory_format=torch.contiguous_format)
+    out = torch.empty(a.shape, dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     fn = getattr(build.load("softmax_vqa"), fn_name)
@@ -305,8 +309,10 @@ def _softmax_vqa_call(fn_name: str, counter: str, names, a: torch.Tensor,
 
 
 def _masked_softmax_kernel(logits, v_mask) -> torch.Tensor:
-    return _softmax_vqa_call("masked_softmax_vqa_forward", "masked_softmax_vqa",
-                             ("logits", "v_mask"), logits, v_mask)
+    sfx = _bf16_suffix(logits)
+    return _softmax_vqa_call("masked_softmax_vqa_forward" + sfx,
+                             "masked_softmax_vqa" + sfx, ("logits", "v_mask"),
+                             logits, v_mask)
 
 
 def _softmax_backward_kernel(att, g) -> torch.Tensor:
@@ -351,18 +357,22 @@ class _TrilinearPool(torch.autograd.Function):
 
 
 class _MaskedSoftmaxVQA(torch.autograd.Function):
-    """K3 with the VJP of ``vqatpu/kernels/trilinear.py:227-243``."""
+    """K3 with the VJP of ``vqatpu/kernels/trilinear.py:227-243``.  The
+    cotangent of bf16 logits comes back in bf16, the primal's dtype (JAX's
+    ``_softmax_bwd`` returns float32: ROADMAP queue C's reference fault)."""
 
     @staticmethod
     def forward(ctx, logits, v_mask):
         att = _masked_softmax_kernel(logits, v_mask)
         ctx.save_for_backward(att)
+        ctx.logits_dtype = logits.dtype
         return att
 
     @staticmethod
     def backward(ctx, g):
         (att,) = ctx.saved_tensors
-        return _softmax_backward_kernel(att, g.contiguous()), None
+        dl = _softmax_backward_kernel(att, g.contiguous())
+        return dl.to(ctx.logits_dtype), None
 
 
 # ---------------------------------------------------------------------------
@@ -421,12 +431,13 @@ def trilinear_pool(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
 
 def masked_softmax_vqa(logits: torch.Tensor,
                        v_mask: torch.Tensor) -> torch.Tensor:
-    """att [B,V,Q,A,G] = the softmax of ``logits`` over (V,Q,A) per glimpse,
-    masked boxes zeroed (a fully masked sample gives zeros).
+    """att [B,V,Q,A,G] float32 = the softmax of ``logits`` over (V,Q,A) per
+    glimpse, masked boxes zeroed (a fully masked sample gives zeros).
 
-    ``logits`` [B,V,Q,A,G] float32, ``v_mask`` [B,V] bool; on CUDA both
-    contiguous and G <= 8 (any alignment)."""
-    _check5(logits, "logits")
+    ``logits`` [B,V,Q,A,G] float32 or bfloat16, ``v_mask`` [B,V] bool; on
+    CUDA both contiguous and G <= 8 (any alignment).  The gradient of bf16
+    logits is bf16."""
+    _check5(logits, "logits", (torch.float32, torch.bfloat16))
     B, V = logits.shape[:2]
     dev = logits.device
     _check(v_mask, "v_mask", (B, V), torch.bool, dev)

@@ -6,7 +6,9 @@ features, ``q`` [B, Q] and ``a`` [B, A] token ids, an optional ``v_mask``
 no dropout), and returns ``(logits [B, num_classes], att [B, V, Q, A,
 G])``.  Dropout sites fire in the order of
 ``vqatpu/models/ffoe.py:241-325``.  The blockwise large-V path,
-``fused_v_tucker`` and ``remat_glimpse`` are not ported yet.
+``fused_v_tucker`` and ``remat_glimpse`` are not ported yet: a
+``v_block_size`` below the box count raises (JAX's blockwise path returns
+no attention, ``:357``).
 
 With bf16 parameters and a bf16 ``v`` (``compute_dtype="bfloat16"``) the
 dtypes follow JAX's Pallas backend: the GRU states, the rank projections
@@ -61,6 +63,12 @@ class CTIModel(nn.Module):
     def forward(self, v: torch.Tensor, q: torch.Tensor, a: torch.Tensor,
                 v_mask: Optional[torch.Tensor] = None,
                 ctx: Optional[Ctx] = None):
+        block = self.cfg.v_block_size
+        if block > 0 and v.shape[1] > block:
+            raise NotImplementedError(
+                f"v_block_size={block} with {v.shape[1]} boxes selects JAX's "
+                "blockwise path, which returns no attention; it is not "
+                "ported (ROADMAP queue A item 8)")
         if v_mask is None:
             v_mask = box_mask_from_features(v)
         q_state = self.q_emb(self.w_emb(q, ctx))       # [B, Q, H]

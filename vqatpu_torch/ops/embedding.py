@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,6 +32,22 @@ class WordEmbedding(nn.Module):
         t = torch.randn(ntoken + 1, emb_dim)  # nn.Embedding default N(0, 1)
         t[-1] = 0.0
         return t
+
+    def pretrained_tables(self, weight_init) -> dict:
+        """The tables with the GloVe matrix ``weight_init`` [ntoken, emb_dim]
+        in their first ``ntoken`` rows and the pad row as it is, as numpy
+        copies: ``emb`` and, with the concat, ``emb_`` (``load_pretrained``
+        without tf-idf, ``vqatpu/ops/embedding.py:55-83``)."""
+        w = np.asarray(weight_init, np.float32)
+        if w.shape != (self.ntoken, self.emb.shape[1]):
+            raise ValueError(f"GloVe init of shape {w.shape}, expected "
+                             f"{(self.ntoken, self.emb.shape[1])}")
+        tables = {}
+        for name in ("emb", "emb_") if self.cat else ("emb",):
+            t = getattr(self, name).detach().cpu().numpy().copy()
+            t[:self.ntoken] = w
+            tables[name] = t
+        return tables
 
     @property
     def out_dim(self) -> int:

@@ -1,7 +1,9 @@
 """Training (counterpart of ``vqatpu.train``): the train and eval steps and
-the optimizer.  The epoch loop, checkpoint saving and the training CLI
-(``train/loop.py``, ``train/checkpoints.py``, ``cli/ffoe_train.py``) wait
-for the data and eval port (ROADMAP queue A item 4)."""
+the optimizer, exported here; the epoch loop (:mod:`vqatpu_torch.train.
+loop`, ``train()``), checkpoints that either package resumes
+(:mod:`vqatpu_torch.train.checkpoints`) and ``log.txt``'s logger
+(:mod:`vqatpu_torch.train.logging`), which ``python -m
+vqatpu_torch.cli.ffoe_train`` drives."""
 
 from vqatpu_torch.train.optim import (Adamax, clip_flat_grads,
                                       global_grad_norm, lr_for_epoch)

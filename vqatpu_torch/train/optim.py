@@ -34,6 +34,7 @@ class Adamax:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.state_dtype = state_dtype
         self.count = 0  # updates taken, on the host: no readback needed
+        self.lr: Union[float, torch.Tensor] = 1e-3  # the last step's
         dt = state_dtype
         self.m = [torch.zeros_like(p, dtype=dt or p.dtype) for p in self.params]
         self.u = [torch.zeros_like(p, dtype=dt or p.dtype) for p in self.params]
@@ -42,6 +43,7 @@ class Adamax:
     def step(self, grads: Sequence[torch.Tensor],
              lr: Union[float, torch.Tensor]) -> None:
         self.count += 1
+        self.lr = lr
         b1, b2 = self.b1, self.b2
         bias_corr = 1.0 - b1 ** self.count
         if self.state_dtype is None:

@@ -12,7 +12,8 @@
 - :func:`load_jax_params` loads such a tree strictly: a leaf left unused, a
   parameter left unset or a shape that differs raises.
 - :func:`load_params_file` reads a ``model_epoch{N}.ckpt`` or a
-  ``save_params`` file without importing JAX.
+  ``save_params`` file without importing JAX; :func:`load_pickle` reads a
+  whole checkpoint, its optimizer state's NamedTuples as stand-ins.
 - :func:`numpy_params` and :func:`numpy_batch` make seeded CTI weights (in
   the JAX tree layout) and inputs with numpy, so both packages can be fed
   the same numbers.
@@ -22,6 +23,7 @@
 
 from __future__ import annotations
 
+import collections
 import pickle
 from typing import Dict
 
@@ -97,9 +99,9 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
 
 
 class _Inert:
-    """Stands in for every class a checkpoint names outside numpy's arrays
-    and plain containers: the optimizer state's optax and
-    ``vqatpu.train.optim`` NamedTuples, which would otherwise import JAX."""
+    """Stands in for every class a checkpoint names outside numpy's arrays,
+    plain containers and the optimizer state's NamedTuples
+    (:data:`STATE_TUPLES`), which would otherwise import JAX."""
 
     def __new__(cls, *args, **kwargs):
         return object.__new__(cls)
@@ -110,6 +112,22 @@ class _Inert:
     def __setstate__(self, state):
         pass
 
+
+# the NamedTuples of a ``vqatpu`` checkpoint's ``opt_state`` (optax's and
+# ``vqatpu.train.optim.AdamaxState``), by class name, with their fields in
+# order; the unpickler builds stand-ins with the same fields, so the tree
+# reads without optax or JAX
+STATE_TUPLES = {
+    "InjectHyperparamsState": ("count", "hyperparams", "inner_state"),
+    "InjectStatefulHyperparamsState": ("count", "hyperparams",
+                                       "hyperparams_states", "inner_state"),
+    "MaskedState": ("inner_state",),
+    "MaskedNode": (),
+    "EmptyState": (),
+    "AdamaxState": ("count", "m", "u"),
+}
+_STAND_INS = {name: collections.namedtuple(name, fields)
+              for name, fields in STATE_TUPLES.items()}
 
 _NUMPY_NAMES = {"_reconstruct", "_frombuffer", "ndarray", "dtype", "scalar"}
 _BUILTIN_NAMES = {"dict", "list", "tuple", "set", "frozenset", "int",
@@ -124,14 +142,30 @@ class _ParamsUnpickler(pickle.Unpickler):
                 or (module == "builtins" and name in _BUILTIN_NAMES)
                 or module == "collections"):
             return super().find_class(module, name)
+        if root in ("optax", "vqatpu") and name in _STAND_INS:
+            return _STAND_INS[name]
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            try:  # a bfloat16 optimizer state; numpy has no bf16 of its own
+                return super().find_class(module, name)
+            except ImportError:
+                raise ValueError("the checkpoint holds bfloat16 arrays, which "
+                                 "need the ml_dtypes package") from None
         return _Inert
+
+
+def load_pickle(path: str):
+    """A ``vqatpu`` or port pickle (checkpoint, params file), read without
+    JAX or optax: numpy arrays, builtins, the optimizer state's NamedTuples
+    as stand-ins (:data:`STATE_TUPLES`) and inert objects for anything
+    else."""
+    with open(path, "rb") as f:
+        return _ParamsUnpickler(f).load()
 
 
 def load_params_file(path: str) -> dict:
     """The param tree of a ``vqatpu`` checkpoint (``{"params": ...,
     "opt_state": ...}``) or ``save_params`` file (``{"params": ...}``)."""
-    with open(path, "rb") as f:
-        payload = _ParamsUnpickler(f).load()
+    payload = load_pickle(path)
     return payload["params"] if "params" in payload else payload
 
 
