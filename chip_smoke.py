@@ -5,7 +5,12 @@ Run from the repository root: ``python3 chip_smoke.py``.  Phases, none of
 them caught, so any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build the CUDA kernels from ``vqatpu_torch/kernels/csrc`` (``nvcc``);
+2. build the CUDA kernels from ``vqatpu_torch/kernels/csrc`` (``nvcc``),
+   with copies of K1's and K2's sources whose bf16 entry points run the PR
+   5 design (f32 FMAs on the CUDA cores; for phase 4d), all at once; check
+   that ``ptxas`` spills nothing in the tensor-core kernels and that
+   ``cuobjdump -sass`` finds HMMA (tensor-core) instructions in every bf16
+   instance of K1 and K2 and none in their float32 instances;
 3. hold each kernel against its plain PyTorch version on the card, at the
    inputs the full-width CTI model gives it at batch 1 and 128 (V=50, 44
    real boxes, the last row fully masked), on ragged large-V inputs, and
@@ -52,12 +57,14 @@ phases:
 3b. the bf16-operand instances of K1 and K2 against their plain versions:
     the full-width bf16 model's inputs at batch 1, 128 and 256 (K2 at
     glimpse 0, all bf16, and at glimpse 1, bf16 ``vt`` with float32 ``qt``
-    and ``at``), the tiles' edges, misaligned operands (refused), and the
+    and ``at``), the tiles' edges, ragged V=2048 and R*X that ends inside
+    a chunk (K1), Q=20, A=5 (K2's multi-pass instance), misaligned
+    operands (refused), and the
     ``autograd.Function``s' forwards and gradients, which come back in the
     primals' dtypes;
 4d. their times at B=128 and 256, single call and back to back, beside
-    the bound for bf16 operands and bf16 yardsticks (``bmm`` + masked
-    softmax, the einsum chain);
+    the bound for bf16 operands, bf16 yardsticks (``bmm`` + masked
+    softmax, the einsum chain) and the CUDA-core design on the same inputs;
 5b. serving at ``compute_dtype="bfloat16"``, held to JAX's Pallas-backend
     bf16 golden ``tests/data/torch_cti_golden_bf16.npz`` and to the budget
     against the float32 golden; serving on the float16, bfloat16 and int8
@@ -404,6 +411,26 @@ def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> None:
     tmp.cleanup()
 
 
+def sass_hmma(lib: Path) -> dict:
+    """Each kernel of the built library ``lib`` and its number of HMMA
+    (tensor-core) instructions, from ``cuobjdump -sass``."""
+    from vqatpu_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHMMA\b", line):
+            counts[fn] += 1
+    if not any("mma_kernel" in fn for fn in counts):
+        raise SystemExit(f"cuobjdump found no tensor-core kernel in {lib}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -411,7 +438,7 @@ def main() -> int:
 
     from vqatpu_torch.config import ModelConfig
     from vqatpu_torch.data import Dictionary
-    from vqatpu_torch.kernels import build
+    from vqatpu_torch.kernels import build, probe
     from vqatpu_torch.kernels import trilinear as K
     from vqatpu_torch.kernels.timing import (copies_for, sleep_cycles_per_ms,
                                              time_back_to_back_ms, time_ms)
@@ -441,13 +468,46 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 2. build ---------------------------------------------------------
+    # the shipped sources and, for phase 4d, copies of K1's and K2's with
+    # the bf16 entry points routed to the CUDA-core design, all nvcc at once
     t0 = time.perf_counter()
+    cuda_core = {}
+    copies = {
+        "k1_cuda_core_design": probe.edited(
+            (build.CSRC / "rank_softmax.cu").read_text(), probe.K1_CUDA_CORES),
+        "k2_cuda_core_design": probe.edited(
+            (build.CSRC / "tri_pool.cu").read_text(), probe.K2_CUDA_CORES)}
+    cuda_core_build = threading.Thread(
+        target=lambda: cuda_core.update(probe.build_all(copies)))
+    cuda_core_build.start()
     outputs = build.build(build.SOURCES, ptxas_info=True)
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(outputs)}")
+    cuda_core_build.join()
+    if len(cuda_core) != 2:
+        raise SystemExit("the CUDA-core design's copies did not build")
+    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(outputs)} and "
+          f"the CUDA-core design's K1 and K2")
     for name, out in outputs.items():
+        fn = None
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                              line)
+            if spill and fn and "mma_kernel" in fn and spill.groups() != ("0", "0"):
+                raise SystemExit(f"{fn} spills: {line.strip()}")
+    # the bf16 instances run on the tensor cores (HMMA), the float32 ones
+    # never do
+    for name in ("rank_softmax", "tri_pool"):
+        for fn, n_hmma in sass_hmma(build.library_path(name)).items():
+            on_tc = "mma_kernel" in fn
+            print(f"  {name}: {n_hmma} HMMA in {fn}")
+            if on_tc != (n_hmma > 0):
+                raise SystemExit(f"{fn}: {n_hmma} HMMA instructions; the bf16 "
+                                 "instances need them, the float32 ones must "
+                                 "have none")
 
     # -- 3. kernels against their plain versions --------------------------
     cfg = ModelConfig(**CFG)
@@ -481,26 +541,26 @@ def main() -> int:
     def k2_of(d):
         return d["vt"], d["qt"], d["at"], d["att"][..., 0]
 
-    def ragged_inputs(b: int, v_len: int, seed: int, G: int = 2, D: int = 1024):
+    def ragged_inputs(b: int, v_len: int, seed: int, G: int = 2, D: int = 1024,
+                      q_: int = Q, a_: int = A, R: int = 32, X: int = 16):
         """Random inputs of K1, K2 and K3 with ragged box counts; with b > 1
         the last sample is fully masked, with b = 1 all its boxes are real."""
         g = torch.Generator().manual_seed(seed)
-        R, X = 32, 16
         lens = torch.randint(1, v_len + 1, (b,), generator=g)
         if b == 1:
             lens[0] = v_len
         mask = torch.arange(v_len)[None] < lens[:, None]
         mask[-1] &= b == 1
         v_r = torch.randn(b, v_len, R, X, generator=g)
-        tqa = torch.randn(b, Q, A, R, X, G, generator=g) / (R * X) ** 0.5
-        att = torch.rand(b, v_len, Q, A, G, generator=g)
+        tqa = torch.randn(b, q_, a_, R, X, G, generator=g) / (R * X) ** 0.5
+        att = torch.rand(b, v_len, q_, a_, G, generator=g)
         pool = [t.to(dev) for t in (torch.randn(b, v_len, D, generator=g),
-                                    torch.randn(b, Q, D, generator=g),
-                                    torch.randn(b, A, D, generator=g))]
+                                    torch.randn(b, q_, D, generator=g),
+                                    torch.randn(b, a_, D, generator=g))]
         # one glimpse of the attention, strided, as the model passes it
         att = att.to(dev)
         pool.append(att[..., -1])
-        logits = 3 * torch.randn(b, v_len, Q, A, G, generator=g)
+        logits = 3 * torch.randn(b, v_len, q_, a_, G, generator=g)
         return ([t.to(dev) for t in (v_r, tqa, mask)], pool,
                 (logits.to(dev), mask.to(dev)), att)
 
@@ -755,6 +815,21 @@ def main() -> int:
         check_k2(f"bf16 edge B={n} V={v_edge} D={d_edge}", to_bf16(k2_edge, 3))
         check_k2(f"bf16 edge B={n} V={v_edge} D={d_edge} (qt, at f32)",
                  to_bf16(k2_edge, 1))
+    # the tensor-core instances' reach: ragged V=2048 for K1 (32 V tiles of
+    # 64 rows, the logits parked in att) and R*X that ends 8 or 40 columns
+    # into its last 64-column chunk (520 = 8 x 65, 104 = 8 x 13); Q=20, A=5
+    # for K2 (its multi-pass instance, 6 question tokens a pass)
+    k2_wide = ragged_inputs(2, V, seed=70, q_=20, a_=5)[1]
+    errs16["edges"] = (
+        max(check_k1("bf16 ragged V=2048", to_bf16(ragged_inputs(4, 2048, seed=1)[0])),
+            check_k1("bf16 edge B=2 V=57 G=2 R*X=520",
+                     to_bf16(ragged_inputs(2, 57, seed=71, R=65, X=8)[0])),
+            check_k1("bf16 edge B=2 V=65 G=1 R*X=104",
+                     to_bf16(ragged_inputs(2, 65, seed=72, G=1, R=13, X=8)[0]))),
+        max(check_k2("bf16 edge B=2 V=50 Q=20 A=5", to_bf16(k2_wide, 3)),
+            check_k2("bf16 edge B=2 V=50 Q=20 A=5 (qt, at f32)",
+                     to_bf16(k2_wide, 1))))
+    del k2_wide
     # 8 bf16 a thread in one 16-byte load: the resident limits are the
     # float32 kernel's (113 boxes at G=2, 227 at G=1, 71 at G=3); 7*5*3
     # bf16 are no whole number of 16-byte units; a shift of 1 or 3 bf16
@@ -804,14 +879,17 @@ def main() -> int:
         return tuple(x.detach().clone().requires_grad_(x.requires_grad)
                      for x in args)
 
-    def timed(name, label, fns, args, nbytes, flops, row=None, peak_ops=None):
+    def timed(name, label, fns, args, nbytes, flops, row=None, peak_ops=None,
+              earlier=None):
         """Times of the kernel, its plain version and the library yardstick
         (``fns``, each called on ``args``) beside the card's bound: each as
         a single call, and the kernel and the yardstick back to back over
         rotating copies of ``args`` (``b2b``, no launch or event floor);
         with ``row`` = (source, replaces, err), the kernel's row of the
         JSON line.  ``peak_ops`` is the peak of the operations' type (f32
-        CUDA cores by default)."""
+        CUDA cores by default).  ``earlier``, an earlier design of the
+        kernel called on the same ``args``, is timed both ways too, beside
+        it (``cuda_core_ms``, ``cuda_core_b2b_ms``)."""
         t_bytes = nbytes / peak_bw * 1e3
         t_flops = flops / (peak_ops or peak_f32) * 1e3
         (ms, host), (plain_ms, plain_host), (lib_ms, lib_host) = (
@@ -822,17 +900,26 @@ def main() -> int:
         b2b, lib_b2b = (time_back_to_back_ms(
             [lambda f=f, c=c: f(*c) for c in calls], cycles_per_ms)
             for f in (fns[0], fns[2]))
+        if earlier is not None:
+            cuda_core_ms, _ = time_ms(lambda: earlier(*args), flush, cycles_per_ms)
+            cuda_core_b2b = time_back_to_back_ms(
+                [lambda c=c: earlier(*c) for c in calls], cycles_per_ms)
         del copies, calls
         r = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_flops),
              "bound_by": "bytes" if t_bytes >= t_flops else "operations",
              "library_ms": lib_ms, "b2b_ms": b2b, "library_b2b_ms": lib_b2b}
+        if earlier is not None:
+            r.update(cuda_core_ms=cuda_core_ms, cuda_core_b2b_ms=cuda_core_b2b)
         print(f"{name} {label}: {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} "
               f"us, library {lib_ms * 1e3:.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP); host enqueue "
               f"{host * 1e3:.1f} / {plain_host * 1e3:.1f} / "
               f"{lib_host * 1e3:.1f} us; b2b {b2b * 1e3:.2f} us, library b2b "
-              f"{lib_b2b * 1e3:.2f} us ({n_copies} input copies)")
+              f"{lib_b2b * 1e3:.2f} us ({n_copies} input copies)"
+              + ("" if earlier is None else
+                 f"; the CUDA-core design {cuda_core_ms * 1e3:.1f} us, b2b "
+                 f"{cuda_core_b2b * 1e3:.2f} us"))
         if row is None:
             return r
         src, line, err = row
@@ -953,24 +1040,45 @@ def main() -> int:
                  max(e[1] for e in errs3.values()))))
 
         # -- 4d. the bf16 instances at B=128 and B=256 --------------------
+        def k1_cuda_cores(v_r, tqa, mask, keep):
+            """K1 bf16 of the CUDA-core design (f32 FMAs on the CUDA
+            cores), a bare launch of its copy built in phase 2."""
+            B_, V_, R_, X_ = v_r.shape
+            G_ = tqa.shape[-1]
+            out = torch.empty((B_, V_, Q, A, G_), device=dev)
+            assert cuda_core["k1_cuda_core_design"].rank_softmax_forward_bf16(
+                v_r.data_ptr(), tqa.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                B_, V_, R_ * X_, QA, G_, 0, K._stream(dev)) == 0
+            return out
+
+        def k2_cuda_cores(vt, qt, at, w):
+            """K2 bf16 of the CUDA-core design, a bare launch of its copy."""
+            out = torch.empty((vt.shape[0], vt.shape[2]), device=dev)
+            assert cuda_core["k2_cuda_core_design"].tri_pool_forward_bf16(
+                vt.data_ptr(), qt.data_ptr(), at.data_ptr(), w.data_ptr(),
+                *w.stride(), out.data_ptr(), *vt.shape[:2], Q, A, vt.shape[2],
+                int(qt.dtype == bf16), 0, K._stream(dev)) == 0
+            return out
+
         def time_forwards_bf16(d_, label, rows=None):
             """As time_forwards, for the bf16 instances: bounds with bf16
             bytes and the bf16 tensor cores' peak (the least time the card
-            could take for the same work; the kernels run f32 FMAs on the
-            CUDA cores), bf16 yardsticks; K2 at both glimpses."""
+            could take for the same work), bf16 yardsticks, and the CUDA-core
+            design on the same inputs; K2 at both glimpses."""
             k1_args = k1_of(d_) + (d_["mask"].repeat_interleave(QA, 1)[..., None],)
             out = [timed("fused_rank_softmax_bf16", label,
                          (lambda v, t, m, k: K.fused_rank_softmax(v, t, m),
                           lambda v, t, m, k: K.fused_rank_softmax_ref(v, t, m),
                           k1_library), k1_args, *k1_cost(*k1_args),
                          row=None if rows is None else rows[0],
-                         peak_ops=peak_bf16)]
+                         peak_ops=peak_bf16, earlier=k1_cuda_cores)]
             for g_, args, row in ((0, k2_of(d_), None if rows is None else rows[1]),
                                   (1, k2_glimpse1(d_), None)):
                 out.append(timed(
                     "trilinear_pool_bf16", f"{label} glimpse {g_}",
                     (K.trilinear_pool, K.trilinear_pool_ref, k2_einsum_in(bf16)),
-                    args, *k2_cost(*args), row=row, peak_ops=peak_bf16))
+                    args, *k2_cost(*args), row=row, peak_ops=peak_bf16,
+                    earlier=k2_cuda_cores))
             return out
 
         d16 = path_inputs_bf16(128, seed=148, pad_row=True)
@@ -1597,10 +1705,13 @@ def main() -> int:
         print(averages.table(sort_by="self_device_time_total", row_limit=10))
         on_card = [e for e in averages if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / prof_steps
-        own = {name: sum(e.self_device_time_total for e in on_card
-                         if name in e.key) / 1e3 / prof_steps
-               for name in ("rank_softmax_kernel", "tri_pool_kernel",
-                            "softmax_backward_kernel")}
+        # K1's and K2's float32 kernels, or their tensor-core bf16 ones
+        kernels = {"rank_softmax": ("rank_softmax_kernel", "rank_softmax_mma_kernel"),
+                   "tri_pool": ("tri_pool_kernel", "tri_pool_mma_kernel"),
+                   "softmax_backward": ("softmax_backward_kernel",)}
+        own = {label: sum(e.self_device_time_total for e in on_card
+                          if any(n in e.key for n in names)) / 1e3 / prof_steps
+               for label, names in kernels.items()}
         print(f"profiled step, {label}: {busy_ms:.3f} ms of kernels on the "
               f"card, {busy_ms / step_ms:.1%} of the {step_ms:.3f} ms median "
               f"step (idle {1 - busy_ms / step_ms:.1%}); the port's CUDA "

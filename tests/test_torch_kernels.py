@@ -23,8 +23,11 @@ from vqatpu.kernels.trilinear import (_masked_softmax_pallas_vjp, _softmax_bwd,
                                       masked_softmax_vqa_xla,
                                       trilinear_attention as jax_tri_attention,
                                       trilinear_pool_pallas, trilinear_pool_xla)
+from vqatpu_torch.config import ModelConfig
 from vqatpu_torch.kernels import build
 from vqatpu_torch.kernels import trilinear as K
+from vqatpu_torch.models import build_model
+from vqatpu_torch.weights import numpy_batch, numpy_params, torch_state_from_jax
 
 # tests/test_kernels.py fixture shapes
 B, Q, A, R, X, G, D = 2, 12, 3, 4, 8, 2, 32
@@ -595,6 +598,62 @@ def test_trilinear_pool_bf16_matches_pallas(rng, V, b, d, qa_dtype):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4 * scale)
 
 
+SMALL = dict(ntoken=50, v_dim=32, num_ans_candidates=17, model="cti",
+             num_hid=32, h_mm=16, rank=4, gamma=2)  # tests/test_models.py
+
+
+@pytest.mark.parametrize("seed", [3, 5])
+def test_split_bf16x3_reconstructs_the_bf16_forwards_attention(seed):
+    """The three bf16 terms of every attention weight of the port's bf16
+    forward (small width, JAX's weights carried across by
+    ``torch_state_from_jax``) add up to the weight bit for bit, so the
+    tensor-core K2 multiplies the float32 ``w`` without rounding it; the
+    third term is needed (two leave some weights short)."""
+    cfg = ModelConfig(**SMALL)
+    model = build_model(cfg)
+    model.load_state_dict(torch_state_from_jax(numpy_params(cfg, seed=seed)))
+    batch = numpy_batch(cfg, 2, seed=seed + 1, boxes=8, real_boxes=6)
+    with torch.inference_mode():
+        _, att = model.to(torch.bfloat16).eval()(
+            torch.from_numpy(batch["v"]).to(torch.bfloat16),
+            *(torch.from_numpy(batch[k]) for k in "qa"))
+    assert att.dtype == torch.float32 and att.shape[-1] == SMALL["gamma"]
+    w0, w1, w2 = K.split_bf16x3(att)
+    assert {w.dtype for w in (w0, w1, w2)} == {torch.bfloat16}
+    assert torch.equal((w0.float() + w1.float()) + w2.float(), att)
+    assert not torch.equal(w0.float() + w1.float(), att)
+
+
+@pytest.mark.parametrize("qa_dtype", ["bfloat16", "float32"],
+                         ids=["glimpse0-bf16", "glimpse1-mixed"])
+@pytest.mark.parametrize("V,b,d", [pytest.param(10, B, D, id="10"),
+                                   pytest.param(293, B, D, id="293")]
+                         + K2_EDGES)
+def test_three_term_pool_matches_pallas(rng, V, b, d, qa_dtype):
+    """The pool as the tensor-core K2 computes it: ``w`` as its three bf16
+    terms (:func:`split_bf16x3`), each product bf16 x bf16 (exact in
+    float32), every sum float32, V first; against the Pallas kernel on the
+    same operands (interpret mode, bf16 ``vt``), within K2's tolerance of
+    2e-4 of the largest output."""
+    vt, qt, at, _ = pool_inputs(rng, V, b, d)
+    att = rng.rand(b, V, Q, A, G).astype(np.float32)
+    jvt, tvt = bf16_pair(vt)
+    if qa_dtype == "bfloat16":
+        (jqt, tqt), (jat, tat) = bf16_pair(qt), bf16_pair(at)
+    else:
+        (jqt, jat), (tqt, tat) = map(jnp.asarray, (qt, at)), t(qt, at)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(trilinear_pool_pallas(jvt, jqt, jat,
+                                                jnp.asarray(att)[..., 1]))
+    terms = K.split_bf16x3(torch.from_numpy(att)[..., 1])
+    wv = sum(torch.einsum("bvqa,bvd->bqad", wk.float(), tvt.float())
+             for wk in terms)
+    m = torch.einsum("bqad,bqd->bad", wv, tqt.float())
+    got = torch.einsum("bad,bad->bd", m, tat.float())
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4 * scale)
+
+
 def assert_bf16_close(got: torch.Tensor, want: np.ndarray):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_REL,
                                atol=BF16_REL * np.abs(want).max())
@@ -720,7 +779,9 @@ def test_bf16_copies_need_8_element_rows():
 @pytest.mark.cuda
 @pytest.mark.parametrize("V,n_real,b,g", [
     pytest.param(50, 44, B, G, id="50-44"),
-    pytest.param(2048, 1999, B, G, id="2048-1999")] + K1_EDGES)
+    pytest.param(2048, 1999, B, G, id="2048-1999"),
+    pytest.param(2048, 1999, B, 1, id="2048-1999-G1"),
+    pytest.param(2048, 1999, B, 3, id="2048-1999-G3")] + K1_EDGES)
 def test_cuda_rank_softmax_bf16_matches_plain(rng, cuda, V, n_real, b, g):
     v_r, q_r, a_r, T, mask = attention_inputs(rng, V, n_real, b, g)
     mask[-1] &= b == 1
@@ -781,5 +842,24 @@ def test_cuda_tri_pool_bf16_matches_plain(rng, cuda, V, b, d, qa_dtype):
     got = K.trilinear_pool(vt, qt, at, w[..., 1])
     assert K.launches["trilinear_pool_bf16"] == 1
     want = K.trilinear_pool_ref(vt, qt, at, w[..., 1])
+    torch.testing.assert_close(got, want, rtol=2e-4,
+                               atol=2e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qa_dtype", [torch.bfloat16, torch.float32],
+                         ids=["glimpse0-bf16", "glimpse1-mixed"])
+def test_cuda_tri_pool_bf16_multi_pass_matches_plain(rng, cuda, qa_dtype):
+    """Q=20, A=5: the bf16 K2's multi-pass instance (6 question tokens a
+    pass), against its plain version."""
+    b, V, q, a, d = 2, 50, 20, 5, 264
+    vt = torch.from_numpy(rng.randn(b, V, d).astype(np.float32)).to(cuda, torch.bfloat16)
+    qt, at = (torch.from_numpy(rng.randn(b, n, d).astype(np.float32)).to(cuda, qa_dtype)
+              for n in (q, a))
+    w = torch.from_numpy(rng.rand(b, V, q, a, G).astype(np.float32)).to(cuda)
+    K.reset_launches()
+    got = K.trilinear_pool(vt, qt, at, w[..., 0])
+    assert K.launches["trilinear_pool_bf16"] == 1
+    want = K.trilinear_pool_ref(vt, qt, at, w[..., 0])
     torch.testing.assert_close(got, want, rtol=2e-4,
                                atol=2e-4 * want.abs().max().item())

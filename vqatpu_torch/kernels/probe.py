@@ -1,22 +1,28 @@
 """Where K1's and K2's time goes on one CUDA card, and how designs next to
-theirs and to those of ``csrc/softmax_vqa.cu`` compare.  Run from the repository root on a machine with the card:
-``python3 -m vqatpu_torch.kernels.probe``.  Prints its findings; it is not
-part of ``chip_smoke.py``'s checks.
+theirs and to those of ``csrc/softmax_vqa.cu`` compare.  Run from the
+repository root on a machine with the card: ``python3 -m
+vqatpu_torch.kernels.probe``.  Prints its findings; it is not part of
+``chip_smoke.py``'s checks.
 
-1. K1's timeline: a copy of ``csrc/rank_softmax.cu`` that records
-   ``clock64`` on block 0's first thread at the kernel's start, after the
-   first ring stages are requested, when each RX chunk has landed and when
-   its FMAs are done, and at the epilogue's steps, at B=1 and B=128 with
-   the model's shapes.  Cycles become µs by ``%globaltimer`` over the
-   same span.
-2. Variants: copies of ``csrc/rank_softmax.cu`` and ``csrc/tri_pool.cu``
-   with one constant changed (ring depth, chunk, rows per stage, threads
-   per block), built side by side and timed with the shipped kernels on
-   the same inputs (cold L2, as ``chip_smoke.py`` times), each checked
-   against the plain version first.  Copies of ``csrc/softmax_vqa.cu``
-   with another number of floats a thread (and so of threads a block),
-   timed the same way and back to back over input copies that exceed the
-   L2, forward (K3) and backward.
+1. Timelines: copies of ``csrc/rank_softmax.cu`` and ``csrc/tri_pool.cu``
+   that record ``clock64`` on block 0's first thread at a kernel's steps
+   (K1: the first ring stages requested, each RX chunk landed and
+   multiplied, the epilogue's steps; K2: operands landed, w split,
+   products, each step done), K1 at B=1 and B=128 and K2 at B=128 with
+   the model's shapes, for the float32 kernels, the CUDA-core design of
+   the bf16 instances (their entry points routed back to the float32
+   templates: ``K1_CUDA_CORES``, ``K2_CUDA_CORES``) and the tensor-core
+   ones (K1 with its TMA ring and with 16-byte ``cp.async``).  Cycles
+   become µs by ``%globaltimer`` over the same span.
+2. Variants: copies of the two sources with one constant changed (ring
+   depth, chunk, rows per stage, warps, d spans a block, step buffers,
+   the copies, the exponential), built side by side and timed with the
+   shipped kernels and the CUDA-core design on the same inputs (cold L2, as
+   ``chip_smoke.py`` times), float32 and bf16 instances at B=1, 128 and
+   256, each checked against the plain version first.  Copies of
+   ``csrc/softmax_vqa.cu`` with another number of floats a thread (and
+   so of threads a block), timed the same way and back to back over
+   input copies that exceed the L2, forward (K3) and backward.
 3. The floor of that timing: a launch that does no work (a 4-byte
    ``zero_``), timed the same way, and timed back to back (many launches
    between two events, :func:`~vqatpu_torch.kernels.timing.time_back_to_back_ms`),
@@ -92,7 +98,93 @@ TIMELINE = [
      "  STAMP(42);\n  // normalise: from registers, or rereading the parked logits\n"),
 ]
 KERNEL_END = "\ntemplate <typename T, int GG, bool CONTIG>\ncudaError_t launch("
-
+# K2's stamps: 0 start, 1 the V loop done, 2 the qt epilogue done, 3 the
+# output written
+K2_TIMELINE = [
+    ("namespace {\n", STAMPS + "namespace {\n"),
+    ("  const int b = blockIdx.x;\n",
+     "  STAMP(0);\n  STAMP_NS(0);\n  const int b = blockIdx.x;\n"),
+    ("    if (d < D) {\n#pragma unroll\n      for (int jj = 0; jj < NQ; ++jj) {\n",
+     "    STAMP(1);\n"
+     "    if (d < D) {\n#pragma unroll\n      for (int jj = 0; jj < NQ; ++jj) {\n"),
+    ("  if (d < D) {\n    float2 o = make_float2(0.f, 0.f);\n",
+     "  STAMP(2);\n  if (d < D) {\n    float2 o = make_float2(0.f, 0.f);\n"),
+]
+K2_KERNEL_END = ("\ntemplate <typename TV, typename TQ, int NQ, int NA, bool ONE_PASS>"
+                 "\ncudaError_t launch(")
+# the CUDA-core design of the bf16 instances: the _bf16 entry points
+# routed back to the float32 templates, instantiated at bf16 (f32 FMAs on
+# the CUDA cores, operands widened in registers)
+K1_CUDA_CORES = [("  return forward_mma(v_r, tqa, mask, att, B, V, RX, QA, G, device, stream);",
+           "  return forward(v_r, tqa, mask, att, B, V, RX, QA, G, device, stream);")]
+K2_CUDA_CORES = [("    return forward_mma(vt, (const __nv_bfloat16*)qt",
+           "    return forward(vt, (const __nv_bfloat16*)qt"),
+          ("  return forward_mma(vt, (const float*)qt", "  return forward(vt, (const float*)qt")]
+# the tensor-core K1's stamps: 0 start, 1 first stages requested, 2+2c
+# chunk c landed (and the next requested), 3+2c its MMAs done, 40 loop
+# done, 41 masked and the thread's max, 44 the warps' maxima exchanged
+# (every warp past its products), 45 the exponentials, 42 block sums
+# done, 43 normalised
+K1_MMA_TIMELINE = [
+    ("namespace {\n", STAMPS + "namespace {\n"),
+    ("  const int g0 = blockIdx.y * GG;\n  const int tid = threadIdx.x;\n"
+     "  const int nthreads = blockDim.x;\n  const int warp = tid / 32, lane = tid % 32;\n",
+     "  STAMP(0);\n  STAMP_NS(0);\n"
+     "  const int g0 = blockIdx.y * GG;\n  const int tid = threadIdx.x;\n"
+     "  const int nthreads = blockDim.x;\n  const int warp = tid / 32, lane = tid % 32;\n"),
+    ("    for (int c = 0; c < n_chunks; ++c) {\n      const int it = it0 + c;\n",
+     "    STAMP(1);\n"
+     "    for (int c = 0; c < n_chunks; ++c) {\n      const int it = it0 + c;\n"),
+    ("      if (c + MSTAGES - 1 < n_chunks) load(it + MSTAGES - 1);\n",
+     "      if (c + MSTAGES - 1 < n_chunks) load(it + MSTAGES - 1);\n"
+     "      STAMP(2 + 2 * c);\n"),
+    ("step(kk, kk + 8 >= cols);\n      }\n    }\n\n    // The C fragment",
+     "step(kk, kk + 8 >= cols);\n      }\n      STAMP(3 + 2 * c);\n    }\n\n"
+     "    STAMP(40);\n    // The C fragment"),
+    ("  // block max per glimpse", "  STAMP(41);\n  // block max per glimpse"),
+    ("  // normalise; GG = 2 writes", "  STAMP(42);\n  // normalise; GG = 2 writes"),
+    ("  __syncthreads();\n  float m[GG], sum[GG];\n",
+     "  __syncthreads();\n  STAMP(44);\n  float m[GG], sum[GG];\n"),
+    ("  // block sum per glimpse, the same way\n",
+     "  STAMP(45);\n  // block sum per glimpse, the same way\n"),
+]
+K1_MMA_END = "\ntemplate <int GG, bool CONTIG>\ncudaError_t launch_mma("
+# the tensor-core K2's stamps: 0 start, 1 the first step's operands and w
+# in shared memory, 2 w split into its planes, 3 the first step's products
+# done, 10+k step k done (its span's output written), 4 the end
+K2_MMA_TIMELINE = [
+    ("namespace {\n", STAMPS + "namespace {\n"),
+    ("  const int n_spans = (D + MDSPAN - 1) / MDSPAN;\n",
+     "  STAMP(0);\n  STAMP_NS(0);\n  const int n_spans = (D + MDSPAN - 1) / MDSPAN;\n"),
+    ("    if (k == 0 || !one_plane) {\n",
+     "    if (k == 0) STAMP(1);\n    if (k == 0 || !one_plane) {\n"),
+    ("      if (!one_plane && k + 1 < n_steps) {\n",
+     "      if (k == 0) STAMP(2);\n      if (!one_plane && k + 1 < n_steps) {\n"),
+    ("    // U summed over the steps of a pass",
+     "    if (k == 0) STAMP(3);\n    // U summed over the steps of a pass"),
+    ("      out[(size_t)b * D + d] = o;\n    }\n  }\n}\n",
+     "      out[(size_t)b * D + d] = o;\n    }\n    STAMP(10 + k);\n  }\n}\n"),
+]
+K2_MMA_END = "\ntemplate <typename TQ, int NQ, int NA>\ncudaError_t launch_mma("
+K1_MMA_VARIANTS = {
+    "16-byte cp.async copies": [("constexpr bool TENSOR_MAPS = true;",
+                                 "constexpr bool TENSOR_MAPS = false;")],
+    "12 warps (4 n8 tiles a warp)": [("constexpr int NT = 6;", "constexpr int NT = 4;")],
+    "ring of 3 stages": [("constexpr int MSTAGES = 4;", "constexpr int MSTAGES = 3;")],
+    "ring of 6 stages": [("constexpr int MSTAGES = 4;", "constexpr int MSTAGES = 6;")],
+    "accurate exponentials (expf)": [(
+        "? __expf(acc[s][e] - m[s % GG]) : 0.f;", "? expf(acc[s][e] - m[s % GG]) : 0.f;")],
+}
+K2_MMA_VARIANTS = {
+    "4 warps (128 d a step)": [("constexpr int MWARPS = 8;", "constexpr int MWARPS = 4;")],
+    "two d spans a block": [("constexpr int MAX_SPANS = 4;", "constexpr int MAX_SPANS = 2;")],
+    "two step buffers": [("constexpr int NBUF = 3;", "constexpr int NBUF = 2;")],
+    "16 warps (16 d a warp)": [
+        ("constexpr int MWARPS = 8;", "constexpr int MWARPS = 16;"),
+        ("constexpr int MTW = 2;", "constexpr int MTW = 1;"),
+        ("    if (pass + 1 == n_passes && d < D) {",
+         "    if (pass + 1 == n_passes && tid < MDSPAN && d < D) {")],
+}
 K1_VARIANTS = {
     "ring of 2 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")],
     "ring of 5 stages": [("constexpr int STAGES = 4;", "constexpr int STAGES = 5;")],
@@ -220,24 +312,44 @@ def inputs(b: int, dev: torch.device):
     return (v_r, tqa, mask), (vt, qt, at, att[..., 0])
 
 
-def caller(name, lib, k1, k2):
-    """The bare launch of library ``lib``'s kernel on these inputs and the
-    plain version's output to hold it to."""
+# the instances of each kernel a library is timed at: K1 float32 and with
+# bf16 operands; K2 float32 and with bf16 vt, qt/at bf16 (glimpse 0) or
+# float32 (glimpse 1), as the bf16 model passes them
+INSTANCES = {"k1": ("f32", "bf16"),
+             "k2": ("f32", "bf16 glimpse 0", "bf16 glimpse 1")}
+
+
+def caller(name, lib, k1, k2, inst="f32"):
+    """The bare launch of library ``lib``'s kernel on these inputs (cast
+    for instance ``inst`` of :data:`INSTANCES`) and the plain version's
+    output to hold it to."""
     def stream():
         return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
+    bf = torch.bfloat16
     if name.startswith("k1"):
         v_r, tqa, mask = k1
+        fn = lib.rank_softmax_forward
+        if inst != "f32":
+            v_r, tqa, fn = v_r.to(bf), tqa.to(bf), lib.rank_softmax_forward_bf16
         out = torch.empty(*v_r.shape[:2], Q, A, G, device=v_r.device)
         b = v_r.shape[0]
-        return out, K.fused_rank_softmax_ref(*k1), lambda: lib.rank_softmax_forward(
+        return out, K.fused_rank_softmax_ref(v_r, tqa, mask), lambda: fn(
             v_r.data_ptr(), tqa.data_ptr(), mask.data_ptr(), out.data_ptr(),
             b, V, R * X, Q * A, G, 0, stream())
     vt, qt, at, w = k2
     out = torch.empty(vt.shape[0], D, device=vt.device)
-    return out, K.trilinear_pool_ref(*k2), lambda: lib.tri_pool_forward(
+    args = (vt.shape[0], V, Q, A, D)
+    fn = lib.tri_pool_forward
+    if inst != "f32":
+        vt = vt.to(bf)
+        if inst.endswith("glimpse 0"):
+            qt, at = qt.to(bf), at.to(bf)
+        args += (int(qt.dtype == bf),)
+        fn = lib.tri_pool_forward_bf16
+    return out, K.trilinear_pool_ref(vt, qt, at, w), lambda: fn(
         vt.data_ptr(), qt.data_ptr(), at.data_ptr(), w.data_ptr(), *w.stride(),
-        out.data_ptr(), vt.shape[0], V, Q, A, D, 0, stream())
+        out.data_ptr(), *args, 0, stream())
 
 
 def softmax_calls(lib, b: int, dev: torch.device):
@@ -269,6 +381,35 @@ def softmax_calls(lib, b: int, dev: torch.device):
     return fwd, bwd, first
 
 
+def timeline(lib, kind, k1, k2, inst, last, flush):
+    """Run the stamped kernel of ``lib`` once, cold L2, after 3 warm runs;
+    its stamps in µs from the first and the SM's cycles per µs (from
+    ``%globaltimer`` between stamp 0 and stamp ``last``)."""
+    lib.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    _, _, launch = caller(kind, lib, k1, k2, inst)
+    for _ in range(3):
+        launch()
+    flush.zero_()
+    torch.cuda._sleep(1_000_000)
+    launch()
+    torch.cuda.synchronize()
+    clk = np.zeros(64, np.int64)
+    ns = np.zeros(2, np.uint64)
+    assert lib.probe_read(clk.ctypes.data, ns.ctypes.data) == 0
+    per_us = (clk[last] - clk[0]) / ((int(ns[1]) - int(ns[0])) / 1e3)
+    return (clk - clk[0]) / per_us, per_us
+
+
+def stamped(source, edits, kernel_end, last):
+    """``source`` with the stamp ``edits``, the last stamp (``last``) at
+    the closing brace of the kernel that ends before ``kernel_end``, and
+    the function that reads the stamps."""
+    text = edited(source, edits) + READ_STAMPS
+    close = text.rindex("}\n", 0, text.index(kernel_end))
+    return (text[:close] + f"  STAMP({last});\n  STAMP_NS(1);\n"
+            + text[close:])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("probe: torch.cuda.is_available() is false", file=sys.stderr)
@@ -280,19 +421,38 @@ def main() -> int:
     k1_src = (build.CSRC / "rank_softmax.cu").read_text()
     k2_src = (build.CSRC / "tri_pool.cu").read_text()
     k3_src = (build.CSRC / "softmax_vqa.cu").read_text()
-    timeline = edited(k1_src, TIMELINE) + READ_STAMPS
-    # the last stamp: after the normalise loop, at the kernel's closing brace
-    close = timeline.rindex("}\n", 0, timeline.index(KERNEL_END))
-    timeline = timeline[:close] + "  STAMP(43);\n  STAMP_NS(1);\n" + timeline[close:]
-    sources = {"k1_timeline": timeline, "k1 shipped": k1_src,
-               "k2 shipped": k2_src}
-    sources.update({f"k1 {n}": edited(k1_src, e) for n, e in K1_VARIANTS.items()})
-    sources.update({f"k2 {n}": edited(k2_src, e) for n, e in K2_VARIANTS.items()})
-    sources["k3 shipped, 8 floats a thread"] = k3_src
-    sources.update({f"k3 {n}": edited(k3_src, e) for n, e in K3_VARIANTS.items()})
-    libs = build_all({n.replace(" ", "_").replace(",", ""): s
-                      for n, s in sources.items()})
+    k1_cuda_cores = edited(k1_src, K1_CUDA_CORES)
+    k2_cuda_cores = edited(k2_src, K2_CUDA_CORES)
+    f32, bf = ("f32",), ("bf16",)
+    k2_bf = INSTANCES["k2"][1:]
+    # name: (source, the instances its K1 or K2 is timed at)
+    sources = {
+        "k1_timeline": (stamped(k1_cuda_cores, TIMELINE, KERNEL_END, 43), ()),
+        "k1_mma_timeline": (stamped(k1_src, K1_MMA_TIMELINE, K1_MMA_END, 43), ()),
+        "k1_mma_cp_async_timeline": (stamped(
+            edited(k1_src, K1_MMA_VARIANTS["16-byte cp.async copies"]),
+            K1_MMA_TIMELINE, K1_MMA_END, 43), ()),
+        "k2_timeline": (stamped(k2_cuda_cores, K2_TIMELINE, K2_KERNEL_END, 3), ()),
+        "k2_mma_timeline": (stamped(k2_src, K2_MMA_TIMELINE, K2_MMA_END, 4), ()),
+        "k1 shipped": (k1_src, INSTANCES["k1"]),
+        "k1 CUDA-core design": (k1_cuda_cores, bf),
+        "k2 shipped": (k2_src, INSTANCES["k2"]),
+        "k2 CUDA-core design": (k2_cuda_cores, k2_bf)}
+    sources.update({f"k1 {n}": (edited(k1_src, e), f32)
+                    for n, e in K1_VARIANTS.items()})
+    sources.update({f"k1 mma {n}": (edited(k1_src, e), bf)
+                    for n, e in K1_MMA_VARIANTS.items()})
+    sources.update({f"k2 {n}": (edited(k2_src, e), f32)
+                    for n, e in K2_VARIANTS.items()})
+    sources.update({f"k2 mma {n}": (edited(k2_src, e), k2_bf)
+                    for n, e in K2_MMA_VARIANTS.items()})
+    sources["k3 shipped, 8 floats a thread"] = (k3_src, ())
+    sources.update({f"k3 {n}": (edited(k3_src, e), ())
+                    for n, e in K3_VARIANTS.items()})
+    libs = build_all({n.replace(" ", "_").replace(",", "").replace("(", "")
+                      .replace(")", ""): src for n, (src, _) in sources.items()})
     names = dict(zip(libs, sources))
+    insts = {key: sources[n][1] for key, n in names.items()}
 
     flush = torch.empty(128 * 2**20 // 4, device=dev)
     cycles_per_ms = sleep_cycles_per_ms()
@@ -302,44 +462,61 @@ def main() -> int:
     print(f"a launch with no work (4-byte zero_), cold L2: {floor * 1e3:.1f} µs; "
           f"back to back: {floor_b2b * 1e3:.2f} µs a launch")
     with torch.inference_mode():
-        lib = libs["k1_timeline"]
-        lib.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         for b in (1, 128):
             k1, k2 = inputs(b, dev)
-            _, _, launch = caller("k1", lib, k1, k2)
-            for _ in range(3):
-                launch()
-            flush.zero_()
-            torch.cuda._sleep(1_000_000)
-            launch()
-            torch.cuda.synchronize()
-            clk = np.zeros(64, np.int64)
-            ns = np.zeros(2, np.uint64)
-            assert lib.probe_read(clk.ctypes.data, ns.ctypes.data) == 0
-            per_us = (clk[43] - clk[0]) / ((int(ns[1]) - int(ns[0])) / 1e3)
-            us = (clk - clk[0]) / per_us
-            n_chunks = R * X // 32
-            chunks = " ".join(f"{us[2 + 2 * c]:.1f}/{us[3 + 2 * c]:.1f}"
-                              for c in range(n_chunks))
-            print(f"K1 timeline, block 0 at B={b} (µs from its start, "
-                  f"{per_us:.0f} cycles/µs): first stages requested "
-                  f"{us[1]:.2f}; chunk landed/multiplied {chunks}; loop done "
-                  f"{us[40]:.2f}; max and sum {us[41]:.2f}; block reduction "
-                  f"{us[42]:.2f}; normalised {us[43]:.2f}")
+            for key, inst, n_chunks in (
+                    ("k1_timeline", "f32", R * X // 32),
+                    ("k1_timeline", "bf16", R * X // 32),
+                    ("k1_mma_timeline", "bf16", R * X // 64),
+                    ("k1_mma_cp_async_timeline", "bf16", R * X // 64)):
+                us, per_us = timeline(libs[key], "k1", k1, k2, inst, 43, flush)
+                chunks = " ".join(f"{us[2 + 2 * c]:.1f}/{us[3 + 2 * c]:.1f}"
+                                  for c in range(n_chunks))
+                steps = (("max and sum", "block reduction") if "mma" not in key
+                         else ("masked and the thread's max",
+                               "block max, exponentials and sums"))
+                design = ("CUDA-core design" if "mma" not in key else
+                          "tensor cores, 16-byte cp.async" if "cp_async" in key
+                          else "tensor cores, TMA")
+                split = ("" if "mma" not in key else
+                         f" (maxima exchanged {us[44]:.2f}, exponentials "
+                         f"{us[45]:.2f})")
+                print(f"K1 {inst} ({design}) timeline, block 0 at B={b} (µs "
+                      f"from its start, {per_us:.0f} cycles/µs): first stages "
+                      f"requested {us[1]:.2f}; chunk landed/multiplied "
+                      f"{chunks}; loop done {us[40]:.2f}; {steps[0]} "
+                      f"{us[41]:.2f}; {steps[1]} {us[42]:.2f}{split}; "
+                      f"normalised {us[43]:.2f}")
+        k1, k2 = inputs(128, dev)
+        for inst in INSTANCES["k2"]:
+            us, per_us = timeline(libs["k2_timeline"], "k2", k1, k2, inst, 3,
+                                  flush)
+            print(f"K2 {inst} (CUDA-core design for bf16) timeline, block 0 at "
+                  f"B=128 (µs from its start): V loop done {us[1]:.2f}; qt "
+                  f"epilogue {us[2]:.2f}; output written {us[3]:.2f}")
+        for inst in INSTANCES["k2"][1:]:
+            us, per_us = timeline(libs["k2_mma_timeline"], "k2", k1, k2, inst,
+                                  4, flush)
+            steps = " ".join(f"{us[10 + k]:.2f}" for k in range(D // 256))
+            print(f"K2 {inst} (tensor cores) timeline, block 0 at B=128 (µs "
+                  f"from its start): the first step's operands and w in "
+                  f"shared memory {us[1]:.2f}; w split {us[2]:.2f}; the first "
+                  f"step's products {us[3]:.2f}; steps done {steps}; end "
+                  f"{us[4]:.2f}")
         for b in (1, 128, 256):
             k1, k2 = inputs(b, dev)
             row = []
             for key, lib in libs.items():
-                if key == "k1_timeline" or key.startswith("k3"):
-                    continue
-                out, want, launch = caller(key, lib, k1, k2)
-                assert launch() == 0
-                torch.cuda.synchronize()
-                err = ((out - want).abs().max() / want.abs().max()).item()
-                if err > 2e-4:
-                    raise SystemExit(f"probe: {names[key]} is off by {err:.2e}")
-                ms, _ = time_ms(launch, flush, cycles_per_ms)
-                row.append(f"{names[key]} {ms * 1e3:.1f}")
+                for inst in insts[key]:
+                    out, want, launch = caller(key, lib, k1, k2, inst)
+                    assert launch() == 0
+                    torch.cuda.synchronize()
+                    err = ((out - want).abs().max() / want.abs().max()).item()
+                    if err > 2e-4:
+                        raise SystemExit(f"probe: {names[key]} {inst} is off "
+                                         f"by {err:.2e}")
+                    ms, _ = time_ms(launch, flush, cycles_per_ms)
+                    row.append(f"{names[key]} {inst} {ms * 1e3:.1f}")
             print(f"B={b}, µs, cold L2: " + "; ".join(row))
         for b in (128, 256):
             for key, lib in libs.items():

@@ -19,9 +19,13 @@ Under ``compute_dtype="bfloat16"`` K1 takes bf16 ``v_r`` and ``tqa``, and
 K2 bf16 ``vt`` with ``qt``/``at`` bf16 (glimpse 0) or float32 (glimpse 1),
 as JAX's Pallas backend passes them, and K3 bf16 logits
 (``TriAttention(return_logits=True)``); each has a bf16-operand instance
-(its own launch counter, ``*_bf16``) and computes in float32, with a float32
-output.  The plain versions upcast bf16 operands to float32 first (exact),
-which is the kernels' math.  Any other dtype combination raises.
+(its own launch counter, ``*_bf16``) with a float32 output.  K1's and K2's
+run their products on the tensor cores (bf16 operands, float32
+accumulators), as the Pallas kernels' ``preferred_element_type=float32``
+dots do; K2 multiplies the float32 attention as three bf16 terms
+(:func:`split_bf16x3`), so every product stays exact.  K3's widens the
+logits to float32.  The plain versions upcast bf16 operands to float32
+first (exact) and sum in float32.  Any other dtype combination raises.
 
 A wrapper runs the plain version for CPU tensors, and autograd
 differentiates it there.  For CUDA tensors it launches its kernel, or
@@ -119,6 +123,22 @@ def fused_rank_softmax_ref(v_r: torch.Tensor, tqa: torch.Tensor,
     """Plain version of :func:`fused_rank_softmax`, in float32."""
     return masked_softmax_vqa_ref(
         torch.einsum("birx,bjlrxg->bijlg", v_r.float(), tqa.float()), v_mask)
+
+
+def split_bf16x3(w: torch.Tensor):
+    """``w`` (float32) as three bfloat16 terms, each rounded to nearest
+    even from what the terms before it leave: ``w0 = bf16(w)``, ``w1 =
+    bf16(w - w0)``, ``w2 = bf16(w - w0 - w1)``, the differences taken in
+    float32 (where they are exact).  ``w0 + w1 + w2`` is ``w`` for the
+    attention weights the model makes (not for values near the bottom of
+    float32's range).  The bf16 K2 (``csrc/tri_pool.cu``) splits its
+    attention so as it is loaded, and multiplies each term with bf16
+    ``vt`` on the tensor cores: a bf16 x bf16 product is exact in float32."""
+    w = w.float()
+    w0 = w.to(torch.bfloat16)
+    r = w - w0.float()
+    w1 = r.to(torch.bfloat16)
+    return w0, w1, (r - w1.float()).to(torch.bfloat16)
 
 
 def trilinear_pool_ref(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
