@@ -96,12 +96,32 @@ at ``compute_dtype="bfloat16"``).  Then:
     launches per step), a resume for an 11th, ``ffoe_test.main`` on epoch 9
     (EvalAI JSON, teacher logits, the swept logits against
     ``InferenceSession`` on the same checkpoint and rows) and 2 epochs at
-    bf16 compute; seconds per epoch, the loop's samples/s and the share of
-    an epoch spent waiting on the loader.
+    bf16 compute, all with the Python loader and host-shipped features
+    (``--no_native_loader --device_features off``); seconds per epoch, the
+    loop's samples/s and the share of an epoch spent waiting on the loader.
+10. the host runtime and the card-resident store: (a) build the C++ host
+    runtime (``vqatpu_torch/native/vqadata.cc``) with the host compiler
+    and check that the process loaded the port's own library; (b) its
+    quantizer against the numpy plain version, bit for bit, at [128, 50,
+    2048] and [256, 50, 2048] with all-zero rows and .5 ties, both timed;
+    (c) int8-wire serving at every bucket through it, against JAX's
+    float32 golden and the float32 wire, the host packing beside numpy's;
+    (d) card-resident stores of 8,000 images (float32 rows, built for every
+    wire) and 40,000 (int8-resident, ~2.2M box rows, the int8 and float32
+    wires), each's estimate against its bytes, the ``auto`` decision and
+    20 batches at B=256 gathered on the card bit-equal to the wire path
+    (the C++ loader, ``wire_cast``, the upload); (e) full-width training at
+    B=256 from the float32 and the int8 store; (f) ``ffoe_train`` on phase
+    9's dataroot three ways (the defaults: the C++ loader and the store;
+    the C++ loader with page-locked uploads; the Python loader), their
+    per-step losses against each other, ``ffoe_test`` with
+    ``--device_features on`` and ``off`` and the ensemble CLI on two
+    exports; (g) the same three ways at depth: 16,384 train questions over
+    2,048 images, 3 epochs of 64 steps.
 
 Each path (serving at each wire and compute dtype, the logits path in
 float32 and bf16, by-id serving, training in float32 and bf16, each entry
-point call of phase 9) is driven with the launch counts set to 0 just
+point call of phases 9 and 10) is driven with the launch counts set to 0 just
 before it and read just after; the kernels' ``launches`` in the JSON line
 are their sums.
 
@@ -118,6 +138,7 @@ import json
 import os
 import pickle
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -193,8 +214,9 @@ def loop_timers(train_loop, record):
     """Wrap the epoch loop's step, loader and eval (``vqatpu_torch.train.
     loop``'s module functions) with host clocks: per epoch, ``record``
     gains the seconds spent waiting on the loader, inside step calls and in
-    the eval, and the training part's wall time (to the card's last step,
-    synchronised).  Returns a function that undoes the wrapping."""
+    the eval, the training part's wall time (to the card's last step,
+    synchronised) and the steps' loss tensors.  Returns a function that
+    undoes the wrapping."""
     originals = (train_loop.make_train_step, train_loop._make_loader,
                  train_loop.evaluate_ffoe)
     make_step, make_loader, evaluate = originals
@@ -206,6 +228,7 @@ def loop_timers(train_loop, record):
             t = time.perf_counter()
             out = step(*a, **kw)
             record[-1]["step"] += time.perf_counter() - t
+            record[-1]["losses"].append(out["loss"])  # read after the run
             return out
         return timed_step
 
@@ -216,8 +239,12 @@ def loop_timers(train_loop, record):
         def __len__(self):
             return len(self.inner)
 
+        def close(self):
+            if hasattr(self.inner, "close"):
+                self.inner.close()
+
         def __iter__(self):
-            rec = {"wait": 0.0, "step": 0.0, "eval": 0.0}
+            rec = {"wait": 0.0, "step": 0.0, "eval": 0.0, "losses": []}
             record.append(rec)
             t0 = time.perf_counter()
             it = iter(self.inner)
@@ -248,20 +275,54 @@ def loop_timers(train_loop, record):
     return undo
 
 
-def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> None:
+def run_train(label, argv, path_counts):
+    """``ffoe_train.main(argv)`` with the loop's timers on and the launch
+    counts set to 0 just before it; -> (launch counts, per-epoch record,
+    wall seconds to the card's last step)."""
+    from vqatpu_torch.cli import ffoe_train
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.train import loop as train_loop
+
+    record = []
+    undo = loop_timers(train_loop, record)
+    K.reset_launches()
+    t = time.perf_counter()
+    try:
+        ffoe_train.main(argv)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    path_counts[label] = counts = dict(K.launches)
+    return counts, record, wall
+
+
+def log_of(path):
+    """log.txt's text, train losses, eval scores and seconds an epoch."""
+    text = open(path).read()
+    losses = [float(x) for x in re.findall(r"train_loss: (\S+),", text)]
+    scores = [float(x) / 100 for x in re.findall(r"eval score: (\S+) ", text)]
+    secs = [float(x) for x in re.findall(r"epoch \d+, time: (\S+)", text)]
+    return text, losses, scores, secs
+
+
+def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> dict:
     """The free-form entry points on the card: a dataroot of 1,024 train and
     512 val questions over 256 images (2048-d ``.npz`` features, 10-20
     boxes), 3,129 answers (targets on the first 12); ``ffoe_train`` for 10
     epochs at full width and B=256, a resume for an 11th, ``ffoe_test`` on
     epoch 9 against ``InferenceSession`` on the same checkpoint and rows,
-    and 2 epochs at bf16 compute.  Each call runs with the launch counts
-    set to 0 just before it and read just after."""
-    from vqatpu_torch.cli import ffoe_test, ffoe_train
+    and 2 epochs at bf16 compute, all with the Python loader and the
+    features shipped from the host (``--no_native_loader --device_features
+    off``: the Python loader's path, beside phase 10's).  Each call runs with the launch
+    counts set to 0 just before it and read just after.  -> what phase 10
+    reuses: the dataroot (its ``tmp`` to clean up), the CLI's arguments,
+    the checkpoints' directory and the loop's numbers."""
+    from vqatpu_torch.cli import ffoe_test
     from vqatpu_torch.data import Dictionary, VQAFeatureDataset
     from vqatpu_torch.data.synthetic import ANSWERS, make_vqa_fixture
     from vqatpu_torch.kernels import trilinear as K
     from vqatpu_torch.serve import InferenceSession
-    from vqatpu_torch.train import loop as train_loop
     from vqatpu_torch.train.checkpoints import load_checkpoint
 
     n_train, n_val, epochs = 1024, 512, 10
@@ -284,30 +345,13 @@ def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> None:
             "--h_mm", str(cfg.h_mm), "--rank", str(cfg.rank), "--gamma",
             str(cfg.gamma), "--batch_size", str(TRAIN_B), "--max_boxes", str(V),
             "--device", "cuda", "--print_interval", "1000"]
+    pr6_path = ["--no_native_loader", "--device_features", "off"]
     out = os.path.join(tmp.name, "saved_models", "cti")
     steps = n_train // TRAIN_B
     evals = -(-n_val // (2 * TRAIN_B))
 
     def run(label, argv):
-        record = []
-        undo = loop_timers(train_loop, record)
-        K.reset_launches()
-        t = time.perf_counter()
-        try:
-            ffoe_train.main(argv)
-        finally:
-            undo()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        path_counts[label] = counts = dict(K.launches)
-        return counts, record, wall
-
-    def log_of(path):
-        text = open(path).read()
-        losses = [float(x) for x in re.findall(r"train_loss: (\S+),", text)]
-        scores = [float(x) / 100 for x in re.findall(r"eval score: (\S+) ", text)]
-        secs = [float(x) for x in re.findall(r"epoch \d+, time: (\S+)", text)]
-        return text, losses, scores, secs
+        return run_train(label, argv + pr6_path, path_counts)
 
     counts, record, wall = run("ffoe_train", args + [
         "--output", out, "--epochs", str(epochs)])
@@ -318,7 +362,7 @@ def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> None:
           f"{scores}; files {files}; launches {counts}")
     assert len(losses) == epochs and all(np.isfinite(losses)), losses
     assert {"model_epoch9.ckpt", "model_epoch_best.ckpt"} <= set(files), files
-    assert "native loader OFF (not ported" in text
+    assert "native loader" not in text and "feature store" not in text
     n_fwd = epochs * (steps + evals)
     assert counts["fused_rank_softmax"] == n_fwd, counts
     assert counts["trilinear_pool"] == cfg.gamma * n_fwd, counts
@@ -364,8 +408,9 @@ def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> None:
 
     results = os.path.join(tmp.name, "results")
     K.reset_launches()
-    paths = ffoe_test.main(args + ["--split", "val", "--input", out, "--epoch",
-                                   "9", "--results", results, "--logits", "1"])
+    paths = ffoe_test.main(args + pr6_path + [
+        "--split", "val", "--input", out, "--epoch", "9", "--results",
+        results, "--logits", "1"])
     torch.cuda.synchronize()
     path_counts["ffoe_test"] = counts = dict(K.launches)
     with open(paths["json"]) as f:
@@ -408,7 +453,473 @@ def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> None:
     assert counts["trilinear_pool_bf16"] == 2 * cfg.gamma * (steps + evals)
     assert counts["softmax_vqa_backward"] == 2 * steps, counts
     assert counts["fused_rank_softmax"] == counts["trilinear_pool"] == 0, counts
-    tmp.cleanup()
+    return {"tmp": tmp, "root": root, "args": args, "out": out,
+            "n_train": n_train, "n_val": n_val, "labels": labels}
+
+
+# host packing of an int8-wire bucket with the numpy quantizer, ms at
+# buckets 1 / 8 / 32 / 128: PERF.md section 5's serving table (phase 6,
+# H100 80GB HBM3, 700 W), printed beside phase 10c's
+NUMPY_INT8_PACK_MS = {1: 0.23, 8: 2.57, 32: 12.83, 128: 118.68}
+BIG_STORE_IMAGES = 40_000  # phase 10d, int8-resident: ~2.2M box rows
+F32_STORE_IMAGES = 8_000   # phase 10d, float32: ~0.44M box rows
+GATHER_BATCHES = 20
+LOOP_TOL = 1e-5            # phase 10f: per-step losses, relative
+EXPORT_TOL = 1e-6          # phase 10f: ffoe_test logits, store on / off
+LOOP_EPOCHS = 4
+DEEP_TRAIN, DEEP_VAL, DEEP_IMAGES = 16_384, 512, 2_048  # phase 10g
+DEEP_EPOCHS = 3
+
+
+def host_ms(fn, runs: int = 5) -> float:
+    """Median host-clock ms of ``fn`` after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase10_host_runtime(cfg) -> None:
+    """(a) build the port's C++ host runtime from its source (a fresh build
+    into a temporary directory, to show the compiler and its time) and check
+    that the library this process loaded is the port's own; (b) the C++
+    quantizer against the numpy plain version, bit for bit, with all-zero
+    rows (padded boxes) and rows of exact .5 ties, and both times."""
+    from vqatpu_torch.data import native
+    from vqatpu_torch.data.quantize import quantize_rows as plain_quantize
+
+    cxx = native.compiler()
+    version = subprocess.run([cxx, "--version"], check=True,
+                             capture_output=True, text=True).stdout
+    saved = native.BUILD_DIR
+    with tempfile.TemporaryDirectory() as d:
+        native.BUILD_DIR = Path(d)
+        try:
+            t0 = time.perf_counter()
+            _, out = native.build()
+            t_build = time.perf_counter() - t0
+        finally:
+            native.BUILD_DIR = saved
+    native.load()
+    with open("/proc/self/maps") as f:
+        libs = sorted({ln.split()[-1] for ln in f if "libvqadata" in ln})
+    print(f"phase 10a: host runtime {native.SOURCE.relative_to(ROOT)} built by "
+          f"{cxx} ({version.splitlines()[0]}) with {' '.join(native.CXX_FLAGS)} "
+          f"in {t_build:.1f} s (compiler output: {out.strip() or 'none'}); "
+          f"loaded: {libs}")
+    assert libs and all(Path(x).is_relative_to(ROOT / "vqatpu_torch" / "_build")
+                        for x in libs), libs
+
+    rng = np.random.default_rng(11)
+    for b in (128, 256):
+        shape = (b, V, cfg.v_dim)
+        v = (rng.standard_normal(shape, dtype=np.float32)
+             * rng.random((b, V, 1), dtype=np.float32) * 30)
+        v[:, REAL_BOXES:] = 0.0  # padded boxes: all-zero rows, scale 1
+        # box 0: odd integers with absmax 254, so the scale is exactly 2 and
+        # every element lands on k + .5 (round half to even)
+        ties = 2 * rng.integers(-126, 127, (b, cfg.v_dim)) + 1
+        ties[:, 0] = 254
+        v[:, 0] = ties
+        q, sc = native.quantize_rows(v)
+        q_p, sc_p = plain_quantize(v)
+        same = np.array_equal(q, q_p) and np.array_equal(sc, sc_p)
+        n_ties = int((ties[:, 1:] % 2 == 1).sum())
+        assert (sc[:, REAL_BOXES:] == 1).all() and not q[:, REAL_BOXES:].any()
+        assert (sc[:, 0] == 2).all()
+        t_c = host_ms(lambda: native.quantize_rows(v))
+        t_np = host_ms(lambda: plain_quantize(v), runs=3)
+        print(f"phase 10b: quantize_rows [{b}, {V}, {cfg.v_dim}] "
+              f"({b * (V - REAL_BOXES)} all-zero rows, {n_ties} ties at .5): "
+              f"C++ {t_c:.3f} ms (threads for its rows: "
+              f"{native.quantize_threads(b * V)}), numpy {t_np:.3f} ms, "
+              f"bit-equal {same}")
+        assert same, "the C++ quantizer left the numpy plain version"
+    # the threads' cost at the serving buckets' sizes: host clock, median
+    for b in (1, 8, 32, 128, 256):
+        v = rng.standard_normal((b, V, cfg.v_dim), dtype=np.float32)
+        cells = ", ".join(
+            f"{n} {host_ms(lambda: native.quantize_rows(v, num_threads=n)):.3f}"
+            for n in (1, 2, 4, 8))
+        print(f"phase 10b: quantize_rows [{b}, {V}, {cfg.v_dim}] ms by "
+              f"threads: {cells}; numpy {host_ms(lambda: plain_quantize(v)):.3f}")
+
+
+def phase10_int8_serving(cfg, model, labels, golden, gb, path_counts) -> None:
+    """(c) int8-wire serving at every bucket through the C++ quantizer: the
+    golden rows against JAX's float32 logits, each bucket against the
+    float32 wire on the same rows, and the host packing with the C++ and
+    the numpy quantizer, beside PERF.md's serving table."""
+    from vqatpu_torch.data.quantize import quantize_rows as plain_quantize
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.serve import InferenceSession
+    from vqatpu_torch.train import steps as steps_mod
+    from vqatpu_torch.weights import numpy_batch
+
+    sess8 = InferenceSession(model, labels, transfer_dtype="int8",
+                             device="cuda")
+    sess32 = InferenceSession(model, labels, device="cuda")
+    K.reset_launches()
+    g_err = float(np.abs(sess8.logits(gb["v"], None, gb["q"], gb["a"])
+                         - golden["logits"]).max())
+    print(f"phase 10c: int8 wire (C++ quantizer) vs JAX's float32 golden "
+          f"{g_err:.3e} (tol {SERVE_TOL:.0e})")
+    assert g_err <= SERVE_TOL, g_err
+    for n in sess8.batch_buckets:
+        b = numpy_batch(cfg, n, seed=300 + n, boxes=V, real_boxes=REAL_BOXES)
+        got = sess8.logits(b["v"], None, b["q"], b["a"])
+        err = float(np.abs(got - sess32.logits(b["v"], None, b["q"],
+                                               b["a"])).max())
+        assert got.shape == (n, cfg.num_ans_candidates) and err <= SERVE_TOL
+        pack_c = host_ms(lambda: sess8.pack(b["v"], b["q"], b["a"]), runs=10)
+        cxx_quantize, steps_mod.quantize_rows = (steps_mod.quantize_rows,
+                                                 plain_quantize)
+        try:
+            pack_np = host_ms(lambda: sess8.pack(b["v"], b["q"], b["a"]),
+                              runs=10)
+        finally:
+            steps_mod.quantize_rows = cxx_quantize
+        e2e = host_ms(lambda: sess8.logits(b["v"], None, b["q"], b["a"]),
+                      runs=10)
+        print(f"phase 10c bucket {n}: int8 host packing {pack_c:.3f} ms with "
+              f"the C++ quantizer, {pack_np:.3f} ms with numpy in this run "
+              f"(PERF.md section 5's table: {NUMPY_INT8_PACK_MS[n]} ms); "
+              f"session.logits {e2e:.3f} ms; vs the float32 wire on the same "
+              f"rows {err:.3e}")
+    torch.cuda.synchronize()
+    path_counts["serving int8 (C++ quantizer)"] = dict(K.launches)
+
+
+class StoreSet:
+    """A dataset over a FeatureStore alone, for the loaders and the store:
+    sample i is image ``images[i]``, with its index as its one field."""
+
+    def __init__(self, store, images, max_boxes):
+        self.store = store
+        self.entries = [{"image": int(i)} for i in images]
+        self.max_boxes = max_boxes
+
+    def __len__(self):
+        return len(self.entries)
+
+    def sample_fields(self, index):
+        return {"qid": np.int64(index)}
+
+
+def seeded_store(n_images, v_dim, seed, int8):
+    """A FeatureStore of ``n_images`` images of 10-100 boxes, made on the
+    card from ``seed`` and copied to the host a chunk at a time: int8 rows
+    with float32 scales (``--quantize_store``), or float32 rows."""
+    from vqatpu_torch.data.features import FeatureStore
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n_boxes = rng.integers(10, 101, n_images)
+    ends = np.cumsum(n_boxes)
+    rows = int(ends[-1])
+    feats = np.empty((rows, v_dim), np.int8 if int8 else np.float32)
+    for lo in range(0, rows, 1 << 16):
+        hi = min(rows, lo + (1 << 16))
+        if int8:
+            x = torch.randint(-127, 128, (hi - lo, v_dim), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        else:
+            x = (torch.randn((hi - lo, v_dim), generator=gen, device="cuda")
+                 * torch.rand((hi - lo, 1), generator=gen, device="cuda") * 10)
+        feats[lo:hi] = x.cpu().numpy()
+    spats = rng.random((rows, 6), dtype=np.float32)
+    pos = np.stack([ends - n_boxes, ends], 1)
+    scales = (rng.random(rows, dtype=np.float32) * 0.05 + 1e-3) if int8 else None
+    return FeatureStore(feats, spats, pos, feat_scales=scales)
+
+
+def check_gather(ds, store, wire, dev):
+    """``GATHER_BATCHES`` shuffled batches at B=256: ``store.gather`` of the
+    fields-only loader's ``ds_idx`` against the wire path's batch (the C++
+    loader, quantized on assembly on the int8 wire, then ``wire_cast``)
+    uploaded to the card, bit for bit; int8 rows under the float32 wire
+    are compared dequantized, as the step sees them.  -> medians on CUDA
+    events of the gather and of the wire batch's upload, blocking from a
+    pageable copy and through the ``PinnedUploader`` (from the C++
+    loader's page-locked ring; what it stages, a cast ``b`` and the mask,
+    is copied on the host first), and the bytes it staged a batch."""
+    from vqatpu_torch.data import BatchLoader
+    from vqatpu_torch.data.native import NativeBatchLoader
+    from vqatpu_torch.data.upload import PinnedUploader
+    from vqatpu_torch.train import wire_cast
+
+    kw = dict(shuffle=True, seed=5, drop_last=True)
+    wire_loader = NativeBatchLoader(ds, TRAIN_B, quantize=wire == "int8",
+                                    **kw)
+    fields = iter(BatchLoader(ds, TRAIN_B, fields_only=True, **kw))
+    upload = PinnedUploader(dev)
+    dequantize = store.scales is not None and wire != "int8"
+    times = {"gather": [], "pageable": [], "pinned": [], "staged": []}
+
+    def timed(key, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times[key].append(start.elapsed_time(end))
+        return out
+
+    try:
+        for i, wb in enumerate(wire_loader):
+            if i == GATHER_BATCHES:
+                break
+            fb = next(fields)
+            assert np.array_equal(wb["qid"], fb["qid"]), "orders differ"
+            host = wire_cast({k: wb[k] for k in ("v", "v_scale", "b", "v_mask")
+                              if k in wb}, wire)
+            pageable = {k: (x.clone() if torch.is_tensor(x) else np.array(x))
+                        for k, x in host.items()}
+            timed("pageable", lambda: {k: torch.as_tensor(x).to(dev)
+                                       for k, x in pageable.items()})
+            staged = upload.staged_bytes
+            want = timed("pinned", lambda: upload(host))
+            times["staged"].append(upload.staged_bytes - staged)
+            got = timed("gather", lambda: store.gather(fb["ds_idx"]))
+            if dequantize:
+                v = got["v"].float() * got["v_scale"][..., None]
+                assert torch.equal(v, want["v"]), (wire, i, "v")
+                keys = ("b", "v_mask")
+            else:
+                keys = tuple(want)
+            for k in keys:
+                assert got[k].dtype == want[k].dtype and torch.equal(
+                    got[k], want[k]), (wire, i, k)
+    finally:
+        wire_loader.close()
+    return {k: statistics.median(x) for k, x in times.items()}
+
+
+def phase10_store(cfg, dev, train_throughput, path_counts, card_step_ms,
+                  wire_step_ms) -> None:
+    """(d) the card-resident store at a realistic size: a float32 store of
+    ``F32_STORE_IMAGES`` images built for every wire and an int8-resident
+    store of ``BIG_STORE_IMAGES`` images for the int8 and float32 wires,
+    each against the estimate, the ``auto`` decision and 20 batches of the
+    wire path; (e) full-width training steps at B=256, dropout on, from
+    the float32 store (float32 wire) and from the int8 one (int8 wire)."""
+    from vqatpu_torch.data.device_store import (DeviceFeatureStore,
+                                                devstore_decision,
+                                                estimate_hbm_bytes,
+                                                hbm_budget_bytes)
+    from vqatpu_torch.data.upload import PinnedUploader
+    from vqatpu_torch.weights import numpy_batch
+
+    kept = {}
+    for n_images, int8, wires in (
+            (F32_STORE_IMAGES, False, ("float32", "float16", "bfloat16",
+                                       "int8")),
+            (BIG_STORE_IMAGES, True, ("int8", "float32"))):
+        t0 = time.perf_counter()
+        fs = seeded_store(n_images, cfg.v_dim, seed=21 + int8, int8=int8)
+        rng = np.random.default_rng(n_images)
+        ds = StoreSet(fs, rng.integers(0, n_images, n_images), V)
+        print(f"phase 10d: {'int8-resident' if int8 else 'float32'} store of "
+              f"{n_images} images, {fs.features.shape[0]} box rows of "
+              f"{cfg.v_dim}-d ({fs.features.nbytes / 2**30:.2f} GiB on the "
+              f"host), made in {time.perf_counter() - t0:.1f} s")
+        for wire in wires:
+            est = estimate_hbm_bytes(ds, wire)
+            budget, src = hbm_budget_bytes(dev)
+            build, why = devstore_decision(ds, "auto", wire, device=dev)
+            t0 = time.perf_counter()
+            store = DeviceFeatureStore.build(ds, transfer_dtype=wire,
+                                             device=dev)
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            row = sum(t[0].numel() * t.element_size() for t in
+                      (store.feats, store.scales, store.spats) if t is not None)
+            t = check_gather(ds, store, wire, dev)
+            print(f"phase 10d {'int8' if int8 else 'f32'} store, {wire} wire: "
+                  f"{store.describe()}, built in {t_build:.1f} s; "
+                  f"estimate_hbm_bytes {est} vs hbm_bytes {store.hbm_bytes} "
+                  f"(the sentinel row {row}); auto: build={build} {why} "
+                  f"(budget {budget / 2**30:.2f} GiB, {src}); "
+                  f"{GATHER_BATCHES} batches of {TRAIN_B} bit-equal to the "
+                  f"wire path; gather {t['gather']:.3f} ms, the wire batch's "
+                  f"upload {t['pageable']:.3f} ms blocking from pageable "
+                  f"memory, {t['pinned']:.3f} ms through the PinnedUploader "
+                  f"({t['staged'] / 1e6:.3f} MB staged a batch) (CUDA "
+                  f"events, medians)")
+            assert build and store.hbm_bytes == est + row
+            if (int8, wire) in ((False, "float32"), (True, "int8")):
+                kept[(int8, wire)] = (ds, store)
+            else:
+                del store
+        del fs
+    torch.cuda.empty_cache()
+
+    fields = [{k: x for k, x in numpy_batch(cfg, TRAIN_B, seed=1000 + i,
+                                            boxes=1, real_boxes=1,
+                                            target=True).items() if k != "v"}
+              for i in range(ITERS)]
+    rng = np.random.default_rng(7)
+    for (int8, wire), (ds, store) in kept.items():
+        upload = PinnedUploader(dev)
+        order = [rng.integers(0, len(ds), TRAIN_B) for _ in range(ITERS)]
+        calls = iter(range(10 ** 9))
+
+        def next_batch():
+            i = next(calls) % ITERS
+            db = upload(fields[i])
+            db.update(store.gather(order[i]))
+            return db
+
+        label = (f"B={TRAIN_B}, from the {'int8' if int8 else 'float32'} "
+                 f"store ({wire} wire)")
+        print(f"phase 10e {label}: the host's time to enqueue a batch (medians "
+              f"of 20): the fields' upload (q, a, target [{TRAIN_B}, "
+              f"{cfg.num_ans_candidates}] float32, staged) "
+              f"{host_ms(lambda: upload(fields[0]), runs=20):.3f} ms, the "
+              f"gather {host_ms(lambda: store.gather(order[0]), runs=20):.3f} ms")
+        counts, n_steps, step_ms = train_throughput(
+            label, next_batch, windows=3, transfer_dtype=wire)
+        path_counts[f"training from the store ({wire})"] = counts
+        assert counts["fused_rank_softmax"] == n_steps, counts
+        assert counts["softmax_vqa_backward"] == n_steps, counts
+        print(f"phase 10e {label}: {TRAIN_B / step_ms * 1e3:.1f} samples/s at "
+              f"the median step, against phase 8b's {TRAIN_B / card_step_ms * 1e3:.1f} "
+              f"with the batch on the card and 8c's "
+              f"{TRAIN_B / wire_step_ms[wire] * 1e3:.1f} from a host batch "
+              f"({wire} wire)")
+    del kept
+
+
+def three_loaders(tag, path_counts, args, out_root, n_train, n_val,
+                  epochs) -> None:
+    """``ffoe_train`` for ``epochs`` epochs three ways: (i) the defaults
+    (the C++ loader and the card-resident store, ``auto``), (ii) the C++
+    loader with ``--device_features off`` (page-locked uploads), (iii)
+    phase 9's Python loader; seconds an epoch, samples/s and the loader's
+    share of the training part (means of the epochs after the first), and
+    the per-step losses of (i) and (ii) against (iii)'s."""
+    steps, evals = n_train // TRAIN_B, -(-n_val // (2 * TRAIN_B))
+    runs = {"(iii) Python loader": ["--no_native_loader", "--device_features",
+                                    "off"],
+            "(ii) C++ loader, --device_features off": ["--device_features",
+                                                       "off"],
+            "(i) C++ loader and the store (defaults)": []}
+    losses = {}
+    for label, extra in runs.items():
+        out = os.path.join(out_root, label[1:label.index(")")])
+        counts, record, wall = run_train(
+            f"ffoe_train {label} ({tag})", args + extra + [
+                "--output", out, "--epochs", str(epochs)], path_counts)
+        text, _, _, secs = log_of(os.path.join(out, "log.txt"))
+        losses[label] = np.array([float(x) for r in record
+                                  for x in r["losses"]])
+        rest = record[1:]
+        train_s = statistics.mean(r["train"] for r in rest)
+        wait_s = statistics.mean(r["wait"] for r in rest)
+        step_s = statistics.mean(r["step"] for r in rest)
+        decided = [ln for ln in text.splitlines()
+                   if "feature store" in ln or "native loader" in ln]
+        print(f"phase {tag} {label}: {statistics.mean(secs[1:]):.3f} s an "
+              f"epoch (log.txt, epochs 1-{epochs - 1}, {steps} steps each); "
+              f"training "
+              f"{train_s:.3f} s ({steps * TRAIN_B / train_s:.1f} samples/s), "
+              f"the loader {wait_s:.3f} s ({wait_s / train_s:.1%}), the host "
+              f"in step calls {step_s:.3f} s ({step_s / train_s:.1%}); "
+              f"{wall:.1f} s in all; log: {decided}; launches {counts}")
+        assert counts["fused_rank_softmax"] == epochs * (steps + evals)
+        assert len(losses[label]) == epochs * steps
+        if label.startswith("(i)"):
+            assert any(ln.startswith("device feature store: ")
+                       for ln in decided), decided
+            assert any(ln.startswith("eval device feature store: ")
+                       for ln in decided), decided
+        else:
+            assert not decided, decided
+    want = losses["(iii) Python loader"]
+    for label in list(runs)[1:]:
+        err = float(np.max(np.abs(losses[label] - want) / np.abs(want)))
+        print(f"phase {tag} per-step losses, {label} vs (iii): largest "
+              f"relative difference {err:.3e} over {len(want)} steps (tol "
+              f"{LOOP_TOL:.0e})")
+        assert err <= LOOP_TOL, (label, err)
+
+
+def phase10_loop(cfg, path_counts, p9) -> None:
+    """(f) ``ffoe_train`` on phase 9's dataroot and widths for
+    ``LOOP_EPOCHS`` epochs three ways (:func:`three_loaders`).  Then
+    ``ffoe_test`` on phase 9's epoch-9 checkpoint with
+    ``--device_features on`` and ``off`` (and epoch 10 with it on), and
+    ``vqatpu_torch.cli.ensemble`` on two of the exported logit files."""
+    from vqatpu_torch.cli import ensemble, ffoe_test
+
+    n_val = p9["n_val"]
+    three_loaders("10f", path_counts, p9["args"],
+                  os.path.join(p9["tmp"].name, "loop"), p9["n_train"], n_val,
+                  LOOP_EPOCHS)
+    exported = {}
+    for name, epoch, mode in (("on", "9", "on"), ("off", "9", "off"),
+                              ("on10", "10", "on")):
+        results = os.path.join(p9["tmp"].name, f"results_{name}")
+        paths = ffoe_test.main(p9["args"] + [
+            "--split", "val", "--input", p9["out"], "--epoch", epoch,
+            "--results", results, "--logits", "1", "--device_features",
+            mode])
+        with np.load(paths["raw_logits"]) as z:
+            exported[name] = (paths["raw_logits"], z["logits"],
+                              z["question_ids"])
+    e_dev = float(np.abs(exported["on"][1] - exported["off"][1]).max())
+    print(f"phase 10f ffoe_test --device_features on vs off (epoch 9): "
+          f"{exported['on'][1].shape} logits, max_abs_err {e_dev:.3e} (tol "
+          f"{EXPORT_TOL:.0e})")
+    assert e_dev <= EXPORT_TOL and np.array_equal(exported["on"][2],
+                                                  exported["off"][2])
+    results = os.path.join(p9["tmp"].name, "results_ensemble")
+    paths = ensemble.main(["--inputs", exported["on"][0], exported["on10"][0],
+                           "--dataroot", p9["root"], "--split", "val",
+                           "--results", results, "--name", "epochs9_10",
+                           "--teacher_pkl"])
+    with open(paths["json"]) as f:
+        answers = json.load(f)
+    mean = (exported["on"][1] + exported["on10"][1]) / 2
+    qids = exported["on"][2]
+    expect = {int(q): p9["labels"][int(x.argmax())] for q, x in zip(qids, mean)}
+    agree = sum(expect[a["question_id"]] == a["answer"] for a in answers)
+    print(f"phase 10f ensemble of epochs 9 and 10: {len(answers)} answers in "
+          f"{os.path.basename(paths['json'])}, {agree} equal to the argmax of "
+          f"the mean logits; teacher pkl {os.path.basename(paths['teacher_logits'])}")
+    assert len(answers) == n_val and agree == n_val
+
+
+def phase10_depth(cfg, path_counts, p9) -> None:
+    """(g) The loop's loader wait at depth: :func:`three_loaders` on a
+    dataroot of ``DEEP_TRAIN`` train questions over ``DEEP_IMAGES`` images
+    (phase 9's widths and box counts), ``DEEP_EPOCHS`` epochs of 64 steps,
+    where phase 10f's 4 steps an epoch are dominated by each epoch's start."""
+    from vqatpu_torch.data.synthetic import make_vqa_fixture
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        root = os.path.join(tmp.name, "data_vqa")
+        make_vqa_fixture(root, n_train=DEEP_TRAIN, n_val=DEEP_VAL,
+                         n_images=DEEP_IMAGES, v_dim=cfg.v_dim, seed=1)
+        for name in ("trainval_ans2label.pkl", "trainval_label2ans.pkl"):
+            shutil.copy(os.path.join(p9["root"], "cache", name),
+                        os.path.join(root, "cache", name))
+        print(f"phase 10g dataroot: {DEEP_TRAIN} train and {DEEP_VAL} val "
+              f"questions over {DEEP_IMAGES} images, made in "
+              f"{time.perf_counter() - t0:.1f} s")
+        args = list(p9["args"])
+        args[args.index("--dataroot") + 1] = root
+        three_loaders("10g", path_counts, args, os.path.join(tmp.name, "loop"),
+                      DEEP_TRAIN, DEEP_VAL, DEEP_EPOCHS)
+    finally:
+        tmp.cleanup()
 
 
 def sass_hmma(lib: Path) -> dict:
@@ -1645,21 +2156,22 @@ def main() -> int:
         step that wait for the card (``torch.cuda.set_sync_debug_mode``),
         the launches per step, and a ``torch.profiler`` table of 3 steps
         with the card's busy share.
-        -> (launch counts, steps, median step ms, the port's kernels' ms a
-        step)."""
+        ``batch`` is a batch, or a function that gives each step's.
+        -> (launch counts, steps, median step ms)."""
+        next_batch = batch if callable(batch) else (lambda: batch)
         state = make_train_state(build_model(cfg), seed=0, device="cuda")
         step = make_train_step(state.model, TrainConfig(
             update_freq=1, batch_size=TRAIN_B, **tcfg))
         gen = torch.Generator(device=dev).manual_seed(1)
         for _ in range(WARMUP):
-            m = step(state, batch, 1e-3, gen)
+            m = step(state, next_batch(), 1e-3, gen)
         float(m["loss"])
         torch.cuda.synchronize()
         with warnings.catch_warnings(record=True) as waits:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
             try:
-                m = step(state, batch, 1e-3, gen)
+                m = step(state, next_batch(), 1e-3, gen)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         waits = [str(w.message).splitlines()[0] for w in waits
@@ -1675,7 +2187,7 @@ def main() -> int:
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 t1 = time.perf_counter()
-                m = step(state, batch, 1e-3, gen)
+                m = step(state, next_batch(), 1e-3, gen)
                 enqueue.append(time.perf_counter() - t1)
                 end.record()
                 events.append((start, end))
@@ -1697,7 +2209,7 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(prof_steps):
-                m = step(state, batch, 1e-3, gen)
+                m = step(state, next_batch(), 1e-3, gen)
             torch.cuda.synchronize()
         averages = prof.key_averages()
         print(f"torch.profiler, {prof_steps} training steps, {label} (times "
@@ -1760,7 +2272,16 @@ def main() -> int:
     del db, batch, host8
 
     # -- 9. the entry points on the card: ffoe_train, resume, ffoe_test ---
-    phase9(cfg, path_counts, wire_step_ms["float32"], step_ms)
+    p9 = phase9(cfg, path_counts, wire_step_ms["float32"], step_ms)
+
+    # -- 10. the host runtime, the card-resident store, the loop 3 ways ---
+    phase10_host_runtime(cfg)
+    phase10_int8_serving(cfg, model, labels, golden, gb, path_counts)
+    phase10_store(cfg, dev, train_throughput, path_counts, step_ms,
+                  wire_step_ms)
+    phase10_loop(cfg, path_counts, p9)
+    phase10_depth(cfg, path_counts, p9)
+    p9["tmp"].cleanup()
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

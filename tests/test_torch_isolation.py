@@ -31,6 +31,9 @@ import vqatpu_torch.ops.losses, vqatpu_torch.numerics
 import vqatpu_torch.cli.ffoe_train, vqatpu_torch.cli.ffoe_test
 import vqatpu_torch.data.synthetic, vqatpu_torch.data.tfidf
 import vqatpu_torch.train.loop, vqatpu_torch.eval.ffoe
+import vqatpu_torch.eval.tdiuc, vqatpu_torch.cli.evaluate_tdiuc
+import vqatpu_torch.cli.ensemble, vqatpu_torch.data.device_store
+import vqatpu_torch.data.native, vqatpu_torch.data.upload
 from vqatpu_torch.train.checkpoints import restore_train_state
 from vqatpu_torch.config import ModelConfig, TrainConfig
 from vqatpu_torch.serve import InferenceSession
@@ -51,6 +54,11 @@ m = step(state, {"v": rs.randn(2, 5, 16).astype(np.float32),
                  "target": rs.rand(2, 7).astype(np.float32)},
          1e-3, torch.Generator().manual_seed(0))
 assert np.isfinite(m["loss"].item()) and state.step == 1
+q8, _ = vqatpu_torch.data.native.quantize_rows(rs.randn(3, 16))
+assert q8.dtype == np.int8  # the port's host runtime, built and loaded
+with open("/proc/self/maps") as f:
+    libs = sorted({line.split()[-1] for line in f if ".so" in line})
+print(json.dumps(libs))
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -71,6 +79,12 @@ def test_port_runs_without_jax_or_vqatpu(tmp_path):
     modules = json.loads(proc.stdout.splitlines()[-1])
     assert "vqatpu_torch.weights" in modules
     assert [m for m in modules if _is_forbidden(m)] == []
+    # the port's own runtime is loaded, never the JAX package's
+    libs = json.loads(proc.stdout.splitlines()[-2])
+    assert any(lib.startswith(str(ROOT / "vqatpu_torch" / "_build" /
+                                  "libvqadata-")) for lib in libs), libs
+    assert not [lib for lib in libs if "libvqadata" in lib
+                and not lib.startswith(str(ROOT / "vqatpu_torch"))], libs
 
 
 def _imports(path: Path):
@@ -87,3 +101,38 @@ def _imports(path: Path):
 def test_no_source_imports_jax_or_vqatpu(path):
     """Every import statement, also those inside functions."""
     assert [m for m in _imports(path) if _is_forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", [ROOT / "chip_smoke.py",
+                                  *sorted((ROOT / "vqatpu_torch").rglob("*.py")),
+                                  *sorted((ROOT / "vqatpu_torch").rglob("*.cc"))],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_names_the_jax_native_runtime(path):
+    """Neither the JAX package's library nor its binding: the port builds
+    and loads its own copy (``vqatpu_torch/native/vqadata.cc``)."""
+    text = path.read_text()
+    for name in ("native/libvqadata.so", "vqatpu.data.native"):
+        assert name not in text, name
+
+
+@pytest.mark.parametrize("cli", ["ffoe_train", "ffoe_test", "serve",
+                                 "evaluate_tdiuc", "ensemble"])
+def test_entry_points_default_to_cuda(cli):
+    """The CLIs that touch a device default to ``--device cuda``, and so do
+    ``train()`` and ``DeviceFeatureStore.build``; evaluate_tdiuc and
+    ensemble touch no device and take no ``--device``."""
+    import importlib
+    import inspect
+
+    from vqatpu_torch.data.device_store import DeviceFeatureStore
+    from vqatpu_torch.train.loop import train
+
+    mod = importlib.import_module(f"vqatpu_torch.cli.{cli}")
+    source = inspect.getsource(mod)
+    if cli in ("evaluate_tdiuc", "ensemble"):
+        assert "--device" not in source and "import torch" not in source
+        return
+    parse = getattr(mod, "parse_args", None) or mod.build_parser().parse_args
+    assert parse([]).device == "cuda"
+    for fn in (train, DeviceFeatureStore.build):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

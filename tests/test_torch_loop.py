@@ -342,12 +342,11 @@ def test_out_of_memory_step_is_skipped_and_counted(roots, tmp_path,
 
 
 @pytest.mark.parametrize("option", ["orbax", "tp", "num_devices", "profile",
-                                    "device_features", "shard"])
+                                    "shard"])
 def test_unported_loop_options_raise(roots, tmp_path, option):
     kw = {"orbax": dict(cfg=dict(ckpt_backend="orbax")), "tp": dict(tp=2),
           "num_devices": dict(num_devices=2),
           "profile": dict(profile_dir=str(tmp_path / "p")),
-          "device_features": dict(cfg=dict(device_features="on")),
           "shard": dict(cfg=dict(shard_feature_store=True))}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         port_loop(roots, str(tmp_path / "x"), 1, **kw)
@@ -407,7 +406,9 @@ def test_cli_train_and_test_write_the_jax_artifacts(roots, tmp_path):
         os.listdir(out))
     text = open(os.path.join(out, "log.txt")).read()
     assert text.count("train_loss:") == 10
-    assert "native loader OFF (not ported: ROADMAP queue A item 4b)" in text
+    # the defaults: the features on the card (auto), no host loader message
+    assert "\ndevice feature store: " in text
+    assert "native loader OFF" not in text
     ffoe_train.main(["--model", "cti", "--dataroot", root, "--output", out,
                      "--epochs", "11", "--input",
                      os.path.join(out, "model_epoch9.ckpt"), *SMALL_ARGS])

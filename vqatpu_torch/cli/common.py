@@ -8,11 +8,13 @@ gives meaning to (``--rng_impl``, ``--kernel_backend``,
 ``--compilation_cache_dir``) says so in its help and selects nothing here;
 a flag whose machinery is not ported yet refuses the values that would
 change what runs (``--coordinator``, ``--tp``, ``--num_devices`` > 1,
-``--device_features on``, ``--shard_feature_store``, ``--ckpt_backend
-orbax``, ``--profile_dir``, ``--mask_replay``, ``--fused_v_tucker`` with
-dropout, a ``--v_block_size`` below the box count, models other than CTI)
-or says in the log that it is off (``--native_loader``,
-``--device_features auto``).  No flag that changes results is ignored."""
+``--shard_feature_store``, ``--ckpt_backend orbax``, ``--profile_dir``,
+``--mask_replay``, ``--fused_v_tucker`` with dropout, a ``--v_block_size``
+below the box count, models other than CTI).  No flag that changes results
+is ignored.  ``--native_loader`` (the default) assembles batches in the
+port's C++ runtime and ``--device_features auto`` (the default) puts the
+features on the card where they fit; the log says what each decided and
+why, as JAX's does."""
 
 from __future__ import annotations
 
@@ -91,9 +93,11 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "always does)")
     parser.add_argument("--native_loader", action="store_true", default=True,
                         help="use the C++ prefetch data loader (the "
-                             "default; it yields the Python loader's batches; "
-                             "not ported, ROADMAP queue A item 4b: the log "
-                             "says the Python loader runs)")
+                             "default; it yields the Python loader's "
+                             "batches; built at first use with the host's "
+                             "g++ into vqatpu_torch/_build; a streaming "
+                             "store takes the Python loader, said in the "
+                             "log)")
     parser.add_argument("--no_native_loader", dest="native_loader",
                         action="store_false",
                         help="force the pure-Python BatchLoader")
@@ -114,14 +118,17 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         default="auto", choices=("auto", "on", "off"),
                         help="upload the feature store to the card once and "
                              "gather v/b by index there (batches "
-                             "bit-identical to the wire path); not ported, "
-                             "ROADMAP queue A item 4e: auto (default) logs "
-                             "that it is off, on raises, off disables")
+                             "bit-identical to the wire path): auto (the "
+                             "default) where the tables fit half the card's "
+                             "free memory (VQATPU_DEVSTORE_BUDGET_MB "
+                             "overrides), on wherever the dataset is in "
+                             "memory, off never; the log says why not")
     parser.add_argument("--shard_feature_store", action="store_true",
                         default=False,
                         help="row-shard the card's feature tables across "
                              "the mesh's data axis; implies "
-                             "--device_features (not ported: raises)")
+                             "--device_features (not ported, ROADMAP queue A "
+                             "item 9: raises)")
     parser.add_argument("--sparse_targets", action="store_true",
                         default=False,
                         help="with --device_features: ship targets as "

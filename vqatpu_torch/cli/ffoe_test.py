@@ -2,6 +2,9 @@
 ``src/FFOE/test.py``): load ``{--input}/model_epoch{--epoch}.ckpt``, sweep
 ``--split`` and write the EvalAI JSON, the CTI teacher-logit pkl for the
 distillation loop, and with ``--logits`` the raw logits (``.npz``).
+``--device_features`` (auto by default) sweeps with the split's features on
+the card where they fit; ``--native_loader`` (the default) assembles host
+batches in C++ otherwise.
 
 Usage:  python -m vqatpu_torch.cli.ffoe_test --model cti --split val \\
             --input saved_models/cti --epoch 12 --results results
@@ -19,6 +22,8 @@ from vqatpu_torch.cli.common import (add_common_args, model_config_from_args,
                                      validate_args)
 from vqatpu_torch.data.batching import make_eval_loader
 from vqatpu_torch.data.datasets import TDIUCFeatureDataset, VQAFeatureDataset
+from vqatpu_torch.data.device_store import (DeviceFeatureStore,
+                                            devstore_decision)
 from vqatpu_torch.data.dictionary import Dictionary
 from vqatpu_torch.eval.ffoe import export_results, get_logits
 from vqatpu_torch.models import build_model
@@ -48,10 +53,10 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     validate_args(args)
-    if args.device_features == "on" or args.shard_feature_store:
+    if args.shard_feature_store:
         raise NotImplementedError(
-            "the card-resident eval feature store is not ported (ROADMAP "
-            "queue A item 4e)")
+            "the row-sharded device feature store (--shard_feature_store) "
+            "spans several devices: not ported (ROADMAP queue A item 9)")
     dataroot = args.TDIUC_dir if args.use_TDIUC else args.dataroot
     dictionary = Dictionary.load_from_file(os.path.join(dataroot, "dictionary.pkl"))
     ds_cls = TDIUCFeatureDataset if args.use_TDIUC else VQAFeatureDataset
@@ -64,15 +69,30 @@ def main(argv=None):
     load_jax_params(model, load_params_any(args.input, args.epoch))
     model = model.to(args.device).eval()
 
-    if args.device_features == "auto":
-        print("device feature store OFF (not ported: ROADMAP queue A item "
-              "4e); using host wire")
-    if args.native_loader:
-        print("native loader OFF (not ported: ROADMAP queue A item 4b); "
-              "using Python loader")
-    loader = make_eval_loader(eval_dset, args.batch_size)
-    logits, qids = get_logits(model, loader, compute_dtype=args.compute_dtype,
-                              transfer_dtype=args.transfer_dtype)
+    # the sweep with the features on the card (auto: where the split fits
+    # the budget): the loader ships the fields and ds_idx, the eval gathers
+    # v/b there; the logits are the wire path's
+    dev_store = None
+    build, why = devstore_decision(eval_dset, args.device_features,
+                                   args.transfer_dtype, device=args.device)
+    if build:
+        dev_store = DeviceFeatureStore.build(
+            eval_dset, transfer_dtype=args.transfer_dtype, device=args.device)
+        print(f"device feature store: {dev_store.describe()}")
+    elif why:
+        print(f"device feature store OFF ({why}); using host wire")
+    loader = make_eval_loader(eval_dset, args.batch_size,
+                              use_native=args.native_loader,
+                              quantize=(args.transfer_dtype == "int8"),
+                              fields_only=dev_store is not None)
+    try:
+        logits, qids = get_logits(model, loader,
+                                  compute_dtype=args.compute_dtype,
+                                  transfer_dtype=args.transfer_dtype,
+                                  dev_store=dev_store)
+    finally:
+        if hasattr(loader, "close"):
+            loader.close()
     if args.debug:
         e = eval_dset.entries[0]
         idx2word = dictionary.idx2word

@@ -65,11 +65,12 @@ class TrainConfig:
 
     ``rng_impl`` and ``data_axis`` select TPU machinery of the JAX package
     and nothing here.  The epoch loop (:func:`vqatpu_torch.train.loop.
-    train`) reads the rest: ``device_features="auto"`` builds no card
-    store there (the training device feature store is ROADMAP queue A item
-    4e) and says so in the log, while ``"on"``, ``shard_feature_store`` and
-    ``ckpt_backend="orbax"`` (item 9) raise.  ``compute_dtype`` (float32 or bfloat16) and ``transfer_dtype``
-    (float32, float16, bfloat16 or int8) are ported.  ``distillation``
+    train`) reads the rest: ``device_features`` (``"auto"``, ``"on"``,
+    ``"off"``) decides whether the features go to the card
+    (:mod:`vqatpu_torch.data.device_store`, with ``sparse_targets``), while
+    ``shard_feature_store`` and ``ckpt_backend="orbax"`` (ROADMAP queue A
+    item 9) raise.  ``compute_dtype`` (float32 or bfloat16) and
+    ``transfer_dtype`` (float32, float16, bfloat16 or int8) are ported.  ``distillation``
     applies to BAN and SAN only (``vqatpu/train/steps.py:208``), so the CTI
     step ignores it, as JAX's does.  ``mask_replay`` (not ported: autograd
     keeps the mask) makes :func:`vqatpu_torch.train.make_train_step` raise

@@ -206,13 +206,27 @@ class PrefetchLoader:
             yield b
 
 
-def make_eval_loader(dataset, batch_size: int, fields_only: bool = False):
+def make_eval_loader(dataset, batch_size: int, use_native: bool = True,
+                     quantize: bool = False, fields_only: bool = False):
     """Sequential-sweep loader for eval and inference: no shuffle, the final
-    batch padded with a ``valid`` row mask, assembled on a prefetch thread
-    (``vqatpu/data/batching.py:201-239``).  JAX's native C++ loader, which
-    yields the same bytes, is ROADMAP queue A item 4b; the int8 wire is
-    quantized by ``wire_cast``.  ``fields_only=True`` ships ``ds_idx``
-    instead of the v/b slabs (targets stay dense: eval scores them on the
-    host)."""
-    return PrefetchLoader(BatchLoader(dataset, batch_size,
-                                      fields_only=fields_only))
+    batch padded with a ``valid`` row mask (``vqatpu/data/batching.py:
+    206-239``).  The C++ :class:`~vqatpu_torch.data.native.NativeBatchLoader`
+    where ``use_native`` and every member of the dataset has an in-memory
+    store (``device_store.devstore_capable``); its batches are the Python
+    loader's, bit for bit.  Else (a streaming store would be read whole)
+    the Python ``BatchLoader`` on a prefetch thread.  ``quantize=True`` (for the int8
+    wire) makes the native loader quantize on assembly (``v`` int8 with
+    ``v_scale``); the Python loader's float32 ``v`` is quantized by
+    ``wire_cast``.  ``fields_only=True`` ships ``ds_idx`` instead of the
+    v/b slabs, for the card-resident store (targets stay dense: eval scores
+    them on the host)."""
+    if fields_only:
+        return PrefetchLoader(BatchLoader(dataset, batch_size,
+                                          fields_only=True))
+    from vqatpu_torch.data.device_store import devstore_capable
+
+    if use_native and devstore_capable(dataset)[0]:
+        from vqatpu_torch.data.native import NativeBatchLoader
+
+        return NativeBatchLoader(dataset, batch_size, quantize=quantize)
+    return PrefetchLoader(BatchLoader(dataset, batch_size))

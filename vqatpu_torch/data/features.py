@@ -8,7 +8,8 @@ Layouts:
 
 Every sample is padded to a static ``max_boxes`` (:meth:`FeatureStore.get`).
 ``quantize`` keeps the resident features int8 with a float32 scale per box
-row (:func:`vqatpu_torch.data.quantize.quantize_rows`), 4x less memory.
+row (the C++ :func:`vqatpu_torch.data.native.quantize_rows`), 4x less
+memory.
 ``from_hdf5(in_memory=False)`` keeps the file open and reads each image's
 rows when it is asked for (the streaming mode, for hosts with less memory
 than the split), with the small ``pos_boxes`` table resident; ``close``
@@ -22,7 +23,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from vqatpu_torch.data.quantize import quantize_rows
+from vqatpu_torch.data.native import quantize_rows
 
 # float32 bytes of the HDF5 features quantized at a time by
 # from_hdf5(quantize=True), so the float32 block is never whole in memory

@@ -1,5 +1,5 @@
-"""The host's per-row int8 quantizer, a copy of the numpy branch of
-``vqatpu.data.native.quantize_rows_any`` (``vqatpu/data/native.py:129-146``).
+"""The host's per-row int8 quantizer, a copy of the numpy branch of JAX's
+``quantize_rows_any`` (``vqatpu/data/native.py:129-146``).
 
 ``scale = absmax(row) / 127`` (float32, one per minor row), ``q =
 rint(v / scale)`` int8 with round-half-even, and an all-zero row (box
@@ -7,10 +7,9 @@ padding) takes scale 1 and stays exactly zero.  The largest error an
 element takes is ``absmax / 254``.  Quantization is idempotent:
 re-quantizing ``q * scale`` gives ``(q, scale)`` back bit for bit.
 
-This is numpy only: the JAX package's C++ quantizer (``native/``), which
-reads each row once, is about 8x faster at [256, 50, 2048]
-(``vqatpu/data/native.py:110-115``); its binding waits for ROADMAP queue A
-item 4.
+This is the plain version, which the tests hold the main path's quantizer
+to: :func:`vqatpu_torch.data.native.quantize_rows`, the port's C++ copy of
+the JAX package's, which reads each row once and gives the same bytes.
 """
 
 from __future__ import annotations

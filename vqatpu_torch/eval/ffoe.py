@@ -8,9 +8,12 @@ formats are the JAX package's.
 
 The sweeps run the model's eval step (:func:`vqatpu_torch.train.steps.
 make_eval_step`) on the model's device; a batch is wire-cast on the host
-(``transfer_dtype``) as JAX's ``_eval_batch`` does.  Padded rows
-(``valid`` False) never count.  ``evaluate`` adds the scores on the card,
-in float64, and reads them back once.
+(``transfer_dtype``) as JAX's ``_eval_batch`` does, or, with a
+``dev_store`` (:class:`~vqatpu_torch.data.device_store.DeviceFeatureStore`)
+and a ``fields_only`` loader, its ``v``/``b``/``v_mask`` are gathered on
+the card from the batch's ``ds_idx``.  Padded rows (``valid`` False) never
+count.  ``evaluate`` adds the scores on the card, in float64, and reads
+them back once.
 """
 
 from __future__ import annotations
@@ -28,26 +31,33 @@ from vqatpu_torch.train.steps import make_eval_step, wire_cast
 _EVAL_KEYS = ("v", "v_scale", "b", "q", "a", "v_mask", "target")
 
 
-def _eval_batch(batch: dict, transfer_dtype: str) -> dict:
-    return wire_cast({k: v for k, v in batch.items() if k in _EVAL_KEYS},
-                     transfer_dtype)
+def _eval_batch(batch: dict, transfer_dtype: str, dev_store=None) -> dict:
+    """The wire's fields, and the store's slabs gathered by ``ds_idx``."""
+    ds_idx = batch.pop("ds_idx", None)
+    db = wire_cast({k: v for k, v in batch.items() if k in _EVAL_KEYS},
+                   transfer_dtype)
+    if dev_store is not None:
+        db.update(dev_store.gather(ds_idx))
+    return db
 
 
 def get_logits(model, loader, compute_dtype: str = "float32",
-               transfer_dtype: str = "float32") -> Tuple[np.ndarray, np.ndarray]:
+               transfer_dtype: str = "float32",
+               dev_store=None) -> Tuple[np.ndarray, np.ndarray]:
     """Sweep the loader; -> (pred [N, num_ans] float32, qids [N])."""
     eval_step = make_eval_step(model, compute_dtype=compute_dtype)
     preds, qids = [], []
     for batch in loader:
         valid = batch.pop("valid")
-        out = eval_step(_eval_batch(batch, transfer_dtype))
+        out = eval_step(_eval_batch(batch, transfer_dtype, dev_store))
         preds.append(out["logits"].cpu().numpy()[valid])
         qids.append(batch["qid"][valid])
     return np.concatenate(preds, 0), np.concatenate(qids, 0)
 
 
 def evaluate(model, loader, compute_dtype: str = "float32",
-             transfer_dtype: str = "float32") -> Tuple[float, float]:
+             transfer_dtype: str = "float32",
+             dev_store=None) -> Tuple[float, float]:
     """Soft accuracy and its upper bound over a val loader
     (``FFOE/train.py:119-149``), as fractions of the valid rows."""
     eval_step = make_eval_step(model, compute_dtype=compute_dtype)
@@ -57,7 +67,7 @@ def evaluate(model, loader, compute_dtype: str = "float32",
     n = 0
     for batch in loader:
         valid = batch.pop("valid")
-        db = _eval_batch(batch, transfer_dtype)
+        db = _eval_batch(batch, transfer_dtype, dev_store)
         # a padded row's target is zero already; masking by ``valid``, as
         # JAX does, keeps the sums exact for any loader
         db["target"] = np.where(valid[:, None], db["target"], 0.0).astype(

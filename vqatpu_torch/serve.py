@@ -50,7 +50,7 @@ import torch
 from vqatpu_torch.config import ModelConfig
 from vqatpu_torch.data.device_store import store_flat_arrays, store_rows_table
 from vqatpu_torch.data.features import FeatureStore
-from vqatpu_torch.data.quantize import quantize_rows
+from vqatpu_torch.data.native import quantize_rows
 from vqatpu_torch.models import build_model
 from vqatpu_torch.numerics import check_f32_math, require_f32_math
 from vqatpu_torch.train.steps import wire_cast

@@ -12,16 +12,30 @@ when the eval score beats ``best_eval``, which rides in the checkpoint's
 
 The step's metrics stay on the card: each update adds its loss, pre-clip
 grad norm and batch score to running sums there, read back only every
-``print_interval`` updates and at the end of the epoch.  Batches come from
-the Python ``BatchLoader`` on a prefetch thread (shuffled by its own
-``RandomState(cfg.seed)``, drawn once an epoch), as JAX's fallback loader.
+``print_interval`` updates and at the end of the epoch.
 
-Not ported, and so refused or logged rather than ignored: the native C++
-loader (ROADMAP queue A item 4b; ``use_native_loader`` logs that it is
-off, as JAX does when its library is missing), the training card-resident
-feature store (item 4e; ``device_features="auto"`` logs that it builds none,
-``"on"`` and ``shard_feature_store`` raise), meshes over several devices,
-``tp > 1``, several processes and orbax checkpoints (item 9), and
+Where batches come from (JAX's rules and log lines, ``loop.py:47-160``):
+
+- ``cfg.device_features`` (``auto`` by default, ``on``, ``off``) decides,
+  after the train state is on the device, whether the training set's
+  features go to the card (:class:`~vqatpu_torch.data.device_store.
+  DeviceFeatureStore`); then the loader ships the fields and ``ds_idx``
+  only (the Python ``BatchLoader(fields_only=True)``, sparse targets with
+  ``cfg.sparse_targets``) and each step gathers its boxes on the card.
+  The in-loop eval builds its own store once, on the first eval epoch.
+- Else ``use_native_loader`` gives the C++ ``NativeBatchLoader`` (page-
+  locked ring buffers where CUDA is available; quantized on assembly on
+  the int8 wire) where the dataset has an in-memory store, and the Python
+  ``BatchLoader`` on a prefetch thread otherwise, with the reason in the
+  log.  Both are shuffled by a ``RandomState(cfg.seed)`` drawn once an
+  epoch and yield the same batches.
+- Host batches go to the card through a
+  :class:`~vqatpu_torch.data.upload.PinnedUploader`: page-locked, double
+  buffered, the upload of batch n+1 beside step n.
+
+Not ported, and so refused rather than ignored: the row-sharded store
+(``shard_feature_store``), meshes over several devices, ``tp > 1``, several
+processes and orbax checkpoints (ROADMAP queue A item 9), and
 ``profile_dir`` (item 10).  An out-of-memory error of the card
 (``torch.cuda.OutOfMemoryError``) skips its batch, drops the accumulation
 window and is counted (the reference's policy, ``FFOE/trainer.py:206-219``);
@@ -39,33 +53,75 @@ import torch
 
 from vqatpu_torch.config import TrainConfig
 from vqatpu_torch.data.batching import (BatchLoader, PrefetchLoader,
-                                        make_eval_loader)
+                                        make_eval_loader, max_target_labels)
+from vqatpu_torch.data.device_store import (DeviceFeatureStore,
+                                            devstore_capable,
+                                            devstore_decision,
+                                            normalize_device_features)
+from vqatpu_torch.data.upload import PinnedUploader
 from vqatpu_torch.eval.ffoe import evaluate as evaluate_ffoe
 from vqatpu_torch.train.checkpoints import save_checkpoint
 from vqatpu_torch.train.logging import Logger, time_since
 from vqatpu_torch.train.optim import lr_for_epoch
 from vqatpu_torch.train.steps import (TrainState, make_train_state,
-                                      make_train_step)
+                                      make_train_step, wire_cast)
 
 _FFOE_KEYS = ("v", "v_scale", "b", "q", "a", "v_mask", "target",
               "t_label", "t_score", "t_logits")
 _SUM_KEYS = ("loss", "grad_norm", "batch_score")
+_UNSET = object()
 
 
 def count_params(model) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
-def _make_loader(dataset, cfg: TrainConfig, use_native: bool, logger=None):
-    """The shuffled training loader: the Python ``BatchLoader`` on a
-    prefetch thread.  JAX prefers its native C++ loader, which yields the
-    same batches; asked for it, this says that it is off and why."""
+def _make_loader(dataset, cfg: TrainConfig, use_native: bool, logger=None,
+                 dev_store=None):
+    """The shuffled training loader (``vqatpu/train/loop.py:59-92``): with a
+    card-resident store, the Python fields-only loader; else the C++
+    ``NativeBatchLoader`` where asked for and the dataset can take it (with
+    ``transfer_dtype="int8"`` it quantizes on assembly, and ``wire_cast``
+    passes the quantized ``v`` through), else the Python loader on a
+    prefetch thread, the reason in the log."""
+    if dev_store is not None:
+        k = max_target_labels(dataset) if cfg.sparse_targets else 0
+        return PrefetchLoader(BatchLoader(
+            dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
+            drop_last=True, fields_only=True, sparse_target_k=k))
+    if use_native and devstore_capable(dataset)[0]:
+        from vqatpu_torch.data.native import NativeBatchLoader
+
+        return NativeBatchLoader(
+            dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
+            drop_last=True, quantize=(cfg.transfer_dtype == "int8"))
     if use_native and logger is not None:
-        logger.write("native loader OFF (not ported: ROADMAP queue A item "
-                     "4b); using Python loader")
+        logger.write("native loader OFF (dataset has no in-memory "
+                     "FeatureStore (streaming or MC)); using Python loader")
     return PrefetchLoader(
         BatchLoader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
                     drop_last=True))
+
+
+def _make_device_store(dataset, cfg: TrainConfig, logger, device,
+                       what: str = ""):
+    """The card-resident store per ``cfg.device_features``
+    (``vqatpu/train/loop.py:115-160``); a decline is logged with its
+    reason, except under ``off``."""
+    mode = normalize_device_features(cfg.device_features)
+    if mode == "off":
+        return None
+    build, why = devstore_decision(dataset, mode, cfg.transfer_dtype,
+                                   device=device)
+    if not build:
+        tag = "auto-OFF" if mode == "auto" else "OFF"
+        logger.write(f"{what}device feature store {tag} ({why}); "
+                     "using host wire")
+        return None
+    store = DeviceFeatureStore.build(
+        dataset, transfer_dtype=cfg.transfer_dtype, device=device)
+    logger.write(f"{what}device feature store: {store.describe()}")
+    return store
 
 
 def _refuse_unported(cfg: TrainConfig, task: str, use_mesh: bool,
@@ -85,12 +141,11 @@ def _refuse_unported(cfg: TrainConfig, task: str, use_mesh: bool,
     if profile_dir:
         raise NotImplementedError(
             "profile_dir is not ported (ROADMAP queue A item 10)")
-    if cfg.device_features not in ("auto", "on", "off"):
-        raise ValueError(f"unknown device_features {cfg.device_features!r}")
-    if cfg.device_features == "on" or cfg.shard_feature_store:
+    normalize_device_features(cfg.device_features)  # raises if unknown
+    if cfg.shard_feature_store:
         raise NotImplementedError(
-            "the training device feature store is not ported (ROADMAP queue "
-            "A item 4e)")
+            "the row-sharded device feature store (shard_feature_store) "
+            "spans several devices: not ported (ROADMAP queue A item 9)")
 
 
 def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
@@ -113,17 +168,21 @@ def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
     _refuse_unported(cfg, task, use_mesh, num_devices, tp, profile_dir)
     os.makedirs(output, exist_ok=True)
     logger = Logger(os.path.join(output, "log.txt"))
+    loaders = []  # the C++ loaders' worker threads end with the run
     try:
         return _train(model, train_ds, eval_ds, cfg, output, state,
                       start_epoch, tfidf_loaded, print_interval,
-                      use_native_loader, best_eval, device, logger)
+                      use_native_loader, best_eval, device, logger, loaders)
     finally:
+        for loader in loaders:
+            if hasattr(loader, "close"):
+                loader.close()
         logger.close()
 
 
 def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
            tfidf_loaded, print_interval, use_native_loader, best_eval,
-           device, logger) -> TrainState:
+           device, logger, loaders) -> TrainState:
     logger.write(f"config: {cfg}")
     if state is None:
         state = make_train_state(model, seed=cfg.seed,
@@ -138,12 +197,17 @@ def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
         % (cfg.lr, cfg.lr_decay_step, cfg.lr_decay_rate, cfg.clip_norm)
     )
     step_fn = make_train_step(model, cfg, tfidf_loaded)
-    if cfg.device_features == "auto":
-        logger.write("device feature store auto-OFF (not ported: ROADMAP "
-                     "queue A item 4e); using host wire")
-    loader = _make_loader(train_ds, cfg, use_native_loader, logger=logger)
-    eval_loader = None  # built on the first eval epoch, then reused
     dev = next(model.parameters()).device
+    # decided after the state is on the device: the auto budget sees the
+    # memory the model and the optimizer leave free
+    dev_store = _make_device_store(train_ds, cfg, logger, dev)
+    loader = _make_loader(train_ds, cfg, use_native_loader, logger=logger,
+                          dev_store=dev_store)
+    loaders.append(loader)
+    eval_loader = None  # built on the first eval epoch, then reused
+    # the eval's store, built at most once, where the training set's is
+    eval_store = _UNSET if dev_store is not None else None
+    upload = PinnedUploader(dev)
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
 
     wall_start = time.time()
@@ -165,7 +229,11 @@ def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
         n_batches = len(loader)
         micro_count = 0  # the step's accumulation count, known on the host
         for i, batch in enumerate(loader):
-            db = {k: batch[k] for k in _FFOE_KEYS if k in batch}
+            db = upload(wire_cast({k: batch[k] for k in _FFOE_KEYS
+                                   if k in batch}, cfg.transfer_dtype))
+            if dev_store is not None:
+                db.update(dev_store.gather(batch["ds_idx"]))
+            del batch  # the native loader reuses buffers nothing refers to
             # the reference flushes accumulation on each epoch's last batch
             # (FFOE/train.py:78-82): windows never straddle epochs
             force = cfg.update_freq > 1 and (i == n_batches - 1)
@@ -214,10 +282,17 @@ def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
         if eval_ds is not None:
             # the reference evaluates with a 2x batch (FFOE/main.py:146)
             if eval_loader is None:
-                eval_loader = make_eval_loader(eval_ds, cfg.batch_size * 2)
+                if eval_store is _UNSET:
+                    eval_store = _make_device_store(eval_ds, cfg, logger, dev,
+                                                    what="eval ")
+                eval_loader = make_eval_loader(
+                    eval_ds, cfg.batch_size * 2, use_native=use_native_loader,
+                    quantize=(cfg.transfer_dtype == "int8"),
+                    fields_only=eval_store is not None)
+                loaders.append(eval_loader)
             eval_score, bound = evaluate_ffoe(
                 model, eval_loader, compute_dtype=cfg.compute_dtype,
-                transfer_dtype=cfg.transfer_dtype)
+                transfer_dtype=cfg.transfer_dtype, dev_store=eval_store)
 
         logger.write("epoch %d, time: %.2f" % (epoch, time.time() - t0))
         logger.write("\ttrain_loss: %.2f, norm: %.4f, score: %.2f"

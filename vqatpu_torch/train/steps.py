@@ -29,10 +29,12 @@ off for cuBLAS and cuDNN, as in serving (:mod:`vqatpu_torch.numerics`).
 inside the differentiated forward (``torch.func.functional_call``,
 ``steps.py:225-231``), with ``v`` cast to bf16; gradients, the clip,
 Adamax, the loss and the logits stay float32, and the model is never
-converted.  ``transfer_dtype`` narrows the batch on the host
+converted.  ``transfer_dtype`` narrows a host batch before its copy
 (:func:`wire_cast`: float16, bfloat16, or int8 ``v`` with a ``v_scale`` and
-float16 ``b``); the step dequantizes and upcasts on the card
-(:func:`upcast_wire`) before it computes.  Eval takes ``compute_dtype``
+float16 ``b``); a batch whose values are all tensors on the model's device
+has been through the wire already (the training loop's upload, the
+card-resident store's gather) and is taken as it is.  The step dequantizes
+and upcasts on the card (:func:`upcast_wire`) before it computes.  Eval takes ``compute_dtype``
 too and accepts wire-cast batches.
 """
 
@@ -47,7 +49,7 @@ from torch import nn
 from torch.func import functional_call
 
 from vqatpu_torch.config import TrainConfig
-from vqatpu_torch.data.quantize import quantize_rows
+from vqatpu_torch.data.native import quantize_rows
 from vqatpu_torch.numerics import check_f32_math, require_f32_math
 from vqatpu_torch.ops.losses import bce_with_logits_sum
 from vqatpu_torch.ops.module import Ctx
@@ -108,10 +110,11 @@ def _to_bf16(x) -> torch.Tensor:
 def wire_cast(db: dict, transfer_dtype: str = "float32") -> dict:
     """The host half of the wire (``steps.py:124-149``): shrink ``v`` and
     ``b`` before they are copied to the card.  ``int8`` ships ``v``
-    quantized per box (:func:`~vqatpu_torch.data.quantize.quantize_rows`,
-    JAX's ``quantize_v``) with a float32 ``v_scale`` and ``b`` as float16;
-    a ``v`` that already has its ``v_scale`` passes through untouched.
-    ``float16`` gives numpy arrays, ``bfloat16`` host torch tensors."""
+    quantized per box by the C++ quantizer
+    (:func:`~vqatpu_torch.data.native.quantize_rows`, JAX's ``quantize_v``)
+    with a float32 ``v_scale`` and ``b`` as float16; a ``v`` that already
+    has its ``v_scale`` passes through untouched.  ``float16`` gives numpy
+    arrays, ``bfloat16`` host torch tensors."""
     if transfer_dtype == "float32":
         return db
     if transfer_dtype == "int8":
@@ -255,8 +258,10 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
             model.train()
         params = state.optimizer.params
         dev = params[0].device
-        batch = upcast_wire(_on_device(wire_cast(batch, cfg.transfer_dtype),
-                                       dev))
+        if not all(torch.is_tensor(x) and x.device == dev
+                   for x in batch.values()):
+            batch = wire_cast(batch, cfg.transfer_dtype)
+        batch = upcast_wire(_on_device(batch, dev))
         batch = densify_target(batch, n_ans)
         ctx = (ctx_factory() if ctx_factory is not None else
                Ctx(train=not cfg.deterministic, generator=generator,
