@@ -118,6 +118,33 @@ at ``compute_dtype="bfloat16"``).  Then:
     ``--device_features on`` and ``off`` and the ensemble CLI on two
     exports; (g) the same three ways at depth: 16,384 train questions over
     2,048 images, 3 epochs of 64 steps.
+11. BAN (with the counter, 10 objects) and SAN (2 stacks) at the same full
+    width, which launch none of the three CUDA kernels (their launch counts
+    are recorded and checked to be zero): (a) logits at B=4 from
+    ``numpy_params(cfg, 0)`` (BAN also without the counter) on every wire
+    against the CPU path on the same wire and, on the float32 wire,
+    JAX's goldens ``tests/data/torch_{ban,san}_golden.npz`` (1e-3); at
+    bf16 compute within 2x JAX's own largest bf16 error + 1e-4 (BAN
+    without the counter and SAN on ``torch_{ban,san}_golden*.npz``; BAN
+    with the counter, served and through the eval step, on the B=32 golden
+    ``torch_ban_golden_bf16_n32.npz``, a sample over it printed with its
+    soft counts);
+    (b) BAN over HTTP (JSON and npz ``/answer`` and ``/logits`` of 1, 5
+    and 40 rows with spatials and no answer tokens), by id from a store of
+    300 images on the card (float32 and int8 tables, spatials gathered
+    there), and every bucket of BAN and SAN at float32 and bf16 timed end
+    to end and on the card; (c) three deterministic BAN steps (counter and
+    distillation) at B=4 against JAX's golden trajectory
+    ``torch_ban_train_golden.npz`` and the CPU path (1e-4), then samples/s
+    at B=256 with dropout on for BAN and SAN at float32 and bf16, the
+    median step on CUDA events, the card's idle share from a
+    ``torch.profiler`` trace and its table of the ten costliest CUDA ops of
+    a BAN step; (d) the distillation loop through the CLIs on phase 9's
+    dataroot: phase 9's CTI checkpoint is the teacher, ``ffoe_test --split
+    train`` writes its logits, ``ffoe_train --model ban --use_counter
+    --distillation`` trains 10 epochs three ways (Python loader, C++
+    loader, card-resident store; per-step losses within 1e-5) and
+    ``ffoe_test --model ban`` writes the EvalAI JSON.
 
 Each path (serving at each wire and compute dtype, the logits path in
 float32 and bf16, by-id serving, training in float32 and bf16, each entry
@@ -920,6 +947,484 @@ def phase10_depth(cfg, path_counts, p9) -> None:
                       DEEP_TRAIN, DEEP_VAL, DEEP_EPOCHS)
     finally:
         tmp.cleanup()
+
+
+# phase 11: BAN (with the counter) and SAN at the full width of bench.py
+BAN_CFG = dict(CFG, model="ban", use_counter=True)  # objects=10, gamma=2
+SAN_CFG = dict(CFG, model="san", num_stacks=2)
+BYID_IMAGES = 300   # phase 11b's by-id store
+KD_EPOCHS = 10      # phase 11d: epoch 9 is the first checkpoint (saving_epoch)
+
+
+def bf16_error(got, golden16, golden32):
+    """-> (each sample's largest error of ``got`` against JAX's float32
+    logits, the budget: 2x JAX's own largest bf16 error plus 1e-4)."""
+    err = np.abs(got - golden32).max(1)
+    return err, BF16_BUDGET * float(np.abs(golden16 - golden32).max()) + 1e-4
+
+
+def counter_counts(model, fn):
+    """Run ``fn`` and return the soft count of each of ``model``'s counter
+    calls (one per glimpse), [G, B] float64: its output is the confidence
+    times the one-hot interpolated between the count's two bins, so the
+    count is the output's mean bin."""
+    counts = []
+
+    def hook(module, args, out):
+        o = out.detach().double().cpu()
+        k = torch.arange(o.shape[1], dtype=torch.float64)
+        counts.append(((o * k).sum(1) / o.sum(1)).numpy())
+
+    handle = model.counter.register_forward_hook(hook)
+    try:
+        fn()
+    finally:
+        handle.remove()
+    return np.stack(counts)
+
+
+def check_ban_counter_bf16(mcfg, cpu_model, labels, sess16, z) -> None:
+    """BAN with the counter at bf16 on the B=32 golden ``z``, served (``b``
+    bf16) and through the eval step (``b`` float32), every sample within
+    the budget.  The soft count is ill-conditioned at bf16 in both
+    packages (tests/test_torch_ban.py): B=4 gives too few samples of
+    JAX's own error to set the budget.  A sample over it is printed with
+    its count per glimpse on the card and, alone, on the CPU at bf16 and
+    at float32 (``cpu_model``, float32 on the CPU)."""
+    from vqatpu_torch.serve import InferenceSession
+    from vqatpu_torch.train import make_eval_step
+    from vqatpu_torch.weights import numpy_batch
+
+    assert (int(z["n"]), int(z["param_seed"])) == (32, 0), "other golden"
+    gb = numpy_batch(mcfg, 32, seed=int(z["batch_seed"]), boxes=V,
+                     real_boxes=REAL_BOXES)
+    dev_model = copy.deepcopy(cpu_model).to("cuda").eval()
+    cpu16 = InferenceSession(cpu_model, labels, compute_dtype="bfloat16",
+                             device="cpu")
+    cpu32 = InferenceSession(cpu_model, labels, device="cpu")
+
+    def served(sess, rows):
+        return sess.logits(gb["v"][rows], gb["b"][rows], gb["q"][rows])
+
+    def evaluated(model, rows):
+        batch = {k: x[rows] for k, x in gb.items()}
+        return make_eval_step(model, compute_dtype="bfloat16")(batch)[
+            "logits"].float().cpu().numpy()
+
+    paths = (  # label, card model, card run, CPU bf16 model, CPU bf16 run
+        ("served", sess16.model, lambda r: served(sess16, r), cpu16.model,
+         lambda r: served(cpu16, r), z["logits_bf16"]),
+        ("eval step", dev_model, lambda r: evaluated(dev_model, r),
+         cpu_model, lambda r: evaluated(cpu_model, r), z["logits_eval"]))
+    everything = slice(None)
+    for label, card, run, cpu_card, cpu_run, golden16 in paths:
+        got = []
+        counts = counter_counts(card, lambda: got.append(run(everything)))
+        err, bound = bf16_error(got[0], golden16, z["logits"])
+        over = np.flatnonzero(err > bound)
+        print(f"phase 11a ban {label} at bf16 (B=32): vs JAX's float32 "
+              f"golden largest {err.max():.3e}, median {np.median(err):.3e}; "
+              f"samples over the budget {bound:.3e} (2 x JAX's own largest "
+              f"bf16 error + 1e-4): {over.tolist()}")
+        for i in over:
+            rows = slice(i, i + 1)
+            c16 = counter_counts(cpu_card, lambda: cpu_run(rows))[:, 0]
+            c32 = counter_counts(cpu_model, lambda: served(cpu32, rows))[:, 0]
+            print(f"phase 11a ban {label} sample {i}: error {err[i]:.3e}; "
+                  f"soft count per glimpse: card bf16 "
+                  f"{np.round(counts[:, i], 4).tolist()}, CPU bf16 "
+                  f"{np.round(c16, 4).tolist()}, CPU float32 "
+                  f"{np.round(c32, 4).tolist()}")
+        assert np.isfinite(got[0]).all() and over.size == 0, (
+            label, over, err[over], bound)
+    del dev_model
+
+
+def zero_launches(label, path_counts):
+    """The launch counts of a phase-11 path, which runs none of the CTI
+    kernels: recorded beside the other paths and checked to be zero."""
+    from vqatpu_torch.kernels import trilinear as K
+    torch.cuda.synchronize()
+    path_counts[label] = counts = dict(K.launches)
+    assert sum(counts.values()) == 0, (label, counts)
+
+
+def phase11_logits(path_counts) -> dict:
+    """(a) Full-width BAN (with the counter, and without it) and SAN from
+    ``numpy_params(cfg, 0)`` at B=4 on the card: every wire at float32
+    compute against the port's CPU path on the same wire and the float32
+    wire against JAX's float32 golden (``SERVE_TOL``); bf16 compute within
+    the budget of JAX's bf16 golden (served: ``b`` bf16), BAN with the
+    counter on the B=32 golden (:func:`check_ban_counter_bf16`).  -> the
+    served models' config, model, labels and float32 and bf16 sessions."""
+    from vqatpu_torch.config import ModelConfig
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.serve import InferenceSession
+    from vqatpu_torch.weights import load_jax_params, numpy_batch, numpy_params
+
+    data = ROOT / "tests" / "data"
+    ban, ban16 = np.load(data / "torch_ban_golden.npz"), np.load(
+        data / "torch_ban_golden_bf16.npz")
+    z32 = np.load(data / "torch_ban_golden_bf16_n32.npz")
+    san = np.load(data / "torch_san_golden.npz")
+    cases = (  # name, config, float32 golden, bf16 golden, seeds' file
+        ("ban", BAN_CFG, ban["logits"], ban16["logits"], ban),
+        ("ban without the counter", dict(BAN_CFG, use_counter=False),
+         ban["logits_nocounter"], ban16["logits_nocounter"], ban),
+        ("san", SAN_CFG, san["logits"], san["logits_bf16"], san))
+    out = {}
+    for name, kw, golden32, golden16, z in cases:
+        mcfg = ModelConfig(**kw)
+        assert int(z["param_seed"]) == 0, "golden made from other weights"
+        params = numpy_params(mcfg, 0)
+        model = load_jax_params(build_model(mcfg), params)
+        labels = [f"ans{i}" for i in range(mcfg.num_ans_candidates)]
+        gb = numpy_batch(mcfg, int(z["n"]), seed=int(z["batch_seed"]),
+                         boxes=V, real_boxes=REAL_BOXES)
+        args = (gb["v"], gb["b"], gb["q"])
+        cpu_model = load_jax_params(build_model(mcfg), params)
+        K.reset_launches()
+        sessions = {}
+        for wire in ("float32", "float16", "bfloat16", "int8"):
+            sess = InferenceSession(model, labels, transfer_dtype=wire,
+                                    device="cuda")
+            sessions[wire] = sess
+            got = sess.logits(*args)
+            cpu = InferenceSession(cpu_model, labels, transfer_dtype=wire,
+                                   device="cpu").logits(*args)
+            assert got.shape == cpu.shape and np.isfinite(got).all()
+            e_gold = float(np.abs(got - golden32).max())
+            e_cpu = float(np.abs(got - cpu).max())
+            # a narrowed wire changes the inputs: held to the CPU path on the
+            # same wire, the float32 wire to JAX's golden as well
+            print(f"phase 11a {name} wire={wire}: vs the CPU path on the same "
+                  f"wire {e_cpu:.3e} (tol {SERVE_TOL:.0e}); vs JAX's float32 "
+                  f"golden {e_gold:.3e}"
+                  + (f" (tol {SERVE_TOL:.0e})" if wire == "float32" else
+                     " (the wire's rounding of v and b)"))
+            assert e_cpu <= SERVE_TOL, e_cpu
+            assert wire != "float32" or e_gold <= SERVE_TOL, e_gold
+        sess16 = InferenceSession(model, labels, compute_dtype="bfloat16",
+                                  device="cuda")
+        if name == "ban":
+            check_ban_counter_bf16(mcfg, cpu_model, labels, sess16, z32)
+        else:
+            got16 = sess16.logits(*args)
+            err, bound = bf16_error(got16, golden16, golden32)
+            print(f"phase 11a {name} served at bf16: vs JAX's float32 golden "
+                  f"{err.max():.3e} (budget {bound:.3e}: 2 x JAX's own "
+                  f"largest bf16 error + 1e-4)")
+            assert np.isfinite(got16).all() and err.max() <= bound, (
+                err.max(), bound)
+        zero_launches(f"phase 11a {name}", path_counts)
+        if name in ("ban", "san"):
+            out[name] = (mcfg, model, labels, sessions["float32"], sess16)
+    return out
+
+
+def phase11_serving(models, path_counts, median_ms) -> None:
+    """(b) BAN over HTTP (JSON and npz ``/answer`` and ``/logits`` of 1, 5
+    and 40 rows with spatials and no answer tokens) against the session and
+    the CPU path; by-id serving from a card-resident store of
+    ``BYID_IMAGES`` images (float32 and int8 tables, the spatials gathered
+    on the card); every bucket of BAN and SAN at float32 and bf16 timed end
+    to end (host clock) and on the card (CUDA events)."""
+    from vqatpu_torch.cli.serve import serve_in_thread
+    from vqatpu_torch.data import Dictionary
+    from vqatpu_torch.data.features import FeatureStore
+    from vqatpu_torch.data.quantize import quantize_rows
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.serve import InferenceSession, ResidentFeatures
+    from vqatpu_torch.weights import numpy_batch
+
+    mcfg, model, labels, session, _ = models["ban"]
+    cpu = InferenceSession(copy.deepcopy(model).cpu(), labels, device="cpu")
+    dictionary = Dictionary()
+    dictionary.tokenize("what color is the cat how many people", add_word=True)
+    K.reset_launches()
+    server = serve_in_thread(session, dictionary, "ban", 0)
+    port = server.server_address[1]
+    try:
+        for n in (1, 5, 40):
+            b = numpy_batch(mcfg, n, seed=1100 + n, boxes=V,
+                            real_boxes=REAL_BOXES)
+            arrays = {"features": b["v"], "spatials": b["b"],
+                      "question_tokens": b["q"]}
+            as_json = {k: x.tolist() for k, x in arrays.items()}
+            direct = session.logits(b["v"], b["b"], b["q"])
+            want = cpu.logits(b["v"], b["b"], b["q"])
+            served = [np.asarray(post(port, "/logits", arrays, npz=True)["logits"]),
+                      np.asarray(post(port, "/logits", as_json)["logits"])]
+            answers = [post(port, "/answer", arrays, npz=True)["answers"],
+                       post(port, "/answer", as_json)["answers"]]
+            expect = [labels[i] for i in direct.argmax(1)]
+            assert all(a == expect for a in answers), (n, answers, expect)
+            err = max(float(np.abs(x - want).max()) for x in served + [direct])
+            print(f"phase 11b BAN over HTTP, n={n}: {len(expect)} answers "
+                  f"agree; served vs CPU logits max_abs_err {err:.3e} (tol "
+                  f"{SERVE_TOL:.0e})")
+            assert err <= SERVE_TOL, err
+    finally:
+        server.shutdown()
+        server.server_close()
+    zero_launches("phase 11b BAN over HTTP", path_counts)
+
+    gen = np.random.default_rng(11)
+    n_boxes = gen.integers(10, 101, BYID_IMAGES)
+    ends = np.cumsum(n_boxes)
+    corners = np.sort(gen.random((int(ends[-1]), 2, 2), dtype=np.float32), -1)
+    spats = np.concatenate([corners[..., 0], corners[..., 1],
+                            corners[..., 1] - corners[..., 0]], 1)
+    store = FeatureStore(gen.standard_normal((int(ends[-1]), mcfg.v_dim),
+                                             dtype=np.float32), spats,
+                         np.stack([ends - n_boxes, ends], 1))
+    img_ids = 200_000 + np.arange(BYID_IMAGES)
+    rf = ResidentFeatures(store, {int(i): k for k, i in enumerate(img_ids)},
+                          max_boxes=V)
+    ids = gen.choice(img_ids, 128, replace=False)
+    q_id = numpy_batch(mcfg, 128, seed=1200, boxes=1, real_boxes=1)["q"]
+    byid = InferenceSession(model, labels, device="cuda")
+    K.reset_launches()
+    for quantize in (False, True):
+        byid.attach_features(rf, placement="device", quantize=quantize)
+        worst = 0.0
+        for n in (1, 5, 40, 128):
+            got = byid.logits_by_id(ids[:n], q_id[:n])
+            v_g, b_g = rf.gather(ids[:n])
+            if quantize:  # the rows as the int8 tables hold them
+                q8, scale = quantize_rows(v_g)
+                v_g = q8.astype(np.float32) * scale[..., None]
+            want = session.logits(v_g, b_g, q_id[:n])
+            worst = max(worst, float(np.abs(got - want).max()))
+        print(f"phase 11b BAN by id, {'int8' if quantize else 'float32'} tables "
+              f"on the card: vs the upload path on the same rows and spatials, "
+              f"max_abs_err {worst:.3e} (tol {BYID_TOL:.0e})")
+        assert worst <= BYID_TOL, worst
+    for n in byid.batch_buckets:  # int8 tables
+        e2e = median_ms(lambda: byid.logits_by_id(ids[:n], q_id[:n]),
+                        on_card=False)
+        rows_d, q_d = (torch.from_numpy(x).cuda() for x in (
+            byid._rows_table[rf.image_index(ids[:n])], q_id[:n]))
+        on_card = median_ms(lambda: byid.forward_by_id(rows_d, q_d),
+                            on_card=True)
+        print(f"phase 11b BAN by-id bucket {n} (int8 tables): logits_by_id "
+              f"{e2e:.3f} ms ({n / e2e * 1e3:.0f} rows/s); on the card: "
+              f"gather, dequantize and forward {on_card:.3f} ms")
+    zero_launches("phase 11b BAN by id", path_counts)
+    del byid, rf, store
+
+    K.reset_launches()
+    for name, (mcfg, _, _, sess32, sess16) in models.items():
+        for compute, sess in (("float32", sess32), ("bfloat16", sess16)):
+            for n in sess.batch_buckets:
+                b = numpy_batch(mcfg, n, seed=1300 + n, boxes=V,
+                                real_boxes=REAL_BOXES)
+                e2e = median_ms(lambda: sess.logits(b["v"], b["b"], b["q"]),
+                                on_card=False)
+                host, _ = sess.pack(b["v"], b["q"], b=b["b"])
+                dev_b = sess.upload(host)
+                fwd = median_ms(lambda: sess.forward(dev_b), on_card=True)
+                print(f"phase 11b {name} bucket {n} compute={compute}: "
+                      f"session.logits {e2e:.3f} ms ({n / e2e * 1e3:.0f} "
+                      f"rows/s); forward on the card {fwd:.3f} ms")
+    zero_launches("phase 11b serving buckets", path_counts)
+
+
+def phase11_train_step_rate(label, mcfg, db, compute_dtype, profile_table):
+    """Samples/s of the train step at B=256 with dropout on (windows of
+    ITERS steps, each ending in a value readback), the median step on CUDA
+    events, and from a ``torch.profiler`` trace of 3 steps the card's busy
+    and idle share; with ``profile_table`` the ten costliest CUDA ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqatpu_torch.config import TrainConfig
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.train import make_train_state, make_train_step
+
+    state = make_train_state(build_model(mcfg), seed=0, device="cuda")
+    step = make_train_step(state.model, TrainConfig(
+        update_freq=1, batch_size=TRAIN_B, distillation=True,
+        compute_dtype=compute_dtype))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(WARMUP):
+        m = step(state, db, 1e-3, gen)
+    float(m["loss"])
+    thr, events = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(state, db, 1e-3, gen)
+            end.record()
+            events.append((start, end))
+        loss = float(m["loss"])
+        thr.append(TRAIN_B * ITERS / (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in events)
+    assert np.isfinite(loss), loss
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step(state, db, 1e-3, gen)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in averages
+               if e.device_type == DeviceType.CUDA) / 1e3 / 3
+    print(f"phase 11c training {label}: {statistics.median(thr):.1f} samples/s "
+          f"(median of 3 windows of {ITERS} steps, best {max(thr):.1f}); median "
+          f"step on CUDA events {step_ms:.3f} ms; kernels on the card "
+          f"{busy:.3f} ms a step ({busy / step_ms:.1%}, idle "
+          f"{1 - busy / step_ms:.1%}); last loss {loss:.3f}")
+    if profile_table:
+        print(f"torch.profiler, 3 training steps, {label} (times summed over "
+              "them):")
+        print(averages.table(sort_by="self_device_time_total", row_limit=10))
+    return step_ms
+
+
+def phase11_training(models, path_counts) -> None:
+    """(c) Three deterministic steps at B=4 for BAN with the counter and
+    distillation against JAX's golden trajectory
+    ``tests/data/torch_ban_train_golden.npz`` and the CPU path (TRAIN_TOL);
+    then B=256 with dropout on for BAN and SAN, float32 and bf16."""
+    from vqatpu_torch.config import TrainConfig
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.train import make_train_state, make_train_step
+    from vqatpu_torch.weights import (jax_params_from_torch, numpy_batch,
+                                      param_stats)
+
+    mcfg = models["ban"][0]
+    tg = np.load(ROOT / "tests" / "data" / "torch_ban_train_golden.npz")
+    n, steps, lr = int(tg["n"]), int(tg["steps"]), float(tg["lr"])
+    batches = [numpy_batch(mcfg, n, seed=int(tg["batch_seed"]) + i,
+                           target=True, teacher=True) for i in range(steps)]
+    K.reset_launches()
+    traj = {}
+    for device in ("cuda", "cpu"):
+        state = make_train_state(build_model(mcfg), seed=int(tg["param_seed"]),
+                                 device=device)
+        step = make_train_step(state.model, TrainConfig(
+            update_freq=1, deterministic=True, distillation=True))
+        metrics = [step(state, b, lr) for b in batches]
+        rec = {k: np.array([float(m[k]) for m in metrics])
+               for k in ("loss", "grad_norm", "batch_score")}
+        stats = param_stats(jax_params_from_torch(state.model.state_dict()))
+        rec.update({f"param_{k}": v for k, v in stats.items()})
+        traj[device] = rec
+        if device == "cuda":
+            zero_launches("phase 11c BAN trajectory", path_counts)
+        del state, step, metrics
+
+    def err(got, want):
+        assert (got["param_names"] == want["param_names"]).all()
+        e = max(float(np.max(np.abs(got[k] - want[k]) / np.abs(want[k])))
+                for k in ("loss", "grad_norm", "param_l2", "param_l1"))
+        return max(e, float(np.max(np.abs(got["param_sum"] - want["param_sum"])
+                                   / want["param_l1"])))
+
+    golden = {k: tg[k] for k in tg.files}
+    e_gold, e_cpu = err(traj["cuda"], golden), err(traj["cuda"], traj["cpu"])
+    print(f"phase 11c BAN (counter, distillation) trajectory, {steps} steps at "
+          f"B={n}, lr {lr}: loss {traj['cuda']['loss'].tolist()}, grad_norm "
+          f"{traj['cuda']['grad_norm'].tolist()}; largest relative error vs "
+          f"JAX's golden {e_gold:.3e}, vs the CPU path {e_cpu:.3e} (tol "
+          f"{TRAIN_TOL:.0e}; per-step metrics, per-leaf norms and sums of "
+          f"{len(golden['param_names'])} leaves)")
+    assert e_gold <= TRAIN_TOL and e_cpu <= TRAIN_TOL, (e_gold, e_cpu)
+
+    for name, (mcfg, *_rest) in models.items():
+        batch = numpy_batch(mcfg, TRAIN_B, seed=0, target=True, teacher=True)
+        batch["v_mask"] = np.abs(batch["v"]).sum(-1) != 0
+        db = {k: torch.from_numpy(x).cuda() for k, x in batch.items()}
+        K.reset_launches()
+        for compute in ("float32", "bfloat16"):
+            phase11_train_step_rate(
+                f"{name.upper()} B={TRAIN_B}, compute_dtype={compute}, "
+                "distillation, batch on the card", mcfg, db, compute,
+                profile_table=(name == "ban" and compute == "float32"))
+        zero_launches(f"phase 11c {name} training", path_counts)
+        del db
+
+
+def phase11_kd_loop(path_counts, p9) -> None:
+    """(d) The distillation loop through the CLIs on phase 9's dataroot and
+    widths: phase 9's CTI run (``ffoe_train --model cti``, 10 epochs) is
+    the teacher; ``ffoe_test --split train`` writes its logits, which
+    ``ffoe_train --model ban --use_counter --distillation`` reads from the
+    dataroot three ways (the Python loader, the C++ loader, the store;
+    per-step losses within LOOP_TOL); ``ffoe_test --model ban`` on epoch 9
+    writes the EvalAI JSON."""
+    from vqatpu_torch.cli import ffoe_test
+    from vqatpu_torch.kernels import trilinear as K
+
+    root, tmp = p9["root"], p9["tmp"].name
+    K.reset_launches()
+    t0 = time.perf_counter()
+    paths = ffoe_test.main(p9["args"] + [
+        "--split", "train", "--input", p9["out"], "--epoch", "9",
+        "--results", os.path.join(tmp, "teacher")])
+    torch.cuda.synchronize()
+    path_counts["phase 11d ffoe_test cti --split train"] = dict(K.launches)
+    with open(paths["teacher_logits"], "rb") as f:
+        teacher = pickle.load(f)
+    shutil.copy(paths["teacher_logits"],
+                os.path.join(root, "train_teacher_logits.pkl"))
+    print(f"phase 11d teacher: ffoe_test --model cti --split train wrote "
+          f"{len(teacher)} logits in {time.perf_counter() - t0:.1f} s")
+    assert len(teacher) == p9["n_train"]
+
+    args = list(p9["args"])
+    args[args.index("--model") + 1] = "ban"
+    args += ["--use_counter", "--distillation"]
+    steps = p9["n_train"] // TRAIN_B
+    runs = {"(iii) Python loader": ["--no_native_loader", "--device_features",
+                                    "off"],
+            "(ii) C++ loader": ["--device_features", "off"],
+            "(i) C++ loader and the store (defaults)": []}
+    losses = {}
+    for label, extra in runs.items():
+        out = os.path.join(tmp, "ban_kd", label[1:label.index(")")])
+        counts, record, wall = run_train(
+            f"phase 11d ffoe_train ban {label}", args + extra + [
+                "--output", out, "--epochs", str(KD_EPOCHS)], path_counts)
+        text, log_losses, scores, secs = log_of(os.path.join(out, "log.txt"))
+        losses[label] = np.array([float(x) for r in record
+                                  for x in r["losses"]])
+        rest = record[1:]
+        train_s = statistics.mean(r["train"] for r in rest)
+        wait_s = statistics.mean(r["wait"] for r in rest)
+        print(f"phase 11d ffoe_train --model ban --use_counter --distillation "
+              f"{label}: {KD_EPOCHS} epochs of {steps} steps in {wall:.1f} s, "
+              f"{statistics.mean(secs[1:]):.3f} s an epoch (log.txt); training "
+              f"{steps * TRAIN_B / train_s:.1f} samples/s, the loader "
+              f"{wait_s / train_s:.1%}; losses {log_losses}; eval {scores}")
+        assert sum(counts.values()) == 0, counts
+        assert len(losses[label]) == KD_EPOCHS * steps
+        assert all(np.isfinite(losses[label]))
+        assert ("device feature store: " in text) == label.startswith("(i)")
+    want = losses["(iii) Python loader"]
+    for label in list(runs)[1:]:
+        e = float(np.max(np.abs(losses[label] - want) / np.abs(want)))
+        print(f"phase 11d per-step losses, {label} vs (iii): largest relative "
+              f"difference {e:.3e} over {len(want)} steps (tol {LOOP_TOL:.0e})")
+        assert e <= LOOP_TOL, (label, e)
+
+    K.reset_launches()
+    paths = ffoe_test.main(args[:-1] + [
+        "--split", "val", "--input", os.path.join(tmp, "ban_kd", "i"),
+        "--epoch", "9", "--results", os.path.join(tmp, "results_ban")])
+    zero_launches("phase 11d ffoe_test ban", path_counts)
+    with open(paths["json"]) as f:
+        answers = json.load(f)
+    print(f"phase 11d ffoe_test --model ban --use_counter: {len(answers)} "
+          f"EvalAI answers in {os.path.basename(paths['json'])}; no teacher "
+          f"pkl ({sorted(paths)})")
+    assert len(answers) == p9["n_val"] and set(paths) == {"json"}
 
 
 def sass_hmma(lib: Path) -> dict:
@@ -2281,6 +2786,14 @@ def main() -> int:
                   wire_step_ms)
     phase10_loop(cfg, path_counts, p9)
     phase10_depth(cfg, path_counts, p9)
+
+    # -- 11. BAN (counter, distillation) and SAN: serve, train, evaluate --
+    del model
+    models = phase11_logits(path_counts)
+    phase11_serving(models, path_counts, median_ms)
+    phase11_training(models, path_counts)
+    del models
+    phase11_kd_loop(path_counts, p9)
     p9["tmp"].cleanup()
 
     for r in rows:

@@ -34,6 +34,9 @@ import vqatpu_torch.train.loop, vqatpu_torch.eval.ffoe
 import vqatpu_torch.eval.tdiuc, vqatpu_torch.cli.evaluate_tdiuc
 import vqatpu_torch.cli.ensemble, vqatpu_torch.data.device_store
 import vqatpu_torch.data.native, vqatpu_torch.data.upload
+import vqatpu_torch.ops.bilinear, vqatpu_torch.ops.counter
+from vqatpu_torch.models import build_model
+from vqatpu_torch.weights import load_jax_params, numpy_batch, numpy_params
 from vqatpu_torch.train.checkpoints import restore_train_state
 from vqatpu_torch.config import ModelConfig, TrainConfig
 from vqatpu_torch.serve import InferenceSession
@@ -54,6 +57,18 @@ m = step(state, {"v": rs.randn(2, 5, 16).astype(np.float32),
                  "target": rs.rand(2, 7).astype(np.float32)},
          1e-3, torch.Generator().manual_seed(0))
 assert np.isfinite(m["loss"].item()) and state.step == 1
+for name in ("ban", "san"):  # the new models, through the port alone
+    small = ModelConfig(ntoken=30, v_dim=16, num_ans_candidates=7,
+                        model=name, num_hid=16, use_counter=True)
+    model = load_jax_params(build_model(small), numpy_params(small, 1))
+    nb = numpy_batch(small, 2, boxes=5, real_boxes=4, target=True,
+                     teacher=True)
+    sess = InferenceSession(model, list("abcdefg"), device="cpu")
+    assert np.isfinite(sess.logits(nb["v"], nb["b"], nb["q"])).all()
+    state = make_train_state(model, device="cpu")
+    m = make_train_step(model, TrainConfig(update_freq=1, distillation=True))(
+        state, nb, 1e-3, torch.Generator().manual_seed(0))
+    assert np.isfinite(m["loss"].item())
 q8, _ = vqatpu_torch.data.native.quantize_rows(rs.randn(3, 16))
 assert q8.dtype == np.int8  # the port's host runtime, built and loaded
 with open("/proc/self/maps") as f:
@@ -78,6 +93,8 @@ def test_port_runs_without_jax_or_vqatpu(tmp_path):
     assert proc.returncode == 0, proc.stderr
     modules = json.loads(proc.stdout.splitlines()[-1])
     assert "vqatpu_torch.weights" in modules
+    assert {"vqatpu_torch.ops.bilinear", "vqatpu_torch.ops.counter"} <= set(
+        modules)
     assert [m for m in modules if _is_forbidden(m)] == []
     # the port's own runtime is loaded, never the JAX package's
     libs = json.loads(proc.stdout.splitlines()[-2])

@@ -274,7 +274,7 @@ def test_bidirectional_gru_weights_are_refused():
 
 
 @pytest.mark.parametrize("task,model", [
-    ("ffoe", "ban"), ("ffoe", "san"), ("mc", "cti"), ("mc", "ban")])
+    ("mc", "cti"), ("mc", "ban"), ("mc", "san"), ("mc", "tan")])
 def test_unported_models_raise(task, model):
     cfg = dataclasses.replace(ModelConfig(**SMALL), task=task, model=model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

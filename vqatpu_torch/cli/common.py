@@ -10,7 +10,8 @@ a flag whose machinery is not ported yet refuses the values that would
 change what runs (``--coordinator``, ``--tp``, ``--num_devices`` > 1,
 ``--shard_feature_store``, ``--ckpt_backend orbax``, ``--profile_dir``,
 ``--mask_replay``, ``--fused_v_tucker`` with dropout, a ``--v_block_size``
-below the box count, models other than CTI).  No flag that changes results
+below the box count).  The free-form models ``ban`` (``--use_counter``),
+``san`` and ``cti`` are ported, with ``--distillation`` for BAN and SAN.  No flag that changes results
 is ignored.  ``--native_loader`` (the default) assembles batches in the
 port's C++ runtime and ``--device_features auto`` (the default) puts the
 features on the card where they fit; the log says what each decided and

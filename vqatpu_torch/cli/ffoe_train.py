@@ -5,6 +5,11 @@ and ``--use_vg``, the tf-idf GloVe init (``--tfidf``) and resume with
 (:func:`vqatpu_torch.weights.numpy_params`, the port's counterpart of the
 JAX ``model.init``), so the two packages start from different weights.
 
+``--model ban|san|cti`` (``--use_counter`` adds BAN's counting branch;
+``--distillation`` trains BAN or SAN against ``{split}_teacher_logits.pkl``
+in the dataroot, the teacher's logits that ``ffoe_test --model cti``
+writes, and is ignored by CTI, as in JAX).
+
 Usage:  python -m vqatpu_torch.cli.ffoe_train --model cti --dataroot data_vqa ...
 (``--device cpu`` runs on the CPU with the kernels' plain versions).
 """
@@ -58,9 +63,10 @@ def main(argv=None):
     if tfidf:
         target = ("TDIUC",) if args.use_TDIUC else ("vqa",)
         names = ("train", "val") if args.use_TDIUC else ("train", "val", "test2015")
-        for key in ("w_emb", "wa_emb"):
-            tfidf_loading(getattr(model, key), dataroot, dictionary,
-                          names=names, target=target)
+        for key in ("w_emb", "wa_emb"):  # CTI's answer stream has its own
+            if hasattr(model, key):
+                tfidf_loading(getattr(model, key), dataroot, dictionary,
+                              names=names, target=target)
 
     start_epoch, best_eval = 0, 0.0
     if args.input is not None:

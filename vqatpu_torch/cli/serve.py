@@ -5,7 +5,8 @@ Endpoints:
 - ``GET  /healthz``  -> {"status": "ok", "model": ...}
 - ``POST /answer``   body: {"features": [[[f]]], "spatials": [[[s]]]?,
                             "question_tokens": [[q]] | "questions": [str],
-                            "answer_tokens": [[a]]}
+                            "answer_tokens": [[a]]?} (answer tokens for
+                     CTI, spatials for BAN with ``--use_counter``)
                      -> {"answers": [...], "latency_ms": ...}
 - ``POST /logits``   same body -> raw logits
 - ``POST /answer_by_id`` / ``/logits_by_id`` (``--feature_split``): body
@@ -25,7 +26,8 @@ endpoints answer 400 without ``--feature_split``.
 
 Run: ``python -m vqatpu_torch.cli.serve --input saved_models/cti --epoch 12
      --dataroot data_vqa --model cti --port 8399 --device cuda
-     [--feature_split val --micro_batch 32]``
+     [--feature_split val --micro_batch 32]`` (``--model ban --use_counter``,
+     ``--model san``: the flags of the checkpoint's training run).
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def model_config_from_args(args, ntoken: int, num_ans: int) -> ModelConfig:
         model="san" if args.model == "stacked_attention" else args.model,
         num_hid=args.num_hid, op=args.op, gamma=args.gamma,
         activation=args.activation, dropout=args.dropout,
-        num_layers=args.num_layers, h_mm=args.h_mm, h_out=args.h_out,
+        num_layers=args.num_layers, use_counter=args.use_counter,
+        num_stacks=args.num_stacks, h_mm=args.h_mm, h_out=args.h_out,
         rank=args.rank, k=args.k)
 
 
@@ -225,6 +228,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["relu", "swish"])
     p.add_argument("--dropout", default=0.5, type=float)
     p.add_argument("--num_layers", default=1, type=int)
+    p.add_argument("--use_counter", action="store_true", default=False,
+                   help="BAN's counting branch (requests then need spatials)")
+    p.add_argument("--num_stacks", default=2, type=int, help="SAN's rounds")
     p.add_argument("--rank", default=32, type=int)
     p.add_argument("--h_out", default=1, type=int)
     p.add_argument("--h_mm", default=512, type=int)

@@ -2,11 +2,14 @@
 and ``vqatpu.config.TrainConfig``.
 
 The fields and defaults are the JAX package's, so a configuration written
-for one side constructs on the other.  The port has one CTI path, that of
-JAX's ``kernel_backend="pallas"`` (the fused attention and pooling kernels,
-and its dtypes at bf16 compute); the blockwise, fused-tucker and remat
-variants are ROADMAP queue A item 8.  ``kernel_backend`` and
-``remat_glimpse`` select nothing here and change no result.
+for one side constructs on the other; the default model, ``ban``, builds.
+The free-form models ``ban`` (``use_counter``, ``objects``), ``san``
+(``num_stacks``) and ``cti`` are ported; the ``mc`` task is ROADMAP queue
+A item 7.  CTI has one path, that of JAX's ``kernel_backend="pallas"``
+(the fused attention and pooling kernels, and its dtypes at bf16
+compute); the blockwise, fused-tucker and remat variants are ROADMAP
+queue A item 8.  ``kernel_backend`` and ``remat_glimpse`` select nothing
+here and change no result.
 ``fused_v_tucker`` changes no eval result (``vqatpu/config.py:47-50``), but
 with dropout on JAX draws one mask on ``v`` for the 1+γ v-side tuckers, so
 :func:`vqatpu_torch.train.make_train_step` refuses it there.

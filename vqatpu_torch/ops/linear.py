@@ -1,5 +1,8 @@
-"""Weight-normalized linear layers and the FCNet MLP stack
-(``vqatpu/ops/linear.py:27-59, 102-130``).
+"""Linear layers and the FCNet MLP stack (``vqatpu/ops/linear.py:27-130``).
+
+:class:`Linear` is a plain ``nn.Linear`` with the JAX tree's leaf names
+``w`` and ``b`` (SAN's attention and heads), :class:`FCSTL` the single
+``Dropout -> Linear -> Tanh`` layer.
 
 ``weight_norm(nn.Linear, dim=None)`` reparameterizes the whole weight by its
 Frobenius norm, ``W = g * v / ||v||_F`` with a scalar ``g``.  The parameters
@@ -56,6 +59,35 @@ class WNLinear(nn.Module):
         if self.b is not None:
             y = y + self.b
         return y
+
+
+class Linear(nn.Module):
+    """Plain ``nn.Linear``, its leaves ``w`` [out, in] and ``b`` [out]."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+        super().__init__()
+        bound = 1.0 / (in_dim ** 0.5)
+        self.w = nn.Parameter(uniform_(torch.empty(out_dim, in_dim), bound))
+        self.b = (nn.Parameter(uniform_(torch.empty(out_dim), bound))
+                  if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(*promote(x, self.w))
+        return y if self.b is None else y + self.b
+
+
+class FCSTL(nn.Module):
+    """``Dropout -> Linear -> Tanh`` (reference ``fc.py:36-44``), the
+    linear at ``l0``."""
+
+    def __init__(self, in_dim: int, out_dim: int, dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.l0 = Linear(in_dim, out_dim)
+
+    def forward(self, x: torch.Tensor,
+                ctx: Optional[Ctx] = None) -> torch.Tensor:
+        return torch.tanh(self.l0(dropout(x, self.dropout, ctx)))
 
 
 class FCNet(nn.Module):

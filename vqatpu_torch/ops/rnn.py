@@ -12,7 +12,8 @@ from torch import nn
 
 
 class QuestionEmbedding(nn.GRU):
-    """``apply_all``: every step's hidden state, [B, T, H]."""
+    """``forward`` (JAX's ``apply_all``): every step's hidden state,
+    [B, T, H]; :meth:`forward_last` (``apply_last``): the last one, [B, H]."""
 
     def __init__(self, in_dim: int, num_hid: int, nlayers: int = 1,
                  dropout: float = 0.0):
@@ -21,3 +22,6 @@ class QuestionEmbedding(nn.GRU):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x)[0]
+
+    def forward_last(self, x: torch.Tensor) -> torch.Tensor:
+        return self(x)[:, -1]

@@ -11,11 +11,14 @@
 - ``transfer_dtype`` narrows the features on the host before they are
   copied to the card: float16, bfloat16 (rounded to nearest even by
   torch: numpy has no bf16) or int8 (per-box symmetric quantization with a
-  float32 scale, dequantized on the card).  CTI takes no spatials, so
-  ``b`` is not shipped.
+  float32 scale, dequantized on the card).  The spatials ``b``, where a
+  request has them, ship in the wire's dtype (float16 on the int8 wire,
+  ``vqatpu/serve.py:283-290``) and are cast to the compute dtype on the
+  card.  BAN with the counter needs them; CTI needs answer tokens; BAN and
+  SAN take none (the model's ``inputs``).
 - ``compute_dtype="bfloat16"`` runs the forward on a bf16 copy of the
-  model that the session holds, cast once; features are cast on the card
-  and the logits come back float32.
+  model that the session holds, cast once; features and spatials are cast
+  on the card and the logits come back float32.
 - By-id serving (:meth:`InferenceSession.attach_features`,
   :class:`ResidentFeatures`, ``:39-143, 300-404``): the features stay with
   the server, and a request carries image ids and tokens.  With
@@ -31,6 +34,8 @@ Usage::
 
     sess = InferenceSession.from_checkpoint(ckpt, model_cfg, label2ans)
     answers = sess.answer(features, spatials, question_tokens, answer_tokens)
+
+(``answer_tokens`` for CTI only, ``spatials`` where the model reads them).
 """
 
 from __future__ import annotations
@@ -195,13 +200,23 @@ class InferenceSession:
         i = bisect.bisect_left(self.batch_buckets, n)
         return self.batch_buckets[min(i, len(self.batch_buckets) - 1)]
 
+    def check_inputs(self, b, a) -> None:
+        """Raise where the model needs answer tokens (CTI) or spatials (BAN
+        with the counter) that a request lacks."""
+        needs = self.model.inputs
+        if "a" in needs and a is None:
+            raise ValueError(f"{self.model.cfg.model} needs answer tokens")
+        if "b" in needs and b is None:
+            raise ValueError(f"{self.model.cfg.model} with the counter needs "
+                             "spatials")
+
     def logits(self, v: np.ndarray, b: Optional[np.ndarray], q: np.ndarray,
                a: Optional[np.ndarray] = None) -> np.ndarray:
         """Batched raw logits [N, num_classes] float32.  ``v`` [N, boxes,
-        v_dim], ``q`` [N, Q] and ``a`` [N, A] int tokens; ``b`` (spatials)
-        is unused by CTI.  N may exceed the largest bucket."""
-        if a is None:
-            raise ValueError("CTI needs answer tokens")
+        v_dim], ``b`` [N, boxes, s_dim] spatials or None, ``q`` [N, Q] and
+        ``a`` [N, A] int tokens or None (:meth:`check_inputs`).  N may
+        exceed the largest bucket."""
+        self.check_inputs(b, a)
         n = v.shape[0]
         if n == 0:
             return np.zeros((0, self.num_classes), np.float32)
@@ -210,15 +225,18 @@ class InferenceSession:
         # host packs chunk i+1 while the card runs chunk i
         outs = []
         for s in range(0, n, largest):
-            host, rows = self.pack(v[s:s + largest], q[s:s + largest],
-                                   a[s:s + largest])
+            host, rows = self.pack(
+                v[s:s + largest], q[s:s + largest],
+                None if a is None else a[s:s + largest],
+                None if b is None else b[s:s + largest])
             outs.append(self.forward(self.upload(host))[:rows])
         return torch.cat(outs).cpu().numpy()
 
-    def pack(self, v, q, a):
+    def pack(self, v, q, a=None, b=None):
         """One chunk's host arrays as the wire ships them: -> (dict of
-        ``v`` (and ``v_scale`` on the int8 wire), ``v_mask``, ``q``, ``a``
-        padded to the bucket; the number of real rows)."""
+        ``v`` (and ``v_scale`` on the int8 wire), ``v_mask``, ``q`` and,
+        where the model reads them, ``a`` and ``b``, padded to the bucket;
+        the number of real rows)."""
         v = v[:, :self.max_boxes]
         n, boxes = v.shape[:2]
         bucket = self._bucket_for(n)
@@ -228,10 +246,17 @@ class InferenceSession:
         mask[:n, :boxes] = np.abs(v).sum(-1) != 0
         qp = np.zeros((bucket, q.shape[1]), np.int64)
         qp[:n] = q
-        ap = np.zeros((bucket, a.shape[1]), np.int64)
-        ap[:n] = a
-        return wire_cast({"v": vp, "v_mask": mask, "q": qp, "a": ap},
-                         self.transfer_dtype), n
+        host = {"v": vp, "v_mask": mask, "q": qp}
+        needs = self.model.inputs
+        if a is not None and "a" in needs:
+            host["a"] = np.zeros((bucket, a.shape[1]), np.int64)
+            host["a"][:n] = a
+        if b is not None and "b" in needs:
+            b = np.asarray(b, np.float32)[:, :self.max_boxes]
+            host["b"] = np.zeros((bucket, self.max_boxes, b.shape[2]),
+                                 np.float32)
+            host["b"][:n, :b.shape[1]] = b
+        return wire_cast(host, self.transfer_dtype), n
 
     def upload(self, host: dict) -> dict:
         """Copy :meth:`pack`'s arrays to the session's device."""
@@ -239,7 +264,7 @@ class InferenceSession:
 
     def forward(self, batch: dict) -> torch.Tensor:
         """float32 logits of a bucket on the device; the wire's ``v`` is
-        dequantized or cast to the compute dtype there
+        dequantized or cast to the compute dtype there, and so is ``b``
         (``vqatpu/serve.py:197-204``)."""
         act = self._act
         v = batch["v"]
@@ -247,10 +272,14 @@ class InferenceSession:
             v = v.to(act) * batch["v_scale"][..., None].to(act)
         elif v.dtype != act:
             v = v.to(act)
+        b = batch.get("b")
+        if b is not None and b.dtype != act:
+            b = b.to(act)
         bucket = v.shape[0]
         with self._lock, torch.inference_mode():
             check_f32_math("serving path")
-            logits, _ = self.model(v, batch["q"], batch["a"], batch["v_mask"])
+            logits, _ = self.model(v, batch["q"], batch.get("a"),
+                                   batch["v_mask"], b=b)
             self.forwards += 1
             self.bucket_calls[bucket] = self.bucket_calls.get(bucket, 0) + 1
         return logits.float()
@@ -302,14 +331,14 @@ class InferenceSession:
     def logits_by_id(self, image_ids: Sequence[int], q: np.ndarray,
                      a: Optional[np.ndarray] = None) -> np.ndarray:
         """Batched raw logits from server-resident features: ``image_ids``
-        [N] (the split's image ids), ``q`` [N, Q] and ``a`` [N, A] tokens.
-        Chunked like :meth:`logits`.  On the card each bucket's boxes are
-        gathered from the resident rows, dequantized, and masked where a
-        row index is the sentinel (``vqatpu/serve.py:333-351``)."""
+        [N] (the split's image ids), ``q`` [N, Q] tokens and ``a`` [N, A]
+        where the model reads them.  Chunked like :meth:`logits`.  On the
+        card each bucket's boxes and spatials are gathered from the
+        resident rows, dequantized, and masked where a row index is the
+        sentinel (``vqatpu/serve.py:333-351``)."""
         if self.features is None:
             raise RuntimeError("call attach_features() first")
-        if a is None:
-            raise ValueError("CTI needs answer tokens")
+        self.check_inputs(True, a)  # the spatials are resident
         if len(image_ids) == 0:
             return np.zeros((0, self.num_classes), np.float32)
         if self._placement == "host":
@@ -319,24 +348,27 @@ class InferenceSession:
         largest = self.batch_buckets[-1]
         outs = []
         for s in range(0, rows_all.shape[0], largest):
-            rows, qc, ac = (x[s:s + largest] for x in (rows_all, q, a))
+            rows, qc = rows_all[s:s + largest], q[s:s + largest]
             m = rows.shape[0]
             bucket = self._bucket_for(m)
             rp = np.full((bucket, rows.shape[1]), self._sentinel, np.int32)
             rp[:m] = rows
             qp = np.zeros((bucket, qc.shape[1]), np.int64)
             qp[:m] = qc
-            ap = np.zeros((bucket, ac.shape[1]), np.int64)
-            ap[:m] = ac
+            ap = None
+            if a is not None:
+                ap = np.zeros((bucket, a.shape[1]), np.int64)
+                ap[:m] = a[s:s + largest]
             outs.append(self.forward_by_id(
-                *(torch.from_numpy(x).to(self.device) for x in (rp, qp, ap)))[:m])
+                *(None if x is None else torch.from_numpy(x).to(self.device)
+                  for x in (rp, qp, ap)))[:m])
         return torch.cat(outs).cpu().numpy()
 
     def forward_by_id(self, rows: torch.Tensor, q: torch.Tensor,
-                      a: torch.Tensor) -> torch.Tensor:
+                      a: Optional[torch.Tensor] = None) -> torch.Tensor:
         """float32 logits of one bucket whose boxes are ``rows`` [bucket,
         max_boxes] into the resident tables, on the device."""
-        feats, scales, _ = self._tables
+        feats, scales, spats = self._tables
         flat = rows.reshape(-1).long()
         v = feats.index_select(0, flat).view(*rows.shape, feats.shape[1])
         act = self._act
@@ -345,8 +377,12 @@ class InferenceSession:
                 ..., None].to(act)
         elif v.dtype != act:
             v = v.to(act)
-        return self.forward({"v": v, "q": q, "a": a,
-                             "v_mask": rows != self._sentinel})
+        batch = {"v": v, "q": q, "v_mask": rows != self._sentinel}
+        if "b" in self.model.inputs:
+            batch["b"] = spats.index_select(0, flat).view(*rows.shape, -1)
+        if a is not None:
+            batch["a"] = a
+        return self.forward(batch)
 
     def answer_by_id(self, image_ids: Sequence[int], q: np.ndarray,
                      a: Optional[np.ndarray] = None) -> List[str]:

@@ -7,12 +7,15 @@ reference's ``Trainer`` hot loop (``FFOE/trainer.py:97-272``).
   the optimizer over the other parameters.
 - :func:`make_train_step` returns ``step(state, batch, lr, generator,
   force_update=False) -> metrics``.  The loss is ``bce_with_logits_sum /
-  B``.  Each microbatch's gradients are taken with ``torch.autograd.grad``
-  and added to explicit buffers, so that ``skip_nonfinite`` can drop one
-  non-finite microbatch (a zero gradient, cadence unchanged).  Every
-  ``update_freq``-th microbatch, or on ``force_update``, the summed
-  gradients are divided by the microbatch count, clipped to ``clip_norm``
-  by their global norm and applied by Adamax.  The metrics (``loss``, the
+  B``, or with ``distillation`` for BAN and SAN the distillation loss
+  against the batch's ``t_logits`` (upcast to float32; ``steps.py:208,
+  233-235``).  Each microbatch's gradients are taken with
+  ``torch.autograd.grad`` and added to explicit buffers, so that
+  ``skip_nonfinite`` can drop one non-finite microbatch (a zero gradient,
+  cadence unchanged).  Every ``update_freq``-th microbatch, or on
+  ``force_update``, the summed gradients are divided by the microbatch
+  count, clipped to ``clip_norm`` by their global norm and applied by
+  Adamax.  The metrics (``loss``, the
   pre-clip ``grad_norm``, 0 on a step that does not update,
   ``batch_score``, ``updated``, ``skipped``) are tensors on the model's
   device: the step never waits for the card.
@@ -27,9 +30,9 @@ off for cuBLAS and cuDNN, as in serving (:mod:`vqatpu_torch.numerics`).
 
 ``compute_dtype="bfloat16"`` casts the float32 master parameters to bf16
 inside the differentiated forward (``torch.func.functional_call``,
-``steps.py:225-231``), with ``v`` cast to bf16; gradients, the clip,
-Adamax, the loss and the logits stay float32, and the model is never
-converted.  ``transfer_dtype`` narrows a host batch before its copy
+``steps.py:225-231``), with ``v`` cast to bf16 and the spatials ``b``
+left float32; gradients, the clip, Adamax, the loss and the logits stay
+float32, and the model is never converted.  ``transfer_dtype`` narrows a host batch before its copy
 (:func:`wire_cast`: float16, bfloat16, or int8 ``v`` with a ``v_scale`` and
 float16 ``b``); a batch whose values are all tensors on the model's device
 has been through the wire already (the training loop's upload, the
@@ -51,7 +54,7 @@ from torch.func import functional_call
 from vqatpu_torch.config import TrainConfig
 from vqatpu_torch.data.native import quantize_rows
 from vqatpu_torch.numerics import check_f32_math, require_f32_math
-from vqatpu_torch.ops.losses import bce_with_logits_sum
+from vqatpu_torch.ops.losses import bce_with_logits_sum, distillation_loss
 from vqatpu_torch.ops.module import Ctx
 from vqatpu_torch.train.optim import Adamax, clip_flat_grads
 from vqatpu_torch.weights import load_jax_params, numpy_params
@@ -156,17 +159,20 @@ def _check_compute_dtype(compute_dtype: str):
 
 
 def forward_in(model: nn.Module, half, batch: dict, ctx=None):
-    """``model``'s forward on a batch on its device, float32 logits.  With
-    ``half`` (bf16) the parameters are cast inside the call, so autograd
-    carries their gradients back to the float32 masters, and ``v`` is cast
-    too (``steps.py:225-231``)."""
-    args = (batch["v"], batch["q"], batch["a"], batch.get("v_mask"), ctx)
+    """``model``'s forward on a batch on its device, float32 logits: the
+    batch's ``v``, ``q``, ``a``, ``v_mask`` and ``b``, each model reading
+    those it needs.  With ``half`` (bf16) the parameters are cast inside
+    the call, so autograd carries their gradients back to the float32
+    masters, and ``v`` is cast too; ``b`` stays float32
+    (``steps.py:225-231``)."""
+    v = batch["v"] if half is None else batch["v"].to(half)
+    args = (v, batch["q"], batch.get("a"), batch.get("v_mask"), ctx)
+    kwargs = {"b": batch.get("b")}
     if half is None:
-        logits, _ = model(*args)
+        logits, _ = model(*args, **kwargs)
     else:
         params = {n: p.to(half) for n, p in model.named_parameters()}
-        logits, _ = functional_call(model, params,
-                                    (batch["v"].to(half),) + args[1:])
+        logits, _ = functional_call(model, params, args, kwargs)
     return logits.float()
 
 
@@ -233,6 +239,8 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
     state_dtype = _STATE_DTYPES[cfg.optim_state_dtype]
     require_f32_math()
     n_ans = model.cfg.num_ans_candidates
+    # JAX distils BAN and SAN only (steps.py:208)
+    distill = cfg.distillation and mcfg.model in ("ban", "san")
 
     def apply_update(state: TrainState, grads, lr, count: int) -> torch.Tensor:
         if count > 1:
@@ -268,7 +276,11 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
                    mask_bits=cfg.mask_bits))
         logits = forward_in(model, half, batch, ctx)
         target = batch["target"].float()
-        loss = bce_with_logits_sum(logits, target) / logits.shape[0]
+        if distill:
+            loss = distillation_loss(logits, batch["t_logits"].float(), target,
+                                     cfg.T, cfg.alpha)
+        else:
+            loss = bce_with_logits_sum(logits, target) / logits.shape[0]
         grads = list(torch.autograd.grad(loss, params))
         loss = loss.detach()
         finite = torch.isfinite(loss)

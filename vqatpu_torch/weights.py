@@ -14,9 +14,9 @@
 - :func:`load_params_file` reads a ``model_epoch{N}.ckpt`` or a
   ``save_params`` file without importing JAX; :func:`load_pickle` reads a
   whole checkpoint, its optimizer state's NamedTuples as stand-ins.
-- :func:`numpy_params` and :func:`numpy_batch` make seeded CTI weights (in
-  the JAX tree layout) and inputs with numpy, so both packages can be fed
-  the same numbers.
+- :func:`numpy_params` and :func:`numpy_batch` make seeded weights of the
+  free-form models (BAN, SAN, CTI; in the JAX tree layout) and inputs with
+  numpy, so both packages can be fed the same numbers.
 - :func:`param_stats` fingerprints a param tree (per-leaf norms and sums)
   for trajectories compared across devices and packages.
 """
@@ -170,14 +170,20 @@ def load_params_file(path: str) -> dict:
 
 
 def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
-    """Seeded CTI weights as a ``vqatpu`` param tree with numpy leaves.
+    """Seeded weights of a free-form model (``ban``, ``san`` or
+    ``stacked_attention``, ``cti``) as a ``vqatpu`` param tree with numpy
+    leaves, of the structure and shapes of the JAX model's ``init``.
 
     Linears and GRUs draw torch-style U(-1/sqrt(fan_in), 1/sqrt(fan_in))
-    with weight-norm ``g = ||v||_F``; embeddings and the PARALIND core draw
-    N(0, 1), with the embedding pad row zero.  The tree has the structure
-    and shapes of ``vqatpu.models.CTIModel.init``."""
-    if (cfg.task, cfg.model) != ("ffoe", "cti"):
-        raise NotImplementedError("numpy_params makes CTI weights only")
+    with weight-norm ``g = ||v||_F``; embeddings, the PARALIND core and
+    BAN's ``h_mat`` and ``h_bias`` draw N(0, 1), with the embedding pad row
+    zero and ``h_mat_g = ||h_mat||_F`` (``vqatpu/ops/attention.py:60-64``);
+    the counter's ``PiecewiseLin`` weights are ones with ``weight[0] = 0``."""
+    if cfg.task != "ffoe" or cfg.model not in ("ban", "san",
+                                               "stacked_attention", "cti"):
+        raise NotImplementedError(f"numpy_params makes free-form BAN, SAN "
+                                  f"and CTI weights, not {cfg.task}/"
+                                  f"{cfg.model}")
     rs = np.random.RandomState(seed)
     H, R = cfg.num_hid, cfg.rank
 
@@ -189,6 +195,12 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
         v = uni((o, i), i)
         g = np.asarray(np.linalg.norm(v), np.float32)
         return {"l0": {"v": v, "g": g, "b": uni((o,), i)}}
+
+    def linear(i, o, bias=True):
+        p = {"w": uni((o, i), i)}
+        if bias:
+            p["b"] = uni((o,), i)
+        return p
 
     def rank_net(d, h_sub):
         v = uni((R, h_sub, d), d)
@@ -212,6 +224,41 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
                 "b_ih": uni((3 * H,), H), "b_hh": uni((3 * H,), H)}
         return p
 
+    def classifier():
+        l1, l2 = fcnet(H, 2 * H)["l0"], fcnet(2 * H, cfg.num_classes)["l0"]
+        return {"l1": l1, "l2": l2}
+
+    if cfg.model == "ban":
+        h_mat = rs.randn(1, cfg.gamma, 1, 3 * H).astype(np.float32)
+        bc = {"v_net": fcnet(cfg.v_dim, 3 * H), "q_net": fcnet(H, 3 * H),
+              "h_mat": h_mat,
+              "h_bias": rs.randn(1, cfg.gamma, 1, 1).astype(np.float32)}
+        p = {"w_emb": embedding(), "q_emb": gru(),
+             "v_att": {"bc": bc, "h_mat_g": np.asarray(
+                 np.linalg.norm(h_mat), np.float32)},
+             "classifier": classifier()}
+        for g in range(cfg.gamma):
+            p[f"b_net{g}"] = {"v_net": fcnet(cfg.v_dim, H),
+                              "q_net": fcnet(H, H)}
+            p[f"q_prj{g}"] = fcnet(H, H)
+            if cfg.use_counter:
+                p[f"c_prj{g}"] = fcnet(cfg.objects + 1, H)
+        if cfg.use_counter:
+            w = np.ones(17, np.float32)
+            w[0] = 0.0
+            p["counter"] = {f"f{i}": {"weight": w.copy()} for i in range(8)}
+        return p
+    if cfg.model in ("san", "stacked_attention"):
+        att = {"fc11": linear(H, H), "fc12": linear(cfg.v_dim, H, False),
+               "fc13": linear(H, 1), "fc14": linear(H, H),
+               "fc15": linear(cfg.v_dim, H, False)}
+        for s in range(cfg.num_stacks - 1):
+            att[f"w{s}_q"] = linear(H, H)
+            att[f"w{s}_i"] = linear(cfg.v_dim, H, False)
+            att[f"w{s}_h"] = linear(H, 1)
+        return {"w_emb": embedding(), "q_emb": gru(), "v_att": att,
+                "classifier": classifier()}
+
     def tucker(d):
         return {"v_tucker": fcnet(cfg.v_dim, d), "q_tucker": fcnet(H, d),
                 "a_tucker": fcnet(H, d)}
@@ -223,10 +270,9 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
                   a_net=rank_net(d_att, h_sub),
                   T_g=rs.randn(R, h_sub, h_sub, h_sub, cfg.gamma, 1)
                   .astype(np.float32))
-    cls = fcnet(H, 2 * H)["l0"], fcnet(2 * H, cfg.num_classes)["l0"]
+    cls = classifier()  # drawn before the embeddings, as ever
     p = {"w_emb": embedding(), "q_emb": gru(), "wa_emb": embedding(),
-         "ans_emb": gru(), "t_att": {"tc": tc},
-         "classifier": {"l1": cls[0], "l2": cls[1]}}
+         "ans_emb": gru(), "t_att": {"tc": tc}, "classifier": cls}
     for g in range(cfg.gamma):
         p[f"t_net{g}"] = tucker(2 * cfg.h_mm)
         p[f"q_prj{g}"] = fcnet(H, H)
@@ -236,11 +282,17 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
 
 def numpy_batch(cfg: ModelConfig, n: int, seed: int = 0, boxes: int = 50,
                 real_boxes: int = 44, q_len: int = 12, a_len: int = 3,
-                target: bool = False) -> Dict[str, np.ndarray]:
-    """Seeded CTI inputs: ``v`` [n, boxes, v_dim] float32 with the boxes
-    from ``real_boxes`` on zero (padding), ``q`` [n, q_len] and ``a``
-    [n, a_len] int64 tokens in [0, ntoken] (ntoken is the pad token); with
-    ``target``, a soft ``target`` [n, num_classes] float32 in [0, 1)."""
+                target: bool = False,
+                teacher: bool = False) -> Dict[str, np.ndarray]:
+    """Seeded inputs: ``v`` [n, boxes, v_dim] float32 with the boxes from
+    ``real_boxes`` on zero (padding), ``q`` [n, q_len] and ``a`` [n, a_len]
+    int64 tokens in [0, ntoken] (ntoken is the pad token), with ``target``
+    a soft ``target`` [n, num_classes] float32 in [0, 1), and the spatials
+    ``b`` [n, boxes, 6] float32, ``(x1, y1, x2, y2, w, h)`` with ``x1 < x2``
+    and ``y1 < y2`` in [0, 1], zero on the padded boxes; with ``teacher``,
+    teacher logits ``t_logits`` [n, num_classes] float32, N(0, 3^2), for
+    the distillation loss.  ``b`` and then ``t_logits`` are drawn last, so
+    the other arrays do not depend on them."""
     rs = np.random.RandomState(seed)
     v = rs.randn(n, boxes, cfg.v_dim).astype(np.float32)
     v[:, real_boxes:] = 0.0
@@ -249,6 +301,14 @@ def numpy_batch(cfg: ModelConfig, n: int, seed: int = 0, boxes: int = 50,
     batch = {"v": v, "q": q, "a": a}
     if target:
         batch["target"] = rs.rand(n, cfg.num_classes).astype(np.float32)
+    corners = np.sort(rs.rand(n, boxes, 2, 2), axis=-1)  # [.., (x, y), lo/hi]
+    lo, hi = corners[..., 0], corners[..., 1]
+    b = np.concatenate([lo, hi, hi - lo], -1).astype(np.float32)
+    b[:, real_boxes:] = 0.0
+    batch["b"] = b
+    if teacher:
+        batch["t_logits"] = (3.0 * rs.randn(n, cfg.num_classes)).astype(
+            np.float32)
     return batch
 
 
