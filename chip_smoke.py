@@ -146,11 +146,37 @@ at ``compute_dtype="bfloat16"``).  Then:
     loader, card-resident store; per-step losses within 1e-5) and
     ``ffoe_test --model ban`` writes the EvalAI JSON.
 
+12. the Visual7W multiple-choice models at the same full width
+    (``task="mc"``: a 2-class head, Q=12, A=6, 4 candidates a question,
+    expanded x4 into candidate rows): (a) TanModel (CTI for MC; K1 and K2
+    at Q*A=72), BanModelMC (counter) and SAN-MC (2 stacks) from
+    ``numpy_params(cfg, 0)`` on 8 questions (32 rows) against JAX's
+    goldens ``tests/data/torch_{tan,ban_mc,san_mc}_golden.npz`` on every
+    wire and at bf16 compute, TanModel also on the grid path (V=196, zero
+    spatials); TanModel's launches checked (K1 and K2, no K3 forward),
+    BAN-MC's and SAN-MC's checked to be 0; (b) K1, K2 (float32 ``<4, 8>``
+    in 3 passes, bf16 ``<6, 8>`` in 2, at both glimpses) and the softmax
+    backward at TanModel's training shapes (64 questions, 256 rows, V=50
+    and V=196) against their plain versions, forward and backward, timed
+    beside their bounds and library calls (rows of the JSON line with a
+    ``shape``); (c) ``mc_scores`` / ``answer_mc`` for
+    1, 8, 32 and 40 questions through the session, the ``MicroBatcher``
+    and HTTP ``/answer_mc`` (``mc_tokens`` as JSON and npz,
+    ``mc_answers``), the picks against the CPU path's, BAN-MC with
+    spatials, every bucket timed; (d) TanModel's three deterministic
+    steps against JAX's golden trajectory
+    ``tests/data/torch_tan_train_golden.npz`` and the CPU path, and at
+    bf16 within the budget of ``torch_tan_train_golden_bf16.npz``, then 64
+    questions a step with dropout on for TanModel, BAN-MC and SAN-MC at
+    float32 and bf16; (e) ``mc_train`` on a Visual7W fixture three ways
+    (per-step losses within 1e-5), ``mc_test`` with the store on and off
+    (equal accuracy) and one epoch on the grid path.
+
 Each path (serving at each wire and compute dtype, the logits path in
 float32 and bf16, by-id serving, training in float32 and bf16, each entry
-point call of phases 9 and 10) is driven with the launch counts set to 0 just
-before it and read just after; the kernels' ``launches`` in the JSON line
-are their sums.
+point call of phases 9, 10, 11 and 12) is driven with the launch counts set
+to 0 just before it and read just after; the kernels' ``launches`` in the
+JSON line are their sums.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 Without CUDA, or outside the repository, it exits non-zero with no result.
@@ -245,8 +271,8 @@ def loop_timers(train_loop, record):
     synchronised) and the steps' loss tensors.  Returns a function that
     undoes the wrapping."""
     originals = (train_loop.make_train_step, train_loop._make_loader,
-                 train_loop.evaluate_ffoe)
-    make_step, make_loader, evaluate = originals
+                 train_loop.evaluate_ffoe, train_loop.evaluate_mc)
+    make_step, make_loader, evaluate, evaluate_mc = originals
 
     def timed_make_step(*args, **kwargs):
         step = make_step(*args, **kwargs)
@@ -286,26 +312,29 @@ def loop_timers(train_loop, record):
             torch.cuda.synchronize()
             rec["train"] = time.perf_counter() - t0
 
-    def timed_evaluate(*args, **kwargs):
-        t = time.perf_counter()
-        out = evaluate(*args, **kwargs)
-        record[-1]["eval"] += time.perf_counter() - t
-        return out
+    def timed(fn):
+        def timed_evaluate(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            record[-1]["eval"] += time.perf_counter() - t
+            return out
+        return timed_evaluate
 
     train_loop.make_train_step = timed_make_step
     train_loop._make_loader = lambda *a, **kw: TimedLoader(make_loader(*a, **kw))
-    train_loop.evaluate_ffoe = timed_evaluate
+    train_loop.evaluate_ffoe = timed(evaluate)
+    train_loop.evaluate_mc = timed(evaluate_mc)
 
     def undo():
         (train_loop.make_train_step, train_loop._make_loader,
-         train_loop.evaluate_ffoe) = originals
+         train_loop.evaluate_ffoe, train_loop.evaluate_mc) = originals
     return undo
 
 
-def run_train(label, argv, path_counts):
-    """``ffoe_train.main(argv)`` with the loop's timers on and the launch
-    counts set to 0 just before it; -> (launch counts, per-epoch record,
-    wall seconds to the card's last step)."""
+def run_train(label, argv, path_counts, cli=None):
+    """``cli.main(argv)`` (``ffoe_train`` by default) with the loop's timers
+    on and the launch counts set to 0 just before it; -> (launch counts,
+    per-epoch record, wall seconds to the card's last step)."""
     from vqatpu_torch.cli import ffoe_train
     from vqatpu_torch.kernels import trilinear as K
     from vqatpu_torch.train import loop as train_loop
@@ -315,7 +344,7 @@ def run_train(label, argv, path_counts):
     K.reset_launches()
     t = time.perf_counter()
     try:
-        ffoe_train.main(argv)
+        (cli or ffoe_train).main(argv)
     finally:
         undo()
     torch.cuda.synchronize()
@@ -1231,11 +1260,13 @@ def phase11_serving(models, path_counts, median_ms) -> None:
     zero_launches("phase 11b serving buckets", path_counts)
 
 
-def phase11_train_step_rate(label, mcfg, db, compute_dtype, profile_table):
+def phase11_train_step_rate(label, mcfg, db, compute_dtype, profile_table,
+                            distillation=True, mc_scoring=False):
     """Samples/s of the train step at B=256 with dropout on (windows of
     ITERS steps, each ending in a value readback), the median step on CUDA
     events, and from a ``torch.profiler`` trace of 3 steps the card's busy
-    and idle share; with ``profile_table`` the ten costliest CUDA ops."""
+    and idle share; with ``profile_table`` the ten costliest CUDA ops.
+    -> (median step ms, idle share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1245,8 +1276,8 @@ def phase11_train_step_rate(label, mcfg, db, compute_dtype, profile_table):
 
     state = make_train_state(build_model(mcfg), seed=0, device="cuda")
     step = make_train_step(state.model, TrainConfig(
-        update_freq=1, batch_size=TRAIN_B, distillation=True,
-        compute_dtype=compute_dtype))
+        update_freq=1, batch_size=TRAIN_B, distillation=distillation,
+        compute_dtype=compute_dtype), mc_scoring=mc_scoring)
     gen = torch.Generator(device="cuda").manual_seed(1)
     for _ in range(WARMUP):
         m = step(state, db, 1e-3, gen)
@@ -1274,7 +1305,7 @@ def phase11_train_step_rate(label, mcfg, db, compute_dtype, profile_table):
     averages = prof.key_averages()
     busy = sum(e.self_device_time_total for e in averages
                if e.device_type == DeviceType.CUDA) / 1e3 / 3
-    print(f"phase 11c training {label}: {statistics.median(thr):.1f} samples/s "
+    print(f"{label}: {statistics.median(thr):.1f} samples/s "
           f"(median of 3 windows of {ITERS} steps, best {max(thr):.1f}); median "
           f"step on CUDA events {step_ms:.3f} ms; kernels on the card "
           f"{busy:.3f} ms a step ({busy / step_ms:.1%}, idle "
@@ -1283,7 +1314,7 @@ def phase11_train_step_rate(label, mcfg, db, compute_dtype, profile_table):
         print(f"torch.profiler, 3 training steps, {label} (times summed over "
               "them):")
         print(averages.table(sort_by="self_device_time_total", row_limit=10))
-    return step_ms
+    return step_ms, 1 - busy / step_ms
 
 
 def phase11_training(models, path_counts) -> None:
@@ -1344,7 +1375,8 @@ def phase11_training(models, path_counts) -> None:
         K.reset_launches()
         for compute in ("float32", "bfloat16"):
             phase11_train_step_rate(
-                f"{name.upper()} B={TRAIN_B}, compute_dtype={compute}, "
+                f"phase 11c training {name.upper()} B={TRAIN_B}, "
+                f"compute_dtype={compute}, "
                 "distillation, batch on the card", mcfg, db, compute,
                 profile_table=(name == "ban" and compute == "float32"))
         zero_launches(f"phase 11c {name} training", path_counts)
@@ -1425,6 +1457,503 @@ def phase11_kd_loop(path_counts, p9) -> None:
           f"EvalAI answers in {os.path.basename(paths['json'])}; no teacher "
           f"pkl ({sorted(paths)})")
     assert len(answers) == p9["n_val"] and set(paths) == {"json"}
+
+
+# phase 12: the Visual7W multiple-choice models at the full width of bench.py
+TAN_CFG = dict(CFG, task="mc", model="tan")
+BAN_MC_CFG = dict(CFG, task="mc", model="ban", use_counter=True)
+SAN_MC_CFG = dict(CFG, task="mc", model="san", num_stacks=2)
+MC_A, MC_CANDIDATES, GRID_V = 6, 4, 196  # vqatpu/data/mc_dataset.py:21-23
+MC_BATCH = TRAIN_B // MC_CANDIDATES      # 64 questions, 256 rows (SURVEY.md)
+MC_GOLDEN_TOL = 1e-4   # float32 logits vs JAX's goldens (the hard limit is
+                       # SERVE_TOL)
+MC_TIE = 1e-5          # a pick whose two best CPU scores are this close is
+                       # a tie: reported, not required to agree
+MC_TRAIN, MC_VAL, MC_IMAGES, MC_EPOCHS = 512, 128, 32, 2  # phase 12e
+
+
+def mc_rows(mcfg, n, seed, grid=False):
+    """``n`` seeded questions (``numpy_batch`` of the MC config) and their
+    ``x4`` candidate rows (``expand_mc_batch``): -> (questions, rows).  On
+    the grid path all 196 cells are real and the spatials zero, as
+    ``tests/torch_mc_goldens.py`` makes them."""
+    from vqatpu_torch.data.mc_dataset import expand_mc_batch
+    from vqatpu_torch.weights import numpy_batch
+
+    boxes = GRID_V if grid else V
+    qb = numpy_batch(mcfg, n, seed=seed, boxes=boxes,
+                     real_boxes=boxes if grid else REAL_BOXES)
+    if grid:
+        qb["b"] = np.zeros_like(qb["b"])
+    return qb, expand_mc_batch(qb)
+
+
+def mc_launches(label, path_counts, forwards, dtype, backwards=0):
+    """The launch counts of a TanModel path: K1 once and K2 once per
+    glimpse a forward (float32 or bf16 instances), the softmax backward
+    once a backward, and never K3's forward."""
+    from vqatpu_torch.kernels import trilinear as K
+    torch.cuda.synchronize()
+    path_counts[label] = counts = dict(K.launches)
+    sfx = "_bf16" if dtype == "bfloat16" else ""
+    want = {f"fused_rank_softmax{sfx}": forwards,
+            f"trilinear_pool{sfx}": CFG["gamma"] * forwards,
+            "softmax_vqa_backward": backwards}
+    assert {k: v for k, v in counts.items() if v} == {
+        k: v for k, v in want.items() if v}, (label, counts, want)
+    return counts
+
+
+def phase12_logits(path_counts) -> dict:
+    """(a) TanModel, BanModelMC (with the counter) and SAN-MC at full width
+    from ``numpy_params(cfg, 0)`` on JAX's goldens (8 questions, 32 rows;
+    BAN-MC 32 questions, its counter being ill-conditioned at bf16): every
+    wire at float32 compute against the CPU path on the same wire and the
+    float32 wire against JAX's float32 golden; bf16 compute within 2x
+    JAX's own largest bf16 error + 1e-4 (BAN-MC served, ``b`` bf16, and
+    through the eval step, ``b`` float32, each against JAX's own); TanModel
+    on the grid path (V=196, zero spatials).  TanModel launches K1 and K2 (no K3 forward),
+    BAN-MC and SAN-MC none.  -> each model's config, model, float32 and
+    bf16 sessions."""
+    from vqatpu_torch.config import ModelConfig
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.serve import InferenceSession
+    from vqatpu_torch.train import make_eval_step
+    from vqatpu_torch.weights import load_jax_params, numpy_params
+
+    data = ROOT / "tests" / "data"
+    labels = ["match", "nonmatch"]
+    out = {}
+    for name, kw, file in (("tan", TAN_CFG, "torch_tan_golden.npz"),
+                           ("ban_mc", BAN_MC_CFG, "torch_ban_mc_golden.npz"),
+                           ("san_mc", SAN_MC_CFG, "torch_san_mc_golden.npz")):
+        z = np.load(data / file)
+        assert int(z["param_seed"]) == 0, "golden made from other weights"
+        mcfg = ModelConfig(**kw)
+        params = numpy_params(mcfg, 0)
+        model = load_jax_params(build_model(mcfg), params)
+        cpu_model = load_jax_params(build_model(mcfg), params)
+        _, rows_ = mc_rows(mcfg, int(z["n"]), int(z["batch_seed"]))
+        args = (rows_["v"], rows_["b"], rows_["q"], rows_["a"])
+        K.reset_launches()
+        sessions, n_fwd = {}, 0
+        for wire in ("float32", "float16", "bfloat16", "int8"):
+            sess = InferenceSession(model, labels, transfer_dtype=wire,
+                                    device="cuda")
+            sessions[wire] = sess
+            # every row on the float32 wire, the narrowed wires on the
+            # first 2 questions; the CPU path on at most 8 questions
+            rows_w = slice(None) if wire == "float32" else slice(0, 8)
+            got = sess.logits(*(x[rows_w] for x in args))
+            n_fwd += sess.forwards
+            rows_c = slice(0, min(32, got.shape[0]))
+            cpu = InferenceSession(cpu_model, labels, transfer_dtype=wire,
+                                   device="cpu").logits(
+                *(x[rows_c] for x in args))
+            e_gold = float(np.abs(got - z["logits"][rows_w]).max())
+            e_cpu = float(np.abs(got[rows_c] - cpu).max())
+            print(f"phase 12a {name} wire={wire} ({got.shape[0]} rows, "
+                  f"{cpu.shape[0]} on the CPU): vs "
+                  f"the CPU path on the same wire {e_cpu:.3e} (tol "
+                  f"{SERVE_TOL:.0e}); vs JAX's float32 golden {e_gold:.3e}"
+                  + (f" (target {MC_GOLDEN_TOL:.0e}, tol {SERVE_TOL:.0e})"
+                     if wire == "float32" else " (the wire's rounding)"))
+            assert got.shape == (rows_["q"][rows_w].shape[0], 2)
+            assert np.isfinite(got).all() and e_cpu <= SERVE_TOL, e_cpu
+            assert wire != "float32" or e_gold <= SERVE_TOL, e_gold
+        if name == "tan":
+            mc_launches("phase 12a tan, every wire", path_counts, n_fwd,
+                        "float32")
+        else:
+            zero_launches(f"phase 12a {name}, every wire", path_counts)
+        sess16 = InferenceSession(model, labels, compute_dtype="bfloat16",
+                                  device="cuda")
+        K.reset_launches()
+        got16 = sess16.logits(*args)
+        err, bound = bf16_error(got16, z["logits_bf16"], z["logits"])
+        print(f"phase 12a {name} served at bf16: vs JAX's float32 golden "
+              f"{err.max():.3e} (budget {bound:.3e}: 2 x JAX's own largest "
+              f"bf16 error + 1e-4)")
+        assert np.isfinite(got16).all() and err.max() <= bound, (
+            err.max(), bound)
+        if "logits_eval" in z.files:
+            # the counter reads b, which the session casts to bf16 and the
+            # eval step leaves float32: each path against JAX's own
+            ev = make_eval_step(model, compute_dtype="bfloat16")(
+                {k: rows_[k] for k in ("v", "b", "q", "a")})
+            got_e = ev["logits"].cpu().numpy()
+            err, bound = bf16_error(got_e, z["logits_eval"], z["logits"])
+            print(f"phase 12a {name} eval step at bf16 (b float32): vs JAX's "
+                  f"float32 golden {err.max():.3e} (budget {bound:.3e})")
+            assert np.isfinite(got_e).all() and err.max() <= bound, (
+                err.max(), bound)
+        if name == "tan":
+            mc_launches("phase 12a tan bf16", path_counts, sess16.forwards,
+                        "bfloat16")
+            # the grid path: 196 cells, zero spatials
+            _, g = mc_rows(mcfg, int(z["n"]), int(z["grid_seed"]), grid=True)
+            grid = InferenceSession(model, labels, max_boxes=GRID_V,
+                                    device="cuda")
+            K.reset_launches()
+            got = grid.logits(g["v"], g["b"], g["q"], g["a"])
+            e = float(np.abs(got - z["logits_grid"]).max())
+            print(f"phase 12a tan on the grid path (V={GRID_V}, zero "
+                  f"spatials): vs JAX's float32 golden {e:.3e} (target "
+                  f"{MC_GOLDEN_TOL:.0e}, tol {SERVE_TOL:.0e})")
+            assert np.isfinite(got).all() and e <= SERVE_TOL, e
+            mc_launches("phase 12a tan grid", path_counts, grid.forwards,
+                        "float32")
+        else:
+            zero_launches(f"phase 12a {name} bf16", path_counts)
+        out[name] = (mcfg, model, sessions["float32"], sess16, cpu_model)
+    return out
+
+
+def phase12_serving(models, path_counts, median_ms) -> None:
+    """(c) ``mc_scores`` / ``answer_mc`` of TanModel for 1, 8, 32 and 40
+    questions (4, 32, 128 and 160 rows: 40 splits past bucket 128) through
+    the session, the ``MicroBatcher`` and HTTP ``/answer_mc`` (``mc_tokens``
+    as JSON and npz, ``mc_answers`` strings), the picks against the CPU
+    path's; BAN-MC's ``mc_scores`` with spatials; every bucket timed
+    (host clock end to end, the forward on CUDA events) at float32 and
+    bf16."""
+    from vqatpu_torch.cli.serve import serve_in_thread
+    from vqatpu_torch.data import Dictionary
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.serve import InferenceSession, MicroBatcher
+
+    mcfg, model, session, sess16, cpu_model = models["tan"]
+    labels = session.label2ans
+    cpu = InferenceSession(cpu_model, labels, device="cpu")
+    words = "what color is the cat dog red blue green on the table two three"
+    dictionary = Dictionary()
+    dictionary.tokenize(words, add_word=True)
+    answers = ["red", "blue", "green", "two", "three", "the cat", "on table"]
+    mb = MicroBatcher(session, max_batch=128)
+    K.reset_launches()
+    fwd0 = session.forwards
+    server = serve_in_thread(mb, dictionary, "cti", 0, task="mc")
+    port = server.server_address[1]
+    ties = 0
+    try:
+        for n in (1, 8, 32, 40):
+            qb, _ = mc_rows(mcfg, n, seed=1400 + n)
+            v, q, mc = qb["v"], qb["q"], qb["ans_mc"]
+            t0 = time.perf_counter()
+            scores = session.mc_scores(v, None, q, mc)
+            ms = (time.perf_counter() - t0) * 1e3
+            want = cpu.mc_scores(v, None, q, mc)
+            picks = session.answer_mc(v, None, q, mc)
+            top2 = np.sort(want, 1)[:, -2:]
+            tie = (top2[:, 1] - top2[:, 0]) <= MC_TIE
+            ties += int(tie.sum())
+            want_picks = want.argmax(1)
+            batched = mb.mc_scores(v, None, q, mc)
+            served = [post(port, "/answer_mc", {"features": v, "question_tokens": q,
+                                                "mc_tokens": mc}, npz=True),
+                      post(port, "/answer_mc", {
+                          "features": v.tolist(), "question_tokens": q.tolist(),
+                          "mc_tokens": mc.tolist()})]
+            e_cpu = float(np.abs(scores - want).max())
+            e_mb = float(np.abs(batched - scores).max())
+            e_http = max(float(np.abs(np.asarray(s["scores"]) - scores).max())
+                         for s in served)
+            print(f"phase 12c tan mc_scores, {n} questions ({4 * n} rows): "
+                  f"{ms:.2f} ms; vs the CPU path {e_cpu:.3e} (tol "
+                  f"{CPU_REL_TOL:.0e}); MicroBatcher {e_mb:.3e}, HTTP "
+                  f"/answer_mc {e_http:.3e} (tol {BATCHER_TOL:.0e}); picks "
+                  f"{picks[:8]}...; ties (CPU scores within {MC_TIE:.0e}) "
+                  f"{int(tie.sum())}")
+            assert scores.shape == (n, MC_CANDIDATES) and np.isfinite(scores).all()
+            assert e_cpu <= CPU_REL_TOL, e_cpu
+            assert e_mb <= BATCHER_TOL and e_http <= BATCHER_TOL, (e_mb, e_http)
+            for got_picks in (np.asarray(picks), scores.argmax(1),
+                              batched.argmax(1), *(np.asarray(s["picks"])
+                                                   for s in served)):
+                assert (got_picks == want_picks)[~tie].all(), (got_picks,
+                                                               want_picks)
+            if n > 8:
+                continue
+            # candidates as strings, tokenized to 6 by the server
+            cands = [[answers[(i + j) % len(answers)] for j in range(4)]
+                     for i in range(n)]
+            out = post(port, "/answer_mc", {"features": v.tolist(),
+                                            "question_tokens": q.tolist(),
+                                            "mc_answers": cands})
+            toks = np.asarray([[dictionary.tokenize_padded(s, MC_A) for s in r]
+                               for r in cands])
+            want_s = cpu.mc_scores(v, None, q, toks)
+            top2 = np.sort(want_s, 1)[:, -2:]
+            ok = (top2[:, 1] - top2[:, 0]) > MC_TIE
+            assert [a for a, k in zip(out["answers"], ok) if k] == [
+                cands[i][j] for i, j in enumerate(want_s.argmax(1)) if ok[i]]
+    finally:
+        server.shutdown()
+        server.server_close()
+        mb.close()
+    mc_launches("phase 12c tan serving (session, MicroBatcher, HTTP)",
+                path_counts, session.forwards - fwd0, "float32")
+    print(f"phase 12c: picks equal to the CPU path's in every case but {ties} "
+          f"ties; the MicroBatcher ran {mb.batches_run} forwards for "
+          f"{mb.rows_served} rows")
+
+    # BAN-MC: the spatials expand with the candidates
+    bcfg, _, bsess, _, bcpu_model = models["ban_mc"]
+    qb, _ = mc_rows(bcfg, 8, seed=1450)
+    K.reset_launches()
+    got = bsess.mc_scores(qb["v"], qb["b"], qb["q"], qb["ans_mc"])
+    zero_launches("phase 12c ban_mc mc_scores", path_counts)
+    want = InferenceSession(bcpu_model, labels, device="cpu").mc_scores(
+        qb["v"], qb["b"], qb["q"], qb["ans_mc"])
+    e = float(np.abs(got - want).max())
+    print(f"phase 12c ban_mc mc_scores with spatials, 8 questions: vs the "
+          f"CPU path {e:.3e} (tol {CPU_REL_TOL:.0e})")
+    assert e <= CPU_REL_TOL, e
+
+    K.reset_launches()
+    fwd32, fwd16 = session.forwards, sess16.forwards
+    for compute, sess in (("float32", session), ("bfloat16", sess16)):
+        for n in sess.batch_buckets:  # rows: n / 4 questions
+            _, r = mc_rows(mcfg, max(1, n // MC_CANDIDATES), seed=1500 + n)
+            r = {k: x[:n] for k, x in r.items()}
+            e2e = median_ms(lambda: sess.logits(r["v"], None, r["q"], r["a"]),
+                            on_card=False)
+            host, _ = sess.pack(r["v"], r["q"], r["a"])
+            dev_b = sess.upload(host)
+            fwd = median_ms(lambda: sess.forward(dev_b), on_card=True)
+            print(f"phase 12c tan bucket {n} ({n} candidate rows) compute="
+                  f"{compute}: session.logits {e2e:.3f} ms ({n / e2e * 1e3:.0f} "
+                  f"rows/s); forward on the card {fwd:.3f} ms")
+    torch.cuda.synchronize()
+    path_counts["phase 12c tan serving buckets"] = counts = dict(K.launches)
+    assert counts["fused_rank_softmax"] == session.forwards - fwd32, counts
+    assert counts["fused_rank_softmax_bf16"] == sess16.forwards - fwd16, counts
+    assert counts["masked_softmax_vqa"] == 0, counts
+
+
+def phase12_training(models, path_counts, train_throughput) -> None:
+    """(d) TanModel's three deterministic steps (4 questions, 16 rows, lr
+    1e-3, ``mc_scoring``) against JAX's golden trajectory
+    ``tests/data/torch_tan_train_golden.npz`` and the CPU path
+    (TRAIN_TOL), and at bf16 within the budget of
+    ``torch_tan_train_golden_bf16.npz``; then 64 questions (256 rows) a
+    step with dropout on:
+    TanModel at float32 and bf16 (``train_throughput``, 3 windows),
+    BAN-MC (counter) and SAN-MC at float32 and bf16
+    (``phase11_train_step_rate``)."""
+    from vqatpu_torch.config import TrainConfig
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.train import make_train_state, make_train_step
+    from vqatpu_torch.weights import jax_params_from_torch, param_stats
+
+    mcfg = models["tan"][0]
+    tg = np.load(ROOT / "tests" / "data" / "torch_tan_train_golden.npz")
+    n, steps, lr = int(tg["n"]), int(tg["steps"]), float(tg["lr"])
+    batches = [mc_rows(mcfg, n, int(tg["batch_seed"]) + i)[1]
+               for i in range(steps)]
+    batches = [{k: b[k] for k in ("v", "b", "q", "a", "target")}
+               for b in batches]
+    traj = {}
+    K.reset_launches()
+    for device in ("cuda", "cpu"):
+        state = make_train_state(build_model(mcfg), seed=int(tg["param_seed"]),
+                                 device=device)
+        step = make_train_step(state.model, TrainConfig(
+            update_freq=1, deterministic=True), mc_scoring=True)
+        metrics = [step(state, b, lr) for b in batches]
+        rec = {k: np.array([float(m[k]) for m in metrics])
+               for k in ("loss", "grad_norm", "batch_score")}
+        stats = param_stats(jax_params_from_torch(state.model.state_dict()))
+        rec.update({f"param_{k}": v for k, v in stats.items()})
+        traj[device] = rec
+        if device == "cuda":
+            mc_launches("phase 12d tan trajectory", path_counts, steps,
+                        "float32", backwards=steps)
+        del state, step, metrics
+
+    def err(got, want):
+        assert (got["param_names"] == want["param_names"]).all()
+        e = max(float(np.max(np.abs(got[k] - want[k]) / np.abs(want[k])))
+                for k in ("loss", "grad_norm", "param_l2", "param_l1"))
+        # a group's score is 0 or 1: exact
+        assert (got["batch_score"] == want["batch_score"]).all(), (
+            got["batch_score"], want["batch_score"])
+        return max(e, float(np.max(np.abs(got["param_sum"] - want["param_sum"])
+                                   / want["param_l1"])))
+
+    golden = {k: tg[k] for k in tg.files}
+    e_gold, e_cpu = err(traj["cuda"], golden), err(traj["cuda"], traj["cpu"])
+    print(f"phase 12d TanModel trajectory, {steps} steps of {n} questions "
+          f"({4 * n} rows), lr {lr}: loss {traj['cuda']['loss'].tolist()}, "
+          f"grad_norm {traj['cuda']['grad_norm'].tolist()}, batch_score "
+          f"{traj['cuda']['batch_score'].tolist()}; largest relative error vs "
+          f"JAX's golden {e_gold:.3e}, vs the CPU path {e_cpu:.3e} (tol "
+          f"{TRAIN_TOL:.0e}; {len(golden['param_names'])} leaves)")
+    assert e_gold <= TRAIN_TOL and e_cpu <= TRAIN_TOL, (e_gold, e_cpu)
+
+    # bf16: within the budget of JAX's float32 and xla-backend bf16 steps
+    # (its Pallas backend takes no bf16 step), as phase 8a'
+    tg16 = np.load(ROOT / "tests" / "data"
+                   / "torch_tan_train_golden_bf16.npz")
+    assert all(tg16[k] == tg[k] for k in ("n", "steps", "param_seed",
+                                          "batch_seed", "lr"))
+    assert float(tg16["floor"]) == BF16_FLOOR
+    K.reset_launches()
+    state = make_train_state(build_model(mcfg), seed=int(tg["param_seed"]),
+                             device="cuda")
+    step = make_train_step(state.model, TrainConfig(
+        update_freq=1, deterministic=True, compute_dtype="bfloat16"),
+        mc_scoring=True)
+    metrics = [step(state, b, lr) for b in batches]
+    mc_launches("phase 12d tan bf16 trajectory", path_counts, steps,
+                "bfloat16", backwards=steps)
+    got16 = {"loss": np.array([float(m["loss"]) for m in metrics]),
+             "grad_norm": np.array([float(m["grad_norm"]) for m in metrics]),
+             "param_l2": param_stats(jax_params_from_torch(
+                 state.model.state_dict()))["l2"]}
+    worst = {}
+    for k, x in got16.items():
+        f32_, b16_ = tg16[f"f32_{k}"], tg16[f"bf16_{k}"]
+        bound = BF16_BUDGET * np.abs(b16_ - f32_) + BF16_FLOOR * np.abs(f32_)
+        worst[k] = float(np.max(np.abs(x - f32_) / bound))
+    print(f"phase 12d TanModel bf16 trajectory, {steps} steps: loss "
+          f"{got16['loss'].tolist()}; error against JAX's float32 over its "
+          f"budget ({BF16_BUDGET:g} x JAX xla bf16's own + {BF16_FLOOR:.2e} x "
+          f"|value|), worst ratio per metric (<= 1 passes): {worst}")
+    assert all(v <= 1.0 for v in worst.values()), worst
+    del state, step, metrics
+
+    qb, rows_ = mc_rows(mcfg, MC_BATCH, seed=0)
+    batch = {k: rows_[k] for k in ("v", "b", "q", "a", "target")}
+    batch["v_mask"] = np.abs(batch["v"]).sum(-1) != 0
+    db = {k: torch.from_numpy(x).cuda() for k, x in batch.items()}
+    for compute in ("float32", "bfloat16"):
+        counts, n_steps, step_ms = train_throughput(
+            f"MC TanModel {MC_BATCH} questions ({TRAIN_B} rows), "
+            f"compute_dtype={compute}, batch on the card", db, windows=3,
+            mcfg=mcfg, mc_scoring=True, compute_dtype=compute)
+        sfx = "_bf16" if compute == "bfloat16" else ""
+        path_counts[f"phase 12d tan training {compute}"] = counts
+        assert counts["fused_rank_softmax" + sfx] == n_steps, counts
+        assert counts["trilinear_pool" + sfx] == CFG["gamma"] * n_steps, counts
+        assert counts["softmax_vqa_backward"] == n_steps, counts
+        assert counts["masked_softmax_vqa"] == 0, counts
+        print(f"phase 12d TanModel {compute}: {MC_BATCH / step_ms * 1e3:.1f} "
+              f"questions/s ({TRAIN_B / step_ms * 1e3:.1f} candidate rows/s) "
+              f"at the median step {step_ms:.3f} ms")
+    for name in ("ban_mc", "san_mc"):
+        bcfg = models[name][0]
+        _, r = mc_rows(bcfg, MC_BATCH, seed=0)
+        db = {k: torch.from_numpy(r[k]).cuda()
+              for k in ("v", "b", "q", "a", "target")}
+        K.reset_launches()
+        for compute in ("float32", "bfloat16"):
+            step_ms, _ = phase11_train_step_rate(
+                f"phase 12d training {name} {MC_BATCH} questions "
+                f"({TRAIN_B} rows), compute_dtype={compute}, batch on the "
+                "card", bcfg, db,
+                compute, profile_table=False, distillation=False,
+                mc_scoring=True)
+            print(f"phase 12d {name} {compute}: "
+                  f"{MC_BATCH / step_ms * 1e3:.1f} questions/s")
+        zero_launches(f"phase 12d {name} training", path_counts)
+        del db
+
+
+def phase12_cli(path_counts) -> None:
+    """(e) ``mc_train`` then ``mc_test`` at full width on a
+    ``make_v7w_fixture`` dataroot (512 train and 128 val and test
+    questions over 32 images of 2048-d ``.npz`` features, with the grid
+    path's 196-cell features beside them): ``mc_train --model cti`` for 2
+    epochs of 8 steps three ways (the Python loader, the C++ loader, the
+    card-resident store; per-step losses within LOOP_TOL), ``mc_test`` on
+    epoch 1 with the store on and off (equal accuracy), and one epoch on
+    the grid path (``--use_feature grid --max_boxes 196``)."""
+    from vqatpu_torch.cli import mc_test, mc_train
+    from vqatpu_torch.data.synthetic import (add_v7w_grid_fixture,
+                                             make_v7w_fixture)
+    from vqatpu_torch.kernels import trilinear as K
+
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "data_v7w")
+    t0 = time.perf_counter()
+    make_v7w_fixture(root, n_train=MC_TRAIN, n_val=MC_VAL,
+                     n_images=MC_IMAGES, v_dim=CFG["v_dim"])
+    add_v7w_grid_fixture(root, n_images=MC_IMAGES, v_dim=CFG["v_dim"])
+    print(f"phase 12e dataroot: {MC_TRAIN} train, {MC_VAL} val and test "
+          f"questions over {MC_IMAGES} images, bottom-up and grid features, "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    args = ["--model", "cti", "--dataroot", root, "--num_hid",
+            str(CFG["num_hid"]), "--h_mm", str(CFG["h_mm"]), "--rank",
+            str(CFG["rank"]), "--gamma", str(CFG["gamma"]), "--device", "cuda",
+            "--print_interval", "1000"]
+    steps, evals = MC_TRAIN // MC_BATCH, -(-MC_VAL // (2 * MC_BATCH))
+    runs = {"(iii) Python loader": ["--no_native_loader", "--device_features",
+                                    "off"],
+            "(ii) C++ loader": ["--device_features", "off"],
+            "(i) C++ loader and the store (defaults)": []}
+    losses = {}
+    try:
+        for label, extra in runs.items():
+            out = os.path.join(tmp.name, "v7w", label[1:label.index(")")])
+            counts, record, wall = run_train(
+                f"phase 12e mc_train {label}", args + extra + [
+                    "--output", out, "--epochs", str(MC_EPOCHS)], path_counts,
+                cli=mc_train)
+            text, log_losses, scores, secs = log_of(os.path.join(out, "log.txt"))
+            losses[label] = np.array([float(x) for r in record
+                                      for x in r["losses"]])
+            train_s = record[-1]["train"]
+            print(f"phase 12e mc_train {label}: {MC_EPOCHS} epochs of {steps} "
+                  f"steps ({MC_BATCH} questions, {TRAIN_B} rows) in {wall:.1f} "
+                  f"s; last epoch {secs[-1]:.3f} s (log.txt), training "
+                  f"{steps * MC_BATCH / train_s:.1f} questions/s, the loader "
+                  f"{record[-1]['wait'] / train_s:.1%}, eval "
+                  f"{record[-1]['eval']:.3f} s; losses {log_losses}; eval "
+                  f"{scores}; launches {counts}")
+            assert counts["fused_rank_softmax"] == MC_EPOCHS * (steps + evals)
+            assert counts["softmax_vqa_backward"] == MC_EPOCHS * steps
+            assert len(losses[label]) == MC_EPOCHS * steps
+            assert all(np.isfinite(losses[label]))
+            assert ("device feature store: " in text) == label.startswith("(i)")
+            assert "model_epoch0.ckpt" in os.listdir(out)  # saving_epoch 0
+        want = losses["(iii) Python loader"]
+        for label in list(runs)[1:]:
+            e = float(np.max(np.abs(losses[label] - want) / np.abs(want)))
+            print(f"phase 12e per-step losses, {label} vs (iii): largest "
+                  f"relative difference {e:.3e} over {len(want)} steps (tol "
+                  f"{LOOP_TOL:.0e})")
+            assert e <= LOOP_TOL, (label, e)
+
+        ckpt = os.path.join(tmp.name, "v7w", "i")
+        acc = {}
+        for flag in ("on", "off"):
+            K.reset_launches()
+            acc[flag] = mc_test.main(args + [
+                "--split", "val", "--input", ckpt, "--epoch",
+                str(MC_EPOCHS - 1), "--device_features", flag])
+            mc_launches(f"phase 12e mc_test --device_features {flag}",
+                        path_counts, -(-MC_VAL // MC_BATCH), "float32")
+        print(f"phase 12e mc_test --split val: accuracy {acc['on']:.4f} with "
+              f"the store, {acc['off']:.4f} without")
+        assert acc["on"] == acc["off"], acc
+
+        out = os.path.join(tmp.name, "v7w", "grid")
+        counts, record, wall = run_train(
+            "phase 12e mc_train --use_feature grid", args + [
+                "--use_feature", "grid", "--max_boxes", str(GRID_V),
+                "--output", out, "--epochs", "1"], path_counts, cli=mc_train)
+        text, log_losses, scores, _ = log_of(os.path.join(out, "log.txt"))
+        decided = [ln for ln in text.splitlines() if "feature store" in ln]
+        print(f"phase 12e mc_train --use_feature grid (V={GRID_V}): 1 epoch "
+              f"in {wall:.1f} s, training {record[0]['train']:.3f} s; loss "
+              f"{log_losses}, eval {scores}; {decided}; launches {counts}")
+        assert counts["fused_rank_softmax"] == steps + evals, counts
+        assert np.isfinite(log_losses).all()
+    finally:
+        tmp.cleanup()
 
 
 def sass_hmma(lib: Path) -> dict:
@@ -1730,7 +2259,8 @@ def main() -> int:
         grad_check(f"K1 {label}", ["dv", "dtqa"],
                    lambda x, y: K.fused_rank_softmax(x, y, mask),
                    lambda x, y: K.fused_rank_softmax_ref(x, y, mask),
-                   (v_r, tqa), cotangent((B_, V_, Q, A, tqa.shape[-1]), 1),
+                   (v_r, tqa), cotangent((B_, V_) + tqa.shape[1:3]
+                                         + tqa.shape[-1:], 1),
                    lambda want: K1_TOL)
         grad_check(f"K2 {label}", ["dvt", "dqt", "dat", "datt"],
                    lambda x, y, z, w: K.trilinear_pool(x, y, z, w[..., glimpse]),
@@ -1963,26 +2493,28 @@ def main() -> int:
 
     def k1_cost(v_r, tqa, mask, keep=None):
         """Bytes (inputs read once, att written once, in their dtypes) and
-        FLOP of K1."""
+        FLOP of K1 (Q and A from ``tqa``)."""
         B_, V_, R_, X_ = v_r.shape
-        G_ = tqa.shape[-1]
-        return (nbytes_of(v_r, tqa) + B_ * V_ * QA * G_ * f32 + mask.numel(),
-                2 * B_ * G_ * V_ * R_ * X_ * QA)
+        G_, QA_ = tqa.shape[-1], tqa.shape[1] * tqa.shape[2]
+        return (nbytes_of(v_r, tqa) + B_ * V_ * QA_ * G_ * f32 + mask.numel(),
+                2 * B_ * G_ * V_ * R_ * X_ * QA_)
 
     def k2_cost(vt, qt, at, w):
         """Bytes and FLOP of K2, in its order: V first, then Q, then A."""
         B_, V_, D_ = vt.shape
-        return (nbytes_of(vt, qt, at) + (B_ * V_ * QA + B_ * D_) * f32,
-                2 * B_ * D_ * (V_ * QA + QA + A))
+        A_ = at.shape[1]
+        QA_ = qt.shape[1] * A_
+        return (nbytes_of(vt, qt, at) + (B_ * V_ * QA_ + B_ * D_) * f32,
+                2 * B_ * D_ * (V_ * QA_ + QA_ + A_))
 
     def k1_library(v_r, tqa, mask, keep):
         """One bmm, then a masked softmax over the flattened (V, Q, A) in
         float32; ``keep`` is the mask repeated over (Q, A)."""
         B_, V_, R_, X_ = v_r.shape
-        G_ = tqa.shape[-1]
+        G_, QA_ = tqa.shape[-1], tqa.shape[1] * tqa.shape[2]
         lg = torch.bmm(v_r.reshape(B_, V_, R_ * X_), tqa.permute(
-            0, 3, 4, 1, 2, 5).reshape(B_, R_ * X_, QA * G_))
-        return torch.softmax(lg.reshape(B_, V_ * QA, G_).masked_fill(
+            0, 3, 4, 1, 2, 5).reshape(B_, R_ * X_, QA_ * G_))
+        return torch.softmax(lg.reshape(B_, V_ * QA_, G_).masked_fill(
             ~keep, float("-inf")), dim=1, dtype=torch.float32)
 
     def k2_einsum_in(dtype):
@@ -2001,7 +2533,8 @@ def main() -> int:
         plain version) and their bounds; with ``rows``, as the kernels'
         rows of the JSON line.  K2 reads glimpse 0 of the attention in
         place, as the model does."""
-        k1_args = k1_of(d_) + (d_["mask"].repeat_interleave(QA, 1)[..., None],)
+        QA_ = d_["qt"].shape[1] * d_["at"].shape[1]
+        k1_args = k1_of(d_) + (d_["mask"].repeat_interleave(QA_, 1)[..., None],)
         k2_args = (d_["vt"], d_["qt"], d_["at"], d_["att"])
 
         def on_glimpse0(f):
@@ -2653,7 +3186,8 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def train_throughput(label, batch, windows=WINDOWS, **tcfg):
+    def train_throughput(label, batch, windows=WINDOWS, mcfg=None,
+                         mc_scoring=False, **tcfg):
         """samples/s of the train step at B=256 with dropout on (bench.py's
         loop: windows of ITERS steps, each ending in a value readback), the
         median step on CUDA events, the host's time inside a step call
@@ -2662,11 +3196,14 @@ def main() -> int:
         the launches per step, and a ``torch.profiler`` table of 3 steps
         with the card's busy share.
         ``batch`` is a batch, or a function that gives each step's.
+        ``mcfg`` (bench.py's CTI by default) and ``mc_scoring`` choose the
+        model and its score.
         -> (launch counts, steps, median step ms)."""
         next_batch = batch if callable(batch) else (lambda: batch)
-        state = make_train_state(build_model(cfg), seed=0, device="cuda")
+        state = make_train_state(build_model(mcfg or cfg), seed=0,
+                                 device="cuda")
         step = make_train_step(state.model, TrainConfig(
-            update_freq=1, batch_size=TRAIN_B, **tcfg))
+            update_freq=1, batch_size=TRAIN_B, **tcfg), mc_scoring=mc_scoring)
         gen = torch.Generator(device=dev).manual_seed(1)
         for _ in range(WARMUP):
             m = step(state, next_batch(), 1e-3, gen)
@@ -2795,6 +3332,178 @@ def main() -> int:
     del models
     phase11_kd_loop(path_counts, p9)
     p9["tmp"].cleanup()
+
+    # -- 12. the Visual7W multiple-choice models (TanModel, BAN-MC, SAN-MC) -
+    def phase12_kernels(tan) -> list:
+        """(b) K1, K2 and the softmax backward at TanModel's shapes: 64
+        questions, 256 candidate rows (the last fully masked), Q=12, A=6
+        (Q*A=72), V=50 with 44 real boxes and the grid path's V=196, from
+        the full-width model's own projections; float32 and bf16, forward
+        and backward, against their plain versions; timed beside their
+        bounds and library calls (the rows of the JSON line)."""
+        tan16 = copy.deepcopy(tan).to(bf16)
+        qa = Q * MC_A
+        out_rows = []
+
+        def mc_inputs(m, grid, dtype):
+            _, r = mc_rows(m.cfg, MC_BATCH, seed=1600 + int(grid), grid=grid)
+            v = torch.from_numpy(r["v"]).to(dev, dtype)
+            mask = v.abs().sum(-1) != 0
+            mask[-1] = False  # a padded row, as a bucket's
+            with torch.inference_mode():
+                q_s = m.q_emb(m.w_emb(torch.from_numpy(r["q"]).to(dev)))
+                a_s = m.ans_emb(m.wa_emb(torch.from_numpy(r["a"]).to(dev)))
+                v_r, q_r, a_r, T = m.v_att.tc.rank_projections(v, q_s, a_s)
+                tqa = K.precontract_qa(q_r, a_r, T)
+                att = K.fused_rank_softmax_ref(v_r, tqa, mask)
+                tn0, tn1 = m.t_net0, m.t_net1
+                vt, qt, at = tn0.v_tucker(v), tn0.q_tucker(q_s), tn0.a_tucker(a_s)
+                joint = K.trilinear_pool_ref(vt, qt, at, att[..., 0])[:, None]
+                q1, a1 = m.q_prj0(joint) + q_s, m.a_prj0(joint) + a_s
+                d = dict(v_r=v_r, tqa=tqa, mask=mask, att=att, vt=vt, qt=qt,
+                         at=at, vt1=tn1.v_tucker(v), qt1=tn1.q_tucker(q1),
+                         at1=tn1.a_tucker(a1),
+                         logits=K.attention_logits_ref(v_r, q_r, a_r, T))
+            assert tqa.shape[1:3] == (Q, MC_A) and v_r.shape[:2] == (
+                TRAIN_B, GRID_V if grid else V), (tqa.shape, v_r.shape)
+            return {k: x.clone() for k, x in d.items()}
+
+        def row(r, shape):
+            r["shape"] = shape
+            out_rows.append(r)
+
+        for grid in (False, True):
+            V_ = GRID_V if grid else V
+            shape = f"MC B={TRAIN_B} rows V={V_} Q={Q} A={MC_A}"
+            d = mc_inputs(tan, grid, torch.float32)
+            with torch.inference_mode():
+                e1 = check_k1(f"{shape} (Q*A={qa})", k1_of(d))
+                e2 = check_k2(f"{shape} (the <4, 8> instance, 3 passes over Q)",
+                              k2_of(d))
+                e3 = check3(f"{shape} (Q*A={qa}: past the resident limit "
+                            f"at V={V_})" if grid else shape, d["logits"],
+                            d["mask"])
+            grad_checks(shape, *k1_of(d), d["vt"], d["qt"], d["at"], d["att"],
+                        0, d["logits"], d["mask"])
+            keep = d["mask"].repeat_interleave(qa, 1)[..., None]
+            k1_args = k1_of(d) + (keep,)
+            att = d["att"]
+            n_el = att.numel()
+            G_ = att.shape[-1]
+            cot = cotangent(att.shape, 21)
+            with torch.inference_mode():
+                row(timed("fused_rank_softmax", shape,
+                          (lambda v, t, m, k: K.fused_rank_softmax(v, t, m),
+                           lambda v, t, m, k: K.fused_rank_softmax_ref(v, t, m),
+                           k1_library), k1_args, *k1_cost(*k1_args),
+                          row=("rank_softmax.cu",
+                               "vqatpu/kernels/trilinear.py:303", e1)), shape)
+                row(timed(
+                    "softmax_vqa_backward", shape,
+                    (K.softmax_vqa_backward, K.softmax_vqa_backward_ref,
+                     lambda a, c: torch.ops.aten._softmax_backward_data(
+                         c.reshape(TRAIN_B, V_ * qa, G_),
+                         a.reshape(TRAIN_B, V_ * qa, G_), 1, torch.float32)),
+                    (att, cot), 3 * n_el * f32, 4 * n_el,
+                    row=("softmax_vqa.cu", "vqatpu/kernels/trilinear.py:237",
+                         e3[1])), shape)
+                if not grid:
+                    def glimpse0(f):
+                        return lambda vt, qt, at, a: f(vt, qt, at, a[..., 0])
+                    row(timed(
+                        "trilinear_pool", shape,
+                        (glimpse0(K.trilinear_pool),
+                         glimpse0(K.trilinear_pool_ref),
+                         glimpse0(K.trilinear_pool_ref)),
+                        (d["vt"], d["qt"], d["at"], att), *k2_cost(*k2_of(d)),
+                        row=("tri_pool.cu", "vqatpu/kernels/trilinear.py:369",
+                             e2)), shape)
+            if not grid:
+                # forward + backward, as a training step runs them (4c)
+                v_r, tqa, mask = (d[k].requires_grad_(k != "mask")
+                                  for k in ("v_r", "tqa", "mask"))
+                vt, qt, at, w = (d[k].requires_grad_()
+                                 for k in ("vt", "qt", "at", "att"))
+                g1, g2 = cotangent(att.shape, 22), cotangent(
+                    (TRAIN_B, vt.shape[-1]), 23)
+                RX, D_ = v_r.shape[2] * v_r.shape[3], vt.shape[-1]
+
+                def k1_fb(fn):
+                    return lambda v, t, g: torch.autograd.grad(
+                        fn(v, t).reshape(g.shape), (v, t), g)
+
+                def k2_fb(fn):
+                    return lambda a, b, c, w_, g: torch.autograd.grad(
+                        fn(a, b, c, w_[..., 0]), (a, b, c, w_), g)
+                timed("fused_rank_softmax forward+backward", shape,
+                      (k1_fb(lambda v, t: K.fused_rank_softmax(v, t, mask)),
+                       k1_fb(lambda v, t: K.fused_rank_softmax_ref(v, t, mask)),
+                       k1_fb(lambda v, t: k1_library(v, t, mask, keep))),
+                      (v_r, tqa, g1),
+                      2 * (v_r.numel() + tqa.numel() + n_el) * f32 + mask.numel(),
+                      3 * 2 * TRAIN_B * G_ * V_ * RX * qa)
+                timed("trilinear_pool forward+backward", f"{shape} (one glimpse)",
+                      (k2_fb(K.trilinear_pool), k2_fb(K.trilinear_pool_ref),
+                       k2_fb(K.trilinear_pool_ref)), (vt, qt, at, w, g2),
+                      2 * (vt.numel() + qt.numel() + at.numel() + TRAIN_B * V_ * qa
+                           + TRAIN_B * D_) * f32,
+                      k2_cost(vt, qt, at, w[..., 0])[1] + 3 * 2 * TRAIN_B * V_ * qa
+                      * D_ + 6 * TRAIN_B * qa * D_)
+            del d, att, cot, k1_args, keep
+
+            d16 = mc_inputs(tan16, grid, bf16)
+            e1 = check_k1(f"bf16 {shape}", k1_of(d16))
+            e2 = max(check_k2(f"bf16 {shape} glimpse 0 (the <6, 8> instance, "
+                              "2 passes)", k2_of(d16)),
+                     check_k2(f"bf16 {shape} glimpse 1 (qt, at f32)",
+                              k2_glimpse1(d16)))
+            v_r, tqa, mask = k1_of(d16)
+            grad_check(f"K1 bf16 {shape}", ["dv", "dtqa"],
+                       lambda x, y: K.fused_rank_softmax(x, y, mask),
+                       lambda x, y: K.fused_rank_softmax_ref(x, y, mask),
+                       (v_r, tqa), cotangent(d16["att"].shape, 24),
+                       lambda want: K1_TOL, grad_rel=BF16_GRAD_REL_TOL)
+            for g_, args in ((0, (d16["vt"], d16["qt"], d16["at"])),
+                             (1, (d16["vt1"], d16["qt1"], d16["at1"]))):
+                grad_check(f"K2 bf16 {shape} glimpse {g_}",
+                           ["dvt", "dqt", "dat", "datt"],
+                           lambda x, y, z, w: K.trilinear_pool(x, y, z, w[..., g_]),
+                           lambda x, y, z, w: K.trilinear_pool_ref(x, y, z, w[..., g_]),
+                           args + (d16["att"],),
+                           cotangent((TRAIN_B, d16["vt"].shape[-1]), 25),
+                           lambda want: K2_REL_TOL * want.abs().max().item(),
+                           grad_rel=BF16_GRAD_REL_TOL)
+            keep = d16["mask"].repeat_interleave(qa, 1)[..., None]
+            k1_args = k1_of(d16) + (keep,)
+            with torch.inference_mode():
+                row(timed("fused_rank_softmax_bf16", shape,
+                          (lambda v, t, m, k: K.fused_rank_softmax(v, t, m),
+                           lambda v, t, m, k: K.fused_rank_softmax_ref(v, t, m),
+                           k1_library), k1_args, *k1_cost(*k1_args),
+                          row=("rank_softmax.cu",
+                               "vqatpu/kernels/trilinear.py:303", e1),
+                          peak_ops=peak_bf16), shape)
+                if not grid:
+                    for g_, args in ((0, k2_of(d16)), (1, k2_glimpse1(d16))):
+                        row(timed(
+                            "trilinear_pool_bf16", f"{shape} glimpse {g_}",
+                            (K.trilinear_pool, K.trilinear_pool_ref,
+                             k2_einsum_in(bf16)), args, *k2_cost(*args),
+                            row=("tri_pool.cu",
+                                 "vqatpu/kernels/trilinear.py:369", e2),
+                            peak_ops=peak_bf16), f"{shape} glimpse {g_}")
+            del d16, k1_args, keep
+        del tan16
+        return out_rows
+
+    models12 = phase12_logits(path_counts)
+    flush = torch.empty(128 * 2**20 // 4, device=dev)  # > the 50 MB L2
+    rows += phase12_kernels(models12["tan"][1])
+    del flush
+    phase12_serving(models12, path_counts, median_ms)
+    phase12_training(models12, path_counts, train_throughput)
+    del models12
+    phase12_cli(path_counts)
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

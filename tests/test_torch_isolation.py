@@ -132,8 +132,9 @@ def test_no_source_names_the_jax_native_runtime(path):
         assert name not in text, name
 
 
-@pytest.mark.parametrize("cli", ["ffoe_train", "ffoe_test", "serve",
-                                 "evaluate_tdiuc", "ensemble"])
+@pytest.mark.parametrize("cli", ["ffoe_train", "ffoe_test", "mc_train",
+                                 "mc_test", "serve", "evaluate_tdiuc",
+                                 "ensemble"])
 def test_entry_points_default_to_cuda(cli):
     """The CLIs that touch a device default to ``--device cuda``, and so do
     ``train()`` and ``DeviceFeatureStore.build``; evaluate_tdiuc and

@@ -136,14 +136,14 @@ def test_empty_and_oversized_requests(sessions, rng):
 
 
 def test_session_refuses_what_is_not_ported(sessions, rng):
-    """MC scoring (ROADMAP queue A item 7) raises; so do unknown wires and
-    compute dtypes, and a CTI request without answer tokens."""
-    port, _ = sessions
+    """Unknown wires and compute dtypes raise, and so does a CTI request
+    without answer tokens; MC scoring runs (``tests/test_torch_mc_serve.py``
+    holds it to JAX's)."""
+    port, ref = sessions
     v, b, q, a = reqs(rng, 1)
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        port.mc_scores(v, b, q, a[:, None])
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        port.answer_mc(v, b, q, a[:, None])
+    np.testing.assert_allclose(port.mc_scores(v, b, q, a[:, None]),
+                               ref.mc_scores(v, b, q, a[:, None]), atol=1e-6)
+    assert port.answer_mc(v, b, q, a[:, None]) == [0]
     with pytest.raises(ValueError, match="transfer_dtype"):
         InferenceSession(port.model, ANS, transfer_dtype="int4", device="cpu")
     with pytest.raises(ValueError, match="compute_dtype"):
@@ -676,7 +676,7 @@ def test_micro_batcher_survives_malformed_requests(sessions, rng):
 
 def test_micro_batcher_empty_oversized_and_by_id(sessions, dataroot, rng):
     """An empty request, boxes beyond max_boxes (cut as the direct path
-    cuts them), by-id requests (which bypass coalescing) and MC (refused)
+    cuts them), by-id requests (which bypass coalescing) and MC scoring
     through the batcher."""
     port, _ = sessions
     rf = ResidentFeatures.from_dataroot(dataroot, "val", max_boxes=10)
@@ -695,8 +695,9 @@ def test_micro_batcher_empty_oversized_and_by_id(sessions, dataroot, rng):
                                       sess.logits_by_id(ids, q, a))
         assert mb.answer_by_id(ids, q, a) == sess.answer_by_id(ids, q, a)
         assert mb.batches_run == runs and mb.features is rf
-        with pytest.raises(NotImplementedError, match="queue A item 7"):
-            mb.mc_scores(v, b, q, a[:, None])
+        np.testing.assert_allclose(mb.mc_scores(v, b, q, a[:, None]),
+                                   sess.mc_scores(v, b, q, a[:, None]),
+                                   atol=1e-6)
     finally:
         mb.close()
 

@@ -276,10 +276,23 @@ def test_train_step_needs_the_state_frozen_alike():
         make_train_step(model, TrainConfig(), tfidf_loaded=True)
 
 
-def test_mc_scoring_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(build_model(ModelConfig(**SMALL)), TrainConfig(),
-                        mc_scoring=True)
+def test_mc_scoring_scores_groups():
+    """With ``mc_scoring`` the step's batch score is the number of groups of
+    4 rows whose largest class-0 margin falls on a row labelled 1."""
+    cfg = dataclasses.replace(ModelConfig(**SMALL), task="mc")
+    model = build_model(cfg)
+    state = make_train_state(model, seed=0, device="cpu")
+    step = make_train_step(model, TrainConfig(deterministic=True),
+                           mc_scoring=True)
+    batch = numpy_batch(ModelConfig(**SMALL), 8, seed=3, boxes=8,
+                        real_boxes=6, a_len=6)
+    labels = np.eye(4, dtype=np.float32)[[1, 3]].reshape(8, 1)
+    batch["target"] = np.concatenate([labels, 1 - labels], 1)
+    with torch.no_grad():  # before the step updates the weights
+        logits, _ = model(*(torch.from_numpy(batch[k]) for k in "vqa"))
+    m = step(state, batch, 1e-3)
+    pick = (logits[:, 0] - logits[:, 1]).reshape(2, 4).argmax(1).numpy()
+    assert float(m["batch_score"]) == float(labels.reshape(2, 4)[[0, 1], pick].sum())
 
 
 # -- the train step's trajectory ---------------------------------------------

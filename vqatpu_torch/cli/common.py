@@ -11,9 +11,10 @@ change what runs (``--coordinator``, ``--tp``, ``--num_devices`` > 1,
 ``--shard_feature_store``, ``--ckpt_backend orbax``, ``--profile_dir``,
 ``--mask_replay``, ``--fused_v_tucker`` with dropout, a ``--v_block_size``
 below the box count).  The free-form models ``ban`` (``--use_counter``),
-``san`` and ``cti`` are ported, with ``--distillation`` for BAN and SAN.  No flag that changes results
-is ignored.  ``--native_loader`` (the default) assembles batches in the
-port's C++ runtime and ``--device_features auto`` (the default) puts the
+``san`` and ``cti`` are ported, with ``--distillation`` for BAN and SAN,
+and ``mc_train``/``mc_test`` take the same flags for the multiple-choice
+models.  No flag that changes results is ignored.  ``--native_loader``
+(the default) assembles batches in the port's C++ runtime and ``--device_features auto`` (the default) puts the
 features on the card where they fit; the log says what each decided and
 why, as JAX's does."""
 

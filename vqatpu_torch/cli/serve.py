@@ -9,6 +9,13 @@ Endpoints:
                      CTI, spatials for BAN with ``--use_counter``)
                      -> {"answers": [...], "latency_ms": ...}
 - ``POST /logits``   same body -> raw logits
+- ``POST /answer_mc`` (``--task mc``, a Visual7W checkpoint): the same
+                     body without answer tokens, with each question's
+                     candidates as ``mc_tokens`` [N, C, 6] or
+                     ``mc_answers`` [N][C] strings (tokenized to 6)
+                     -> {"scores": [N][C] match probabilities, "picks":
+                     [N], "answers": the picked strings with
+                     ``mc_answers``, "latency_ms"}
 - ``POST /answer_by_id`` / ``/logits_by_id`` (``--feature_split``): body
                      {"image_ids": [N], "question_tokens" | "questions",
                      "answer_tokens"}; the features stay with the server
@@ -20,14 +27,15 @@ Endpoints:
 npz response (key ``logits``).  ``--transfer_dtype`` narrows the feature
 copy to the card, ``--compute_dtype bfloat16`` runs the forward in bf16,
 and ``--micro_batch N`` coalesces concurrent requests into forwards of up
-to N rows.  ``/answer_mc`` answers 400, as the JAX server does when it was
-not started with ``--task mc`` (MC is ROADMAP queue A item 7); the by-id
-endpoints answer 400 without ``--feature_split``.
+to N rows.  ``/answer_mc`` answers 400 on a server not started with
+``--task mc``, as the JAX server does; the by-id endpoints answer 400
+without ``--feature_split``.
 
 Run: ``python -m vqatpu_torch.cli.serve --input saved_models/cti --epoch 12
      --dataroot data_vqa --model cti --port 8399 --device cuda
      [--feature_split val --micro_batch 32]`` (``--model ban --use_counter``,
-     ``--model san``: the flags of the checkpoint's training run).
+     ``--model san``: the flags of the checkpoint's training run; ``--task
+     mc --dataroot data_v7w`` for an ``mc_train`` checkpoint).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import numpy as np
 
 from vqatpu_torch.config import ModelConfig
 from vqatpu_torch.data import Dictionary
+from vqatpu_torch.data.mc_dataset import MC_ANS_LEN
 
 
 def model_config_from_args(args, ntoken: int, num_ans: int) -> ModelConfig:
@@ -55,7 +64,7 @@ def model_config_from_args(args, ntoken: int, num_ans: int) -> ModelConfig:
         activation=args.activation, dropout=args.dropout,
         num_layers=args.num_layers, use_counter=args.use_counter,
         num_stacks=args.num_stacks, h_mm=args.h_mm, h_out=args.h_out,
-        rank=args.rank, k=args.k)
+        rank=args.rank, k=args.k, task=args.task)
 
 
 def build_session(args):
@@ -63,9 +72,14 @@ def build_session(args):
 
     dictionary = Dictionary.load_from_file(
         os.path.join(args.dataroot, "dictionary.pkl"))
-    with open(os.path.join(args.dataroot, "cache",
-                           "trainval_label2ans.pkl"), "rb") as f:
-        label2ans = pickle.load(f)
+    if args.task == "mc":
+        # the 2-class match / non-match head: the candidates come with each
+        # request, there is no answer vocabulary (vqatpu/cli/serve.py:57-60)
+        label2ans = ["match", "nonmatch"]
+    else:
+        with open(os.path.join(args.dataroot, "cache",
+                               "trainval_label2ans.pkl"), "rb") as f:
+            label2ans = pickle.load(f)
     cfg = model_config_from_args(args, dictionary.ntoken, len(label2ans))
     ckpt = os.path.join(args.input, f"model_epoch{args.epoch}.ckpt")
     wire = None if args.transfer_dtype == "float32" else args.transfer_dtype
@@ -74,9 +88,9 @@ def build_session(args):
         compute_dtype=args.compute_dtype, device=args.device), dictionary
 
 
-def make_handler(session, dictionary, model_name: str):
+def make_handler(session, dictionary, model_name: str, task: str = "ffoe"):
     """``session`` is an InferenceSession or a MicroBatcher over one (the
-    same answer/logits surface)."""
+    same answer/logits surface); ``task="mc"`` enables ``/answer_mc``."""
     class Handler(BaseHTTPRequestHandler):
         def _json(self, code: int, payload: dict):
             body = json.dumps(payload).encode()
@@ -106,15 +120,17 @@ def make_handler(session, dictionary, model_name: str):
                 self._json(404, {"error": "unknown path"})
 
         def _read_request(self, binary: bool, body: bytes):
+            """-> (v, b, q, a, the request: its npz arrays or JSON)."""
             if binary:
                 with np.load(io.BytesIO(body), allow_pickle=False) as z:
-                    v = np.asarray(z["features"], np.float32)
-                    b = (np.asarray(z["spatials"], np.float32)
-                         if "spatials" in z.files else None)
-                    q = np.asarray(z["question_tokens"], np.int32)
-                    a = (np.asarray(z["answer_tokens"], np.int32)
-                         if "answer_tokens" in z.files else None)
-                return v, b, q, a
+                    req = {k: z[k] for k in z.files}
+                v = np.asarray(req["features"], np.float32)
+                b = (np.asarray(req["spatials"], np.float32)
+                     if "spatials" in req else None)
+                q = np.asarray(req["question_tokens"], np.int32)
+                a = (np.asarray(req["answer_tokens"], np.int32)
+                     if "answer_tokens" in req else None)
+                return v, b, q, a, req
             req = json.loads(body)
             v = np.asarray(req["features"], np.float32)
             b = req.get("spatials")
@@ -126,7 +142,26 @@ def make_handler(session, dictionary, model_name: str):
                                 for s in req["questions"]], np.int32)
             a = req.get("answer_tokens")
             a = None if a is None else np.asarray(a, np.int32)
-            return v, b, q, a
+            return v, b, q, a, req
+
+        def _answer_mc(self, v, b, q, req) -> dict:
+            """The candidates as ``mc_tokens`` [N, C, 6] (JSON or npz) or
+            ``mc_answers`` [N][C] strings, tokenized here (answers are 6
+            tokens, ``MC/dataset.py``)."""
+            cands = None
+            if "mc_tokens" in req:
+                mc = np.asarray(req["mc_tokens"], np.int32)
+            else:
+                cands = req["mc_answers"]
+                mc = np.asarray(
+                    [[dictionary.tokenize_padded(s, MC_ANS_LEN) for s in row]
+                     for row in cands], np.int32)
+            scores = session.mc_scores(v, b, q, mc)
+            pick = scores.argmax(1)
+            out = {"scores": scores.tolist(), "picks": pick.tolist()}
+            if cands is not None:
+                out["answers"] = [cands[i][j] for i, j in enumerate(pick)]
+            return out
 
         def _by_id(self):
             """``/answer_by_id`` and ``/logits_by_id``: image ids and tokens,
@@ -164,7 +199,9 @@ def make_handler(session, dictionary, model_name: str):
                     return
                 self._by_id()
                 return
-            if self.path == "/answer_mc":
+            if self.path == "/answer_mc" and task != "mc":
+                # against a free-form checkpoint the class-0 softmax over
+                # the answer vocabulary would mean nothing
                 self._json(400, {"error": "server not started with "
                                           "--task mc"})
                 return
@@ -172,9 +209,12 @@ def make_handler(session, dictionary, model_name: str):
                 length = int(self.headers.get("Content-Length", "0"))
                 binary = self.headers.get(
                     "Content-Type", "").startswith("application/x-npz")
-                v, b, q, a = self._read_request(binary, self.rfile.read(length))
+                v, b, q, a, req = self._read_request(
+                    binary, self.rfile.read(length))
                 t0 = time.perf_counter()
-                if self.path == "/answer":
+                if self.path == "/answer_mc":
+                    out = self._answer_mc(v, b, q, req)
+                elif self.path == "/answer":
                     out = {"answers": session.answer(v, b, q, a)}
                 elif binary:
                     self._npz({"logits": session.logits(v, b, q, a)})
@@ -195,15 +235,18 @@ class _Server(ThreadingHTTPServer):
 
 
 def make_server(session, dictionary, model_name: str, port: int,
-                host: str = "127.0.0.1") -> ThreadingHTTPServer:
-    return _Server((host, port), make_handler(session, dictionary, model_name))
+                host: str = "127.0.0.1",
+                task: str = "ffoe") -> ThreadingHTTPServer:
+    return _Server((host, port),
+                   make_handler(session, dictionary, model_name, task))
 
 
 def serve_in_thread(session, dictionary, model_name: str, port: int,
-                    host: str = "127.0.0.1") -> ThreadingHTTPServer:
+                    host: str = "127.0.0.1",
+                    task: str = "ffoe") -> ThreadingHTTPServer:
     """Start the server on a daemon thread; ``port=0`` picks a free port
     (``server.server_address[1]``).  Stop it with ``server.shutdown()``."""
-    server = make_server(session, dictionary, model_name, port, host)
+    server = make_server(session, dictionary, model_name, port, host, task)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     return server
 
@@ -220,6 +263,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch versions")
     p.add_argument("--model", type=str, default="cti",
                    choices=["ban", "san", "cti", "stacked_attention"])
+    p.add_argument("--task", type=str, default="ffoe", choices=("ffoe", "mc"),
+                   help="mc serves a Visual7W 2-class checkpoint: POST "
+                        "/answer_mc with each question's candidates")
     p.add_argument("--v_dim", type=int, default=2048)
     p.add_argument("--num_hid", type=int, default=1024)
     p.add_argument("--op", type=str, default="c")
@@ -290,7 +336,7 @@ def build_server(args):
         session = MicroBatcher(session, max_batch=args.micro_batch,
                                max_wait_ms=args.micro_batch_wait_ms)
     return session, make_server(session, dictionary, args.model, args.port,
-                                args.host)
+                                args.host, args.task)
 
 
 def main(argv=None):

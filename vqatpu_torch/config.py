@@ -3,18 +3,22 @@ and ``vqatpu.config.TrainConfig``.
 
 The fields and defaults are the JAX package's, so a configuration written
 for one side constructs on the other; the default model, ``ban``, builds.
-The free-form models ``ban`` (``use_counter``, ``objects``), ``san``
-(``num_stacks``) and ``cti`` are ported; the ``mc`` task is ROADMAP queue
-A item 7.  CTI has one path, that of JAX's ``kernel_backend="pallas"``
-(the fused attention and pooling kernels, and its dtypes at bf16
-compute); the blockwise, fused-tucker and remat variants are ROADMAP
-queue A item 8.  ``kernel_backend`` and ``remat_glimpse`` select nothing
-here and change no result.
+Every model is ported: for ``task="ffoe"`` ``ban`` (``use_counter``,
+``objects``), ``san`` (``num_stacks``) and ``cti``; for ``task="mc"``
+(Visual7W, a 2-class head: :attr:`ModelConfig.num_classes`) ``ban``,
+``san`` and ``cti`` or ``tan`` (TanModel).  CTI and TanModel have one
+path, that of JAX's ``kernel_backend="pallas"`` (the fused attention and
+pooling kernels, and its dtypes at bf16 compute); CTI's blockwise,
+fused-tucker and remat variants are ROADMAP queue A item 8.
+``kernel_backend`` and ``remat_glimpse`` select nothing here and change no
+result.
 ``fused_v_tucker`` changes no eval result (``vqatpu/config.py:47-50``), but
-with dropout on JAX draws one mask on ``v`` for the 1+γ v-side tuckers, so
-:func:`vqatpu_torch.train.make_train_step` refuses it there.
-``v_block_size`` > 0 with more boxes than it makes JAX's forward return no
-attention (``vqatpu/models/ffoe.py:357``); the port's forward refuses it.
+with dropout on JAX's free-form CTI draws one mask on ``v`` for the 1+γ
+v-side tuckers, so :func:`vqatpu_torch.train.make_train_step` refuses it
+there.  ``v_block_size`` > 0 with more boxes than it makes JAX's CTI
+forward return no attention (``vqatpu/models/ffoe.py:357``); the port's
+CTI forward refuses it.  JAX's TanModel reads neither, and neither does
+the port's.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ class ModelConfig:
     v_dim: int
     num_ans_candidates: int
     # shared
-    model: str = "ban"  # ban | san | cti
+    model: str = "ban"  # ban | san | cti (| tan for mc)
     num_hid: int = 1024
     op: str = "c"  # 'c' => concat frozen GloVe copy (600-d words)
     gamma: int = 2  # glimpses

@@ -100,8 +100,10 @@ def _unique_stores(dataset) -> list:
 def devstore_capable(dataset, task: str = "ffoe") -> Tuple[bool, str]:
     """Whether :meth:`DeviceFeatureStore.build` can take this dataset: every
     member (of a ``ConcatDataset`` too) has an in-memory FeatureStore and
-    entries with image indices.  JAX's MC task qualifies as well; its x4
-    gather comes with the MC pipeline (ROADMAP queue A item 7)."""
+    entries with image indices.  The multiple-choice ``V7WDataset``
+    qualifies too: its loader ships ``ds_idx``, which the ``x4`` expansion
+    repeats, and the gather of the repeated indices gives the expanded
+    slabs (:func:`~vqatpu_torch.data.mc_dataset.expand_mc_batch`)."""
     if task not in ("ffoe", "mc"):
         return False, f"device_features does not support task {task!r}"
     for d in dataset_members(dataset):

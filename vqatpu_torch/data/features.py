@@ -30,6 +30,31 @@ from vqatpu_torch.data.native import quantize_rows
 QUANTIZE_CHUNK_BYTES = 1 << 26
 
 
+class ZeroArray:
+    """A lazy all-zero stand-in for spatials that are zero by construction
+    (the Visual7W grid path, ``vqatpu/data/features.py:39-60``): a
+    streaming store gets no features-sized block of zeros.  Takes the
+    integer and slice indexing of the leading axis that
+    :meth:`FeatureStore.get` uses; ``np.asarray`` of it is a real block of
+    zeros (:meth:`FeatureStore.materialize`, the C++ store's
+    registration)."""
+
+    def __init__(self, shape):
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = np.dtype(np.float32)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, (int, np.integer)):
+            return np.zeros(self.shape[1:], np.float32)
+        if isinstance(idx, slice):
+            n = len(range(*idx.indices(self.shape[0])))
+            return np.zeros((n,) + self.shape[1:], np.float32)
+        raise TypeError(f"ZeroArray takes an int or a slice, not {idx!r}")
+
+    def __array__(self, dtype=None, copy=None):
+        return np.zeros(self.shape, dtype or self.dtype)
+
+
 def _h5py():
     try:
         import h5py

@@ -1,5 +1,5 @@
 """Synthetic fixture datasets, a copy of ``vqatpu.data.synthetic``
-(``vqatpu/data/synthetic.py:10-215``): the same files from the same seeds.
+(``vqatpu/data/synthetic.py:10-252``): the same files from the same seeds.
 
 Generates a complete VQA-2.0- or TDIUC-shaped dataroot on disk (question
 JSONs, target pickles, imgid2idx, adaptive region features, GloVe init
@@ -7,7 +7,9 @@ matrix, dictionary) so the train, eval and export pipeline runs with no
 external data.  Shapes mirror the real artifacts (adaptive ``pos_boxes``
 layout with 10..max boxes per image, soft-score targets).  Features go to
 ``{split}.hdf5`` where ``h5py`` imports, else to ``{split}.npz``.  The
-Visual7W fixture waits for the MC port (ROADMAP queue A item 7).
+Visual7W fixture (:func:`make_v7w_fixture`) writes the bottom-up
+features as JAX's does; :func:`add_v7w_grid_fixture` adds the grid path's
+fixed 196-cell features under ``v7w/``.
 """
 
 from __future__ import annotations
@@ -191,3 +193,74 @@ def make_tdiuc_fixture(dataroot: str, n_train: int = 48, n_val: int = 24,
         with open(os.path.join(dataroot, "cache", f"{split}_target.pkl"), "wb") as f:
             pickle.dump(targets, f)
     return d
+
+
+def make_v7w_fixture(dataroot: str, n_train: int = 32, n_val: int = 16,
+                     n_images: int = 12, v_dim: int = 64,
+                     seed: int = 2) -> Dictionary:
+    """A Visual7W dataroot (``vqatpu/data/synthetic.py:216-252``): per
+    split the imgid2idx, adaptive features, ``v7w_{split}_questions.json``
+    and ``answer_{split}.json`` with 4 distinct candidates a question, one
+    of them the ground truth."""
+    os.makedirs(os.path.join(dataroot, "cache"), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    d = make_dictionary(dataroot)
+
+    ans2label = {a: i for i, a in enumerate(ANSWERS)}
+    with open(os.path.join(dataroot, "cache", "trainval_ans2label.pkl"), "wb") as f:
+        pickle.dump(ans2label, f)
+    with open(os.path.join(dataroot, "cache", "trainval_label2ans.pkl"), "wb") as f:
+        pickle.dump(list(ANSWERS), f)
+
+    for split, n in (("train", n_train), ("val", n_val), ("test", n_val)):
+        img_ids = list(range(3000, 3000 + n_images))
+        img_id2idx = {im: i for i, im in enumerate(img_ids)}
+        with open(os.path.join(dataroot, f"{split}_imgid2idx.pkl"), "wb") as f:
+            pickle.dump(img_id2idx, f)
+        _write_features(os.path.join(dataroot, split), rng, n_images, v_dim)
+        questions, candidates = [], {}
+        for i in range(n):
+            qid = i * 7
+            img = img_ids[rng.randint(n_images)]
+            questions.append({
+                "question_id": qid, "image_id": img,
+                "question": _questions(rng, 1)[0],
+            })
+            mc = rng.choice(ANSWERS, size=4, replace=False).tolist()
+            gt = int(rng.randint(4))
+            label = [0.0] * 4
+            label[gt] = 1.0
+            candidates[str(qid)] = {"mc": mc, "ans_gt": mc[gt], "label": label}
+        with open(os.path.join(dataroot, f"v7w_{split}_questions.json"), "w") as f:
+            json.dump({"questions": questions}, f)
+        with open(os.path.join(dataroot, f"answer_{split}.json"), "w") as f:
+            json.dump(candidates, f)
+    return d
+
+
+def add_v7w_grid_fixture(dataroot: str, n_images: int = 12, v_dim: int = 64,
+                         cells: int = 196, seed: int = 3) -> None:
+    """The grid path's files beside a :func:`make_v7w_fixture` dataroot of
+    the same ``n_images``: per split ``v7w/{split}_imgid2idx.pkl`` and
+    fixed-layout features ``v7w/{split}`` (``image_features [n_images,
+    cells, v_dim]``; ``.hdf5`` where h5py imports, else ``.npz``).  The
+    dataset replaces the spatials with zeros, so those written here are
+    random on purpose."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(dataroot, "v7w"), exist_ok=True)
+    img_id2idx = {im: i for i, im in enumerate(range(3000, 3000 + n_images))}
+    for split in ("train", "val", "test"):
+        with open(os.path.join(dataroot, "v7w", f"{split}_imgid2idx.pkl"),
+                  "wb") as f:
+            pickle.dump(img_id2idx, f)
+        features = rng.randn(n_images, cells, v_dim).astype(np.float32)
+        spatials = rng.rand(n_images, cells, 6).astype(np.float32)
+        base = os.path.join(dataroot, "v7w", split)
+        try:
+            import h5py
+            with h5py.File(base + ".hdf5", "w") as hf:
+                hf.create_dataset("image_features", data=features)
+                hf.create_dataset("spatial_features", data=spatials)
+        except ImportError:
+            np.savez(base + ".npz", image_features=features,
+                     spatial_features=spatials)

@@ -15,7 +15,8 @@ does; it returns ``(logits [B, num_classes], att)``.
   ``att`` [B, G, V, Q].
 - :class:`StackedAttentionModel` (``:134-176``): SAN on the GRU's last
   state; ``att`` is None.
-- :class:`CTIModel` (``:179-330``): ``att`` [B, V, Q, A, G].
+- :class:`CTIModel` (``:179-330``): ``att`` [B, V, Q, A, G], its body
+  :class:`TrilinearModel`, which the multiple-choice ``TanModel`` shares.
 
 Dropout sites fire in JAX's order.
 
@@ -134,10 +135,17 @@ class StackedAttentionModel(nn.Module):
         return self.classifier(self.v_att(v, q_last, ctx=ctx), ctx), None
 
 
-class CTIModel(nn.Module):
-    """Dual GRU streams (question + answer), trilinear attention, and per
-    glimpse a joint embedding with residual updates to both streams
-    (``FFOE/base_model.py:95-136``)."""
+class TrilinearModel(nn.Module):
+    """The CTI body that the free-form :class:`CTIModel` and the
+    multiple-choice :class:`~vqatpu_torch.models.mc.TanModel` share
+    (``FFOE/base_model.py:95-136``, ``MC/base_model.py:112-152``): dual GRU
+    streams (question + answer), trilinear attention, and per glimpse a
+    joint embedding with residual updates to both streams.  The attention
+    lives under :attr:`att_name` (``t_att`` in CTI, ``v_att`` in TanModel,
+    JAX's tree paths); the classifier has ``cfg.num_classes`` outputs."""
+
+    att_name = "t_att"
+    inputs = ("v", "q", "a")
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -147,8 +155,8 @@ class CTIModel(nn.Module):
         self.q_emb = QuestionEmbedding(cfg.word_dim, H, cfg.num_layers)
         self.wa_emb = WordEmbedding(cfg.ntoken, 300, 0.0, cfg.op)
         self.ans_emb = QuestionEmbedding(cfg.word_dim, H, cfg.num_layers)
-        self.t_att = TriAttention(cfg.v_dim, H, H, cfg.h_mm, 1, cfg.rank,
-                                  cfg.gamma, cfg.k)
+        self.add_module(self.att_name, TriAttention(
+            cfg.v_dim, H, H, cfg.h_mm, 1, cfg.rank, cfg.gamma, cfg.k))
         self.classifier = SimpleClassifier(H, H * 2, cfg.num_classes,
                                            cfg.activation, cfg.dropout)
         for g in range(cfg.gamma):
@@ -159,25 +167,18 @@ class CTIModel(nn.Module):
             self.add_module(f"q_prj{g}", FCNet((H, H), "", 0.2))
             self.add_module(f"a_prj{g}", FCNet((H, H), "", 0.2))
 
-    inputs = ("v", "q", "a")
-
     def forward(self, v: torch.Tensor, q: torch.Tensor,
                 a: Optional[torch.Tensor] = None,
                 v_mask: Optional[torch.Tensor] = None,
                 ctx: Optional[Ctx] = None, b: Optional[torch.Tensor] = None):
         if a is None:
-            raise ValueError("CTI needs answer tokens")
-        block = self.cfg.v_block_size
-        if block > 0 and v.shape[1] > block:
-            raise NotImplementedError(
-                f"v_block_size={block} with {v.shape[1]} boxes selects JAX's "
-                "blockwise path, which returns no attention; it is not "
-                "ported (ROADMAP queue A item 8)")
+            raise ValueError(f"{type(self).__name__} needs answer tokens")
         if v_mask is None:
             v_mask = box_mask_from_features(v)
         q_state = self.q_emb(self.w_emb(q, ctx))       # [B, Q, H]
         a_state = self.ans_emb(self.wa_emb(a, ctx))    # [B, A, H]
-        att, _ = self.t_att(v, q_state, a_state, v_mask, ctx)  # [B,V,Q,A,G]
+        att, _ = getattr(self, self.att_name)(
+            v, q_state, a_state, v_mask, ctx)          # [B, V, Q, A, G]
         for g in range(self.cfg.gamma):
             joint = getattr(self, f"t_net{g}").apply_with_weights(
                 v, q_state, a_state, att[..., g], ctx)
@@ -186,3 +187,21 @@ class CTIModel(nn.Module):
             a_state = getattr(self, f"a_prj{g}")(joint, ctx) + a_state
         pooled = q_state.sum(1) + a_state.sum(1)
         return self.classifier(pooled, ctx), att
+
+
+class CTIModel(TrilinearModel):
+    """The free-form CTI model (``vqatpu/models/ffoe.py:179-330``); a
+    ``v_block_size`` below the box count selects JAX's blockwise path,
+    which is not ported, and raises."""
+
+    def forward(self, v: torch.Tensor, q: torch.Tensor,
+                a: Optional[torch.Tensor] = None,
+                v_mask: Optional[torch.Tensor] = None,
+                ctx: Optional[Ctx] = None, b: Optional[torch.Tensor] = None):
+        block = self.cfg.v_block_size
+        if block > 0 and v.shape[1] > block:
+            raise NotImplementedError(
+                f"v_block_size={block} with {v.shape[1]} boxes selects JAX's "
+                "blockwise path, which returns no attention; it is not "
+                "ported (ROADMAP queue A item 8)")
+        return super().forward(v, q, a, v_mask, ctx, b)

@@ -1,8 +1,9 @@
 """Model factory keyed by name (``vqatpu/models/registry.py:32-41``).
 
-The free-form models are ported: ``ban``, ``san`` (also named
-``stacked_attention``) and ``cti``.  The multiple-choice ones raise
-``NotImplementedError`` naming their ROADMAP item.
+Free-form (``task="ffoe"``): ``ban``, ``san`` (also named
+``stacked_attention``) and ``cti``.  Multiple choice (``task="mc"``):
+``ban``, ``san`` / ``stacked_attention``, and ``cti`` or ``tan`` (both
+:class:`~vqatpu_torch.models.mc.TanModel`).
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from torch import nn
 
 from vqatpu_torch.config import ModelConfig
 from vqatpu_torch.models.ffoe import BanModel, CTIModel, StackedAttentionModel
+from vqatpu_torch.models.mc import (BanModelMC, StackedAttentionModelMC,
+                                    TanModel)
 
 _FFOE = {
     "ban": BanModel,
@@ -18,14 +21,18 @@ _FFOE = {
     "stacked_attention": StackedAttentionModel,
     "cti": CTIModel,
 }
-_MC = ("ban", "san", "stacked_attention", "cti", "tan")
+_MC = {
+    "ban": BanModelMC,
+    "san": StackedAttentionModelMC,
+    "stacked_attention": StackedAttentionModelMC,
+    "cti": TanModel,
+    "tan": TanModel,
+}
 
 
 def build_model(cfg: ModelConfig) -> nn.Module:
-    if cfg.task == "ffoe" and cfg.model in _FFOE:
-        return _FFOE[cfg.model](cfg)
-    if cfg.task == "mc" and cfg.model in _MC:
-        raise NotImplementedError(
-            f"model {cfg.model!r} for task 'mc' is not ported to vqatpu_torch "
-            "yet: ROADMAP queue A item 7 (MC)")
-    raise ValueError(f"unknown model {cfg.model!r} for task {cfg.task!r}")
+    table = _MC if cfg.task == "mc" else _FFOE
+    if cfg.task not in ("ffoe", "mc") or cfg.model not in table:
+        raise ValueError(f"unknown model {cfg.model!r} for task {cfg.task!r}; "
+                         f"choices: {sorted(table)}")
+    return table[cfg.model](cfg)

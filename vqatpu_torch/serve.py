@@ -28,7 +28,11 @@
 - :class:`MicroBatcher` (``:459-625``) coalesces concurrent requests into
   one bucketed forward.
 
-MC scoring (``mc_scores``, ``answer_mc``) waits for ROADMAP queue A item 7.
+Multiple choice (Visual7W, ``:406-456``): :meth:`InferenceSession.
+mc_scores` and :meth:`~InferenceSession.answer_mc` (and the
+``MicroBatcher``'s) expand each question over its candidates on the host,
+the spatials too, and score each candidate by its class-0 ("match")
+softmax probability.
 
 Usage::
 
@@ -60,8 +64,6 @@ from vqatpu_torch.models import build_model
 from vqatpu_torch.numerics import check_f32_math, require_f32_math
 from vqatpu_torch.train.steps import wire_cast
 from vqatpu_torch.weights import load_jax_params, load_params_file
-
-_MC = "MC scoring is not ported (ROADMAP queue A item 7)"
 
 
 def wire_name(transfer_dtype) -> str:
@@ -298,11 +300,18 @@ class InferenceSession:
         d = np.linalg.norm(pred[:, None, :] - ans_emb[None, :, :], axis=2)
         return [self.label2ans[int(i)] for i in d.argmin(1)]
 
-    def mc_scores(self, v, b, q, ans_mc):
-        raise NotImplementedError(_MC)
+    def mc_scores(self, v, b, q, ans_mc: np.ndarray) -> np.ndarray:
+        """Candidate match probabilities of a multiple-choice (2-class)
+        model: ``ans_mc`` [N, C, A] candidate tokens -> [N, C]
+        (:func:`mc_scores`)."""
+        return mc_scores(self.logits, v, b, q, ans_mc)
 
-    def answer_mc(self, v, b, q, ans_mc, candidates=None):
-        raise NotImplementedError(_MC)
+    def answer_mc(self, v, b, q, ans_mc: np.ndarray,
+                  candidates: Optional[Sequence[Sequence[str]]] = None):
+        """Each question's best candidate: indices [N], or with
+        ``candidates`` ([N][C] strings, which come with the request) the
+        strings."""
+        return answer_mc(self.logits, v, b, q, ans_mc, candidates)
 
     # -- by-id serving ----------------------------------------------------
     def attach_features(self, features: ResidentFeatures,
@@ -390,6 +399,33 @@ class InferenceSession:
         return [self.label2ans[int(i)] for i in logits.argmax(1)]
 
 
+def mc_scores(logits_fn, v, b, q, ans_mc: np.ndarray) -> np.ndarray:
+    """The candidate expansion and class-0 softmax over any ``logits(v, b,
+    q, a)`` (``vqatpu/serve.py:439-452``): each question's ``v``, ``b``
+    and ``q`` repeat once per candidate, the spatials too (JAX's fix of the
+    reference's BAN, which forgets them), and ``ans_mc`` [N, C, A]
+    flattens to the rows' answer tokens -> [N, C] match probabilities."""
+    ans_mc = np.asarray(ans_mc)
+    n, c = ans_mc.shape[:2]
+    vx = np.repeat(v, c, axis=0)
+    bx = None if b is None else np.repeat(b, c, axis=0)
+    qx = np.repeat(q, c, axis=0)
+    logits = logits_fn(vx, bx, qx, ans_mc.reshape(n * c, -1))
+    z = logits - logits.max(1, keepdims=True)
+    p = np.exp(z)
+    p /= p.sum(1, keepdims=True)
+    return p[:, 0].reshape(n, c)
+
+
+def answer_mc(logits_fn, v, b, q, ans_mc, candidates=None):
+    """The argmax of :func:`mc_scores` per question: indices, or the
+    ``candidates`` strings."""
+    pick = mc_scores(logits_fn, v, b, q, ans_mc).argmax(1)
+    if candidates is None:
+        return pick.tolist()
+    return [candidates[i][j] for i, j in enumerate(pick)]
+
+
 class MicroBatcher:
     """Coalesces concurrent requests into one bucketed forward of an
     :class:`InferenceSession` (``vqatpu/serve.py:459-625``).
@@ -433,11 +469,13 @@ class MicroBatcher:
         logits = self.logits(v, b, q, a)
         return [self.session.label2ans[int(i)] for i in logits.argmax(1)]
 
-    def mc_scores(self, v, b, q, ans_mc):
-        raise NotImplementedError(_MC)
+    def mc_scores(self, v, b, q, ans_mc) -> np.ndarray:
+        """As :meth:`InferenceSession.mc_scores`; the expanded rows
+        coalesce with the other queued requests."""
+        return mc_scores(self.logits, v, b, q, ans_mc)
 
     def answer_mc(self, v, b, q, ans_mc, candidates=None):
-        raise NotImplementedError(_MC)
+        return answer_mc(self.logits, v, b, q, ans_mc, candidates)
 
     @property
     def features(self):

@@ -1,5 +1,5 @@
-"""The epoch loop of the FFOE pipeline (``vqatpu/train/loop.py:204-482``,
-reference ``FFOE/train.py:24-116``).
+"""The epoch loop of the FFOE and MC pipelines (``vqatpu/train/loop.py:
+204-482``, reference ``FFOE/train.py:24-116`` and ``MC/train.py:22-120``).
 
 The LR of each epoch comes from the host (:func:`~vqatpu_torch.train.optim.
 lr_for_epoch`), with the reference's log lines; accumulation, the clip and
@@ -9,6 +9,14 @@ with an eval on ``make_eval_loader(eval_ds, 2 * batch_size)`` and, from
 when the eval score beats ``best_eval``, which rides in the checkpoint's
 ``extra`` so that a resumed run cannot overwrite a better best checkpoint.
 ``log.txt`` has JAX's lines.
+
+With ``task="mc"`` (Visual7W) each batch of questions, for training and
+for the eval, is expanded ``x4`` on the host into candidate rows with
+2-class targets (:func:`~vqatpu_torch.data.mc_dataset.expand_mc_batch`;
+the store's wire repeats ``ds_idx``, and the gather gives the expanded
+slabs), the step scores groups of 4 (``mc_scoring``), the train score is
+counted over ``num_updates x batch_size`` questions and the eval is
+:func:`~vqatpu_torch.eval.mc.evaluate_mc`.
 
 The step's metrics stay on the card: each update adds its loss, pre-clip
 grad norm and batch score to running sums there, read back only every
@@ -58,8 +66,10 @@ from vqatpu_torch.data.device_store import (DeviceFeatureStore,
                                             devstore_capable,
                                             devstore_decision,
                                             normalize_device_features)
+from vqatpu_torch.data.mc_dataset import expand_mc_batch
 from vqatpu_torch.data.upload import PinnedUploader
 from vqatpu_torch.eval.ffoe import evaluate as evaluate_ffoe
+from vqatpu_torch.eval.mc import evaluate_mc
 from vqatpu_torch.train.checkpoints import save_checkpoint
 from vqatpu_torch.train.logging import Logger, time_since
 from vqatpu_torch.train.optim import lr_for_epoch
@@ -77,15 +87,17 @@ def count_params(model) -> int:
 
 
 def _make_loader(dataset, cfg: TrainConfig, use_native: bool, logger=None,
-                 dev_store=None):
+                 dev_store=None, task: str = "ffoe"):
     """The shuffled training loader (``vqatpu/train/loop.py:59-92``): with a
     card-resident store, the Python fields-only loader; else the C++
     ``NativeBatchLoader`` where asked for and the dataset can take it (with
     ``transfer_dtype="int8"`` it quantizes on assembly, and ``wire_cast``
     passes the quantized ``v`` through), else the Python loader on a
-    prefetch thread, the reason in the log."""
+    prefetch thread, the reason in the log.  Sparse targets are free-form
+    only: MC builds its targets from the labels at the expansion."""
     if dev_store is not None:
-        k = max_target_labels(dataset) if cfg.sparse_targets else 0
+        k = (max_target_labels(dataset)
+             if cfg.sparse_targets and task == "ffoe" else 0)
         return PrefetchLoader(BatchLoader(
             dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
             drop_last=True, fields_only=True, sparse_target_k=k))
@@ -104,7 +116,7 @@ def _make_loader(dataset, cfg: TrainConfig, use_native: bool, logger=None,
 
 
 def _make_device_store(dataset, cfg: TrainConfig, logger, device,
-                       what: str = ""):
+                       what: str = "", task: str = "ffoe"):
     """The card-resident store per ``cfg.device_features``
     (``vqatpu/train/loop.py:115-160``); a decline is logged with its
     reason, except under ``off``."""
@@ -112,7 +124,7 @@ def _make_device_store(dataset, cfg: TrainConfig, logger, device,
     if mode == "off":
         return None
     build, why = devstore_decision(dataset, mode, cfg.transfer_dtype,
-                                   device=device)
+                                   task=task, device=device)
     if not build:
         tag = "auto-OFF" if mode == "auto" else "OFF"
         logger.write(f"{what}device feature store {tag} ({why}); "
@@ -127,9 +139,8 @@ def _make_device_store(dataset, cfg: TrainConfig, logger, device,
 def _refuse_unported(cfg: TrainConfig, task: str, use_mesh: bool,
                      num_devices: Optional[int], tp: int,
                      profile_dir: Optional[str]) -> None:
-    if task != "ffoe":
-        raise NotImplementedError(
-            f"task {task!r} is not ported (ROADMAP queue A item 7)")
+    if task not in ("ffoe", "mc"):
+        raise ValueError(f"unknown task {task!r}; expected ffoe or mc")
     if cfg.ckpt_backend != "pickle":
         raise NotImplementedError(
             f"ckpt_backend={cfg.ckpt_backend!r} is not ported (ROADMAP queue "
@@ -170,7 +181,7 @@ def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
     logger = Logger(os.path.join(output, "log.txt"))
     loaders = []  # the C++ loaders' worker threads end with the run
     try:
-        return _train(model, train_ds, eval_ds, cfg, output, state,
+        return _train(model, train_ds, eval_ds, cfg, output, task, state,
                       start_epoch, tfidf_loaded, print_interval,
                       use_native_loader, best_eval, device, logger, loaders)
     finally:
@@ -180,7 +191,7 @@ def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
         logger.close()
 
 
-def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
+def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
            tfidf_loaded, print_interval, use_native_loader, best_eval,
            device, logger, loaders) -> TrainState:
     logger.write(f"config: {cfg}")
@@ -196,13 +207,14 @@ def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
         "optim: adamax lr=%.4f, decay_step=%d, decay_rate=%.2f, grad_clip=%.2f"
         % (cfg.lr, cfg.lr_decay_step, cfg.lr_decay_rate, cfg.clip_norm)
     )
-    step_fn = make_train_step(model, cfg, tfidf_loaded)
+    mc = task == "mc"
+    step_fn = make_train_step(model, cfg, tfidf_loaded, mc_scoring=mc)
     dev = next(model.parameters()).device
     # decided after the state is on the device: the auto budget sees the
     # memory the model and the optimizer leave free
-    dev_store = _make_device_store(train_ds, cfg, logger, dev)
+    dev_store = _make_device_store(train_ds, cfg, logger, dev, task=task)
     loader = _make_loader(train_ds, cfg, use_native_loader, logger=logger,
-                          dev_store=dev_store)
+                          dev_store=dev_store, task=task)
     loaders.append(loader)
     eval_loader = None  # built on the first eval epoch, then reused
     # the eval's store, built at most once, where the training set's is
@@ -229,6 +241,8 @@ def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
         n_batches = len(loader)
         micro_count = 0  # the step's accumulation count, known on the host
         for i, batch in enumerate(loader):
+            if mc:  # candidate rows, and their ds_idx for the store
+                batch = expand_mc_batch(batch)
             db = upload(wire_cast({k: batch[k] for k in _FFOE_KEYS
                                    if k in batch}, cfg.transfer_dtype))
             if dev_store is not None:
@@ -276,6 +290,7 @@ def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
             train_score = float(metric_sums["batch_score"])
         else:
             total_loss = total_norm = train_score = 0.0
+        # MC's batch score is per group of 4 candidates: per question
         train_score = 100.0 * train_score / max(num_updates * cfg.batch_size, 1)
 
         eval_score, bound = 0.0, 0.0
@@ -284,13 +299,14 @@ def _train(model, train_ds, eval_ds, cfg, output, state, start_epoch,
             if eval_loader is None:
                 if eval_store is _UNSET:
                     eval_store = _make_device_store(eval_ds, cfg, logger, dev,
-                                                    what="eval ")
+                                                    what="eval ", task=task)
                 eval_loader = make_eval_loader(
                     eval_ds, cfg.batch_size * 2, use_native=use_native_loader,
                     quantize=(cfg.transfer_dtype == "int8"),
                     fields_only=eval_store is not None)
                 loaders.append(eval_loader)
-            eval_score, bound = evaluate_ffoe(
+            evaluate = evaluate_mc if mc else evaluate_ffoe
+            eval_score, bound = evaluate(
                 model, eval_loader, compute_dtype=cfg.compute_dtype,
                 transfer_dtype=cfg.transfer_dtype, dev_store=eval_store)
 

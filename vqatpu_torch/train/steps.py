@@ -18,7 +18,10 @@ reference's ``Trainer`` hot loop (``FFOE/trainer.py:97-272``).
   Adamax.  The metrics (``loss``, the
   pre-clip ``grad_norm``, 0 on a step that does not update,
   ``batch_score``, ``updated``, ``skipped``) are tensors on the model's
-  device: the step never waits for the card.
+  device: the step never waits for the card.  With ``mc_scoring``
+  (multiple choice, ``x4``-expanded rows with 2-class targets, which the
+  densify step passes through) ``batch_score`` is the group accuracy
+  :func:`compute_score_mc` (``steps.py:304-305``).
 - ``deterministic=True`` turns dropout off; otherwise dropout draws from
   the step's ``generator`` (a ``torch.Generator`` on the model's device),
   or from the masks of ``ctx_factory``'s :class:`~vqatpu_torch.ops.module.
@@ -74,6 +77,17 @@ def compute_score_with_logits(logits: torch.Tensor,
     """VQA soft accuracy: the target's score at the argmax, summed
     (``FFOE/train.py:16-21``)."""
     return target.gather(1, logits.argmax(1, keepdim=True)).sum()
+
+
+def compute_score_mc(logits: torch.Tensor,
+                     target: torch.Tensor) -> torch.Tensor:
+    """Multiple-choice group accuracy (``vqatpu/train/steps.py:45-51``,
+    ``MC/train.py:14-19``): per group of 4 candidate rows, the row of the
+    largest class-0 margin ``logit0 - logit1`` (the argmax of the match
+    probability) is picked, and its label ``target[:, 0]`` is scored."""
+    margin = (logits[:, 0] - logits[:, 1]).reshape(-1, 4)
+    pick = margin.argmax(1, keepdim=True)
+    return target[:, 0].reshape(-1, 4).gather(1, pick).sum()
 
 
 def densify_target(batch: dict, n_ans: int) -> dict:
@@ -214,7 +228,8 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
         raise ValueError(f"unknown transfer_dtype {cfg.transfer_dtype!r}; "
                          f"expected one of {WIRES}")
     mcfg = model.cfg
-    if (mcfg.fused_v_tucker and not mcfg.remat_glimpse
+    if (mcfg.task == "ffoe" and mcfg.model == "cti" and mcfg.fused_v_tucker
+            and not mcfg.remat_glimpse
             and (not cfg.deterministic or ctx_factory is not None)):
         # JAX draws one dropout mask on v for the 1+gamma v-side tuckers
         # (vqatpu/ops/trilinear.py:41-71); the port would draw 1+gamma
@@ -226,9 +241,6 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
         raise NotImplementedError(
             "mask_replay is not ported: autograd keeps the dropout mask "
             "(ROADMAP queue A item 1)")
-    if mc_scoring:
-        raise NotImplementedError(
-            "MC scoring is not ported (ROADMAP queue A item 7)")
     if any(p.requires_grad != tfidf_loaded for n, p in model.named_parameters()
            if n.split(".")[-1] == "emb_"):
         raise ValueError(f"the GloVe copy emb_ is not frozen as tfidf_loaded="
@@ -239,6 +251,7 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
     state_dtype = _STATE_DTYPES[cfg.optim_state_dtype]
     require_f32_math()
     n_ans = model.cfg.num_ans_candidates
+    score_fn = compute_score_mc if mc_scoring else compute_score_with_logits
     # JAX distils BAN and SAN only (steps.py:208)
     distill = cfg.distillation and mcfg.model in ("ban", "san")
 
@@ -307,7 +320,7 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
         return {
             "loss": loss,
             "grad_norm": grad_norm,
-            "batch_score": compute_score_with_logits(logits.detach(), target),
+            "batch_score": score_fn(logits.detach(), target),
             "updated": torch.full((), updated, dtype=torch.int32, device=dev),
             "skipped": ((~finite) & cfg.skip_nonfinite).to(torch.int32),
         }
@@ -319,14 +332,13 @@ def make_eval_step(model: nn.Module, mc_scoring: bool = False,
                    compute_dtype: str = "float32"):
     """Eval (``steps.py:321-353``): ``eval_step(batch)`` -> float32
     ``logits`` and, where the batch has a ``target``, the soft ``score``
-    and its ``upper_bound``, as tensors on the model's device.  Zero-padded
-    rows add 0 to both.  A wire-cast batch (:func:`wire_cast`) is upcast on
-    the card; ``compute_dtype="bfloat16"`` casts the parameters and ``v``
-    for the forward."""
+    and its ``upper_bound``, as tensors on the model's device (with
+    ``mc_scoring`` the group accuracy :func:`compute_score_mc` of the
+    ``x4``-expanded rows, and no bound).  Zero-padded rows add 0 to both.
+    A wire-cast batch (:func:`wire_cast`) is upcast on the card;
+    ``compute_dtype="bfloat16"`` casts the parameters and ``v`` for the
+    forward."""
     half = _check_compute_dtype(compute_dtype)
-    if mc_scoring:
-        raise NotImplementedError(
-            "MC scoring is not ported (ROADMAP queue A item 7)")
     require_f32_math()
 
     def eval_step(batch: dict) -> Dict[str, torch.Tensor]:
@@ -338,8 +350,11 @@ def make_eval_step(model: nn.Module, mc_scoring: bool = False,
             out = {"logits": logits}
             if "target" in b:
                 target = b["target"].float()
-                out["score"] = compute_score_with_logits(logits, target)
-                out["upper_bound"] = target.max(dim=1).values.sum()
+                if mc_scoring:
+                    out["score"] = compute_score_mc(logits, target)
+                else:
+                    out["score"] = compute_score_with_logits(logits, target)
+                    out["upper_bound"] = target.max(dim=1).values.sum()
         return out
 
     return eval_step

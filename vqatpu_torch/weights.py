@@ -15,8 +15,9 @@
   ``save_params`` file without importing JAX; :func:`load_pickle` reads a
   whole checkpoint, its optimizer state's NamedTuples as stand-ins.
 - :func:`numpy_params` and :func:`numpy_batch` make seeded weights of the
-  free-form models (BAN, SAN, CTI; in the JAX tree layout) and inputs with
-  numpy, so both packages can be fed the same numbers.
+  free-form and multiple-choice models (BAN, SAN, CTI and TanModel; in the
+  JAX tree layout) and inputs with numpy, so both packages can be fed the
+  same numbers.
 - :func:`param_stats` fingerprints a param tree (per-leaf norms and sums)
   for trajectories compared across devices and packages.
 """
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import collections
 import pickle
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -170,20 +171,26 @@ def load_params_file(path: str) -> dict:
 
 
 def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
-    """Seeded weights of a free-form model (``ban``, ``san`` or
-    ``stacked_attention``, ``cti``) as a ``vqatpu`` param tree with numpy
-    leaves, of the structure and shapes of the JAX model's ``init``.
+    """Seeded weights of a model as a ``vqatpu`` param tree with numpy
+    leaves, of the structure and shapes of the JAX model's ``init``: the
+    free-form ``ban``, ``san`` or ``stacked_attention`` and ``cti``, and
+    for ``task="mc"`` TanModel (``cti`` or ``tan``; CTI's tree with the
+    attention under ``v_att`` and a 2-class classifier), BanModelMC
+    (``ban``: ``va_att``, ``tva_net{g}`` and ``a_prj{g}`` besides BAN's)
+    and SAN-MC (``san``: ``wa_emb``, ``a_emb`` and ``va_att``).
 
     Linears and GRUs draw torch-style U(-1/sqrt(fan_in), 1/sqrt(fan_in))
     with weight-norm ``g = ||v||_F``; embeddings, the PARALIND core and
     BAN's ``h_mat`` and ``h_bias`` draw N(0, 1), with the embedding pad row
     zero and ``h_mat_g = ||h_mat||_F`` (``vqatpu/ops/attention.py:60-64``);
     the counter's ``PiecewiseLin`` weights are ones with ``weight[0] = 0``."""
-    if cfg.task != "ffoe" or cfg.model not in ("ban", "san",
-                                               "stacked_attention", "cti"):
-        raise NotImplementedError(f"numpy_params makes free-form BAN, SAN "
-                                  f"and CTI weights, not {cfg.task}/"
-                                  f"{cfg.model}")
+    models = ("ban", "san", "stacked_attention", "cti")
+    if cfg.task == "mc":
+        models += ("tan",)
+    if cfg.task not in ("ffoe", "mc") or cfg.model not in models:
+        raise NotImplementedError(f"numpy_params makes no weights of "
+                                  f"{cfg.task}/{cfg.model}")
+    mc = cfg.task == "mc"
     rs = np.random.RandomState(seed)
     H, R = cfg.num_hid, cfg.rank
 
@@ -228,19 +235,28 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
         l1, l2 = fcnet(H, 2 * H)["l0"], fcnet(2 * H, cfg.num_classes)["l0"]
         return {"l1": l1, "l2": l2}
 
-    if cfg.model == "ban":
+    def biattention():
         h_mat = rs.randn(1, cfg.gamma, 1, 3 * H).astype(np.float32)
         bc = {"v_net": fcnet(cfg.v_dim, 3 * H), "q_net": fcnet(H, 3 * H),
               "h_mat": h_mat,
               "h_bias": rs.randn(1, cfg.gamma, 1, 1).astype(np.float32)}
-        p = {"w_emb": embedding(), "q_emb": gru(),
-             "v_att": {"bc": bc, "h_mat_g": np.asarray(
-                 np.linalg.norm(h_mat), np.float32)},
+        return {"bc": bc, "h_mat_g": np.asarray(np.linalg.norm(h_mat),
+                                                np.float32)}
+
+    if cfg.model == "ban":
+        v_att = biattention()  # drawn before the embeddings, as ever
+        p = {"w_emb": embedding(), "q_emb": gru(), "v_att": v_att,
              "classifier": classifier()}
+        if mc:
+            p.update(wa_emb=embedding(), ans_emb=gru(), va_att=biattention())
         for g in range(cfg.gamma):
             p[f"b_net{g}"] = {"v_net": fcnet(cfg.v_dim, H),
                               "q_net": fcnet(H, H)}
             p[f"q_prj{g}"] = fcnet(H, H)
+            if mc:
+                p[f"tva_net{g}"] = {"v_net": fcnet(cfg.v_dim, H),
+                                    "q_net": fcnet(H, H)}
+                p[f"a_prj{g}"] = fcnet(H, H)
             if cfg.use_counter:
                 p[f"c_prj{g}"] = fcnet(cfg.objects + 1, H)
         if cfg.use_counter:
@@ -248,7 +264,7 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
             w[0] = 0.0
             p["counter"] = {f"f{i}": {"weight": w.copy()} for i in range(8)}
         return p
-    if cfg.model in ("san", "stacked_attention"):
+    def stacked_attention():
         att = {"fc11": linear(H, H), "fc12": linear(cfg.v_dim, H, False),
                "fc13": linear(H, 1), "fc14": linear(H, H),
                "fc15": linear(cfg.v_dim, H, False)}
@@ -256,8 +272,16 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
             att[f"w{s}_q"] = linear(H, H)
             att[f"w{s}_i"] = linear(cfg.v_dim, H, False)
             att[f"w{s}_h"] = linear(H, 1)
-        return {"w_emb": embedding(), "q_emb": gru(), "v_att": att,
-                "classifier": classifier()}
+        return att
+
+    if cfg.model in ("san", "stacked_attention"):
+        v_att = stacked_attention()  # drawn before the embeddings, as ever
+        p = {"w_emb": embedding(), "q_emb": gru(), "v_att": v_att,
+             "classifier": classifier()}
+        if mc:
+            p.update(wa_emb=embedding(), a_emb=gru(),
+                     va_att=stacked_attention())
+        return p
 
     def tucker(d):
         return {"v_tucker": fcnet(cfg.v_dim, d), "q_tucker": fcnet(H, d),
@@ -272,7 +296,8 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
                   .astype(np.float32))
     cls = classifier()  # drawn before the embeddings, as ever
     p = {"w_emb": embedding(), "q_emb": gru(), "wa_emb": embedding(),
-         "ans_emb": gru(), "t_att": {"tc": tc}, "classifier": cls}
+         "ans_emb": gru(), "v_att" if mc else "t_att": {"tc": tc},
+         "classifier": cls}
     for g in range(cfg.gamma):
         p[f"t_net{g}"] = tucker(2 * cfg.h_mm)
         p[f"q_prj{g}"] = fcnet(H, H)
@@ -281,24 +306,45 @@ def numpy_params(cfg: ModelConfig, seed: int = 0) -> dict:
 
 
 def numpy_batch(cfg: ModelConfig, n: int, seed: int = 0, boxes: int = 50,
-                real_boxes: int = 44, q_len: int = 12, a_len: int = 3,
-                target: bool = False,
+                real_boxes: int = 44, q_len: int = 12,
+                a_len: Optional[int] = None, target: bool = False,
                 teacher: bool = False) -> Dict[str, np.ndarray]:
     """Seeded inputs: ``v`` [n, boxes, v_dim] float32 with the boxes from
-    ``real_boxes`` on zero (padding), ``q`` [n, q_len] and ``a`` [n, a_len]
-    int64 tokens in [0, ntoken] (ntoken is the pad token), with ``target``
-    a soft ``target`` [n, num_classes] float32 in [0, 1), and the spatials
-    ``b`` [n, boxes, 6] float32, ``(x1, y1, x2, y2, w, h)`` with ``x1 < x2``
-    and ``y1 < y2`` in [0, 1], zero on the padded boxes; with ``teacher``,
-    teacher logits ``t_logits`` [n, num_classes] float32, N(0, 3^2), for
-    the distillation loss.  ``b`` and then ``t_logits`` are drawn last, so
-    the other arrays do not depend on them."""
+    ``real_boxes`` on zero (padding), ``q`` [n, q_len] int64 tokens in [0,
+    ntoken] (ntoken is the pad token), and the spatials ``b`` [n, boxes,
+    6] float32, ``(x1, y1, x2, y2, w, h)`` with ``x1 < x2`` and ``y1 < y2``
+    in [0, 1], zero on the padded boxes.
+
+    Free-form (``task="ffoe"``): ``a`` [n, a_len] tokens (``a_len`` 3 by
+    default), with ``target`` a soft ``target`` [n, num_classes] float32
+    in [0, 1), with ``teacher`` teacher logits ``t_logits`` [n,
+    num_classes] float32, N(0, 3^2), for the distillation loss.
+
+    Multiple choice (``task="mc"``): ``n`` questions, as a loader gives
+    them before :func:`~vqatpu_torch.data.mc_dataset.expand_mc_batch`:
+    ``ans_mc`` [n, 4, a_len] candidate tokens (``a_len`` 6 by default),
+    ``label`` [n, 4] float32 one-hot of the true candidate, and ``qid``
+    [n] int64; ``target`` and ``teacher`` do not apply.
+
+    ``b`` and then ``t_logits`` are drawn last, so the other arrays do not
+    depend on them."""
+    mc = cfg.task == "mc"
+    if a_len is None:
+        a_len = 6 if mc else 3
     rs = np.random.RandomState(seed)
     v = rs.randn(n, boxes, cfg.v_dim).astype(np.float32)
     v[:, real_boxes:] = 0.0
     q = rs.randint(0, cfg.ntoken + 1, (n, q_len)).astype(np.int64)
-    a = rs.randint(0, cfg.ntoken + 1, (n, a_len)).astype(np.int64)
-    batch = {"v": v, "q": q, "a": a}
+    if mc:
+        if target or teacher:
+            raise ValueError("an MC batch's targets come from its labels")
+        ans_mc = rs.randint(0, cfg.ntoken + 1, (n, 4, a_len)).astype(np.int64)
+        label = np.eye(4, dtype=np.float32)[rs.randint(0, 4, n)]
+        batch = {"v": v, "q": q, "ans_mc": ans_mc, "label": label,
+                 "qid": np.arange(n, dtype=np.int64)}
+    else:
+        a = rs.randint(0, cfg.ntoken + 1, (n, a_len)).astype(np.int64)
+        batch = {"v": v, "q": q, "a": a}
     if target:
         batch["target"] = rs.rand(n, cfg.num_classes).astype(np.float32)
     corners = np.sort(rs.rand(n, boxes, 2, 2), axis=-1)  # [.., (x, y), lo/hi]
