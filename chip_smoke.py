@@ -172,9 +172,29 @@ at ``compute_dtype="bfloat16"``).  Then:
     (per-step losses within 1e-5), ``mc_test`` with the store on and off
     (equal accuracy) and one epoch on the grid path.
 
+13. CTI's large-V path, its v-side knobs and the interop tools at the same
+    full width: (a) logits at B=8 and V=2048 boxes (90% real) through the
+    blockwise branch (block 256; no kernel launched, no attention) against
+    the standard branch (K1 and K2 at V=2048), within 1e-4; (b) a training
+    step at B=64, V=2048, dropout on, in four configurations (standard,
+    blockwise, ``remat_glimpse``, ``fused_v_tucker``), and standard and
+    ``remat_glimpse`` at bf16 compute: the peak memory allocated, the
+    median step on CUDA events and the launches a step (0 for blockwise; K2
+    twice a glimpse under remat, its recompute), each remat step's first
+    loss equal to its dtype's standard one's and the blockwise one's within
+    1e-4; (c) one fused and one remat step at V=50, B=4 on the card
+    against the CPU with the same injected masks (1e-4); (d) seeded CTI and
+    BAN weights written by the port's exporter to ``model_epoch0.pth``
+    and served (CTI in-process through the CLI's parser, BAN by ``python -m
+    vqatpu_torch.cli.serve`` with no ``--model``), their logits equal to
+    the bit to those served from a ``.ckpt``; (e) a bidirectional 2-layer
+    GRU and an LSTM at num_hid 1024, B=128, on cuDNN against the CPU; (f)
+    ``ffoe_train --profile_dir`` on phase 9's dataroot, whose trace names
+    K1's and K2's kernels and the ``train_step`` ranges.
+
 Each path (serving at each wire and compute dtype, the logits path in
 float32 and bf16, by-id serving, training in float32 and bf16, each entry
-point call of phases 9, 10, 11 and 12) is driven with the launch counts set
+point call of phases 9 to 13) is driven with the launch counts set
 to 0 just before it and read just after; the kernels' ``launches`` in the
 JSON line are their sums.
 
@@ -1956,6 +1976,379 @@ def phase12_cli(path_counts) -> None:
         tmp.cleanup()
 
 
+# phase 13: CTI's large-V path and v-side knobs, reference .pth interop, the
+# LSTM and bidirectional encoders and --profile_dir, at bench.py's width
+BIG_V, BIG_REAL, BIG_BLOCK = 2048, 1843, 256  # boxes (90% real), v_block_size
+BIG_LOGITS_B, BIG_TRAIN_B, BIG_STEPS = 8, 64, 3
+BLOCKWISE_TOL = 1e-4  # blockwise vs the kernels at V=2048: sums in another order
+ENCODER_TOL = 1e-4    # cuDNN vs the CPU's GRU / LSTM, num_hid 1024
+KNOBS = {"standard": {}, "blockwise": dict(v_block_size=BIG_BLOCK),
+         "remat": dict(remat_glimpse=True), "fused": dict(fused_v_tucker=True)}
+
+
+def big_v_batch(cfg, n, seed):
+    """``n`` rows of V=2048 boxes (the last 10% padding) made on the card,
+    tokens, and soft targets."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    v = torch.randn(n, BIG_V, cfg.v_dim, generator=g, device="cuda")
+    v[:, BIG_REAL:] = 0.0
+    return {"v": v,
+            "q": torch.randint(0, cfg.ntoken + 1, (n, Q), generator=g,
+                               device="cuda"),
+            "a": torch.randint(0, cfg.ntoken + 1, (n, A), generator=g,
+                               device="cuda"),
+            "target": torch.rand(n, cfg.num_ans_candidates, generator=g,
+                                 device="cuda")}
+
+
+def phase13_large_v(cfg, params, path_counts, smi) -> dict:
+    """(a) logits at B=8 and V=2048: the blockwise branch (block 256) against
+    the standard one (K1 and K2 at V=2048); (b) a training step at B=64 in
+    the four configurations, and standard and remat at bf16 compute,
+    dropout on, the generator seeded alike: peak memory
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``), step time
+    on CUDA events, launches a step; each remat step's first loss and grad
+    norm equal to its dtype's standard step's (the recompute replays the
+    masks, and at bf16 runs on the forward's bf16 weights), the blockwise
+    step's within 1e-4."""
+    from vqatpu_torch.config import TrainConfig
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.train import make_train_state, make_train_step
+    from vqatpu_torch.weights import load_jax_params
+
+    def model_of(knob):
+        return load_jax_params(build_model(dataclasses.replace(
+            cfg, **KNOBS[knob])), params).to("cuda")
+
+    batch = big_v_batch(cfg, BIG_LOGITS_B, seed=131)
+    logits = {}
+    for knob in ("standard", "blockwise"):
+        model = model_of(knob).eval()
+        K.reset_launches()
+        with torch.inference_mode():
+            logits[knob], att = model(batch["v"], batch["q"], batch["a"])
+        torch.cuda.synchronize()
+        path_counts[f"phase 13a {knob} logits V={BIG_V}"] = counts = dict(
+            K.launches)
+        assert (att is None) == (knob == "blockwise")
+        want = ({"fused_rank_softmax": 1, "trilinear_pool": cfg.gamma}
+                if knob == "standard" else {})
+        assert {k: c for k, c in counts.items() if c} == want, (knob, counts)
+        del model
+    err = float((logits["blockwise"] - logits["standard"]).abs().max())
+    print(f"phase 13a logits at B={BIG_LOGITS_B}, V={BIG_V} ({BIG_REAL} real "
+          f"boxes): blockwise (block {BIG_BLOCK}, no kernel launched) vs the "
+          f"standard branch (K1 and K2 at V={BIG_V}) max_abs_err {err:.3e} "
+          f"(tol {BLOCKWISE_TOL:.0e}; logits up to "
+          f"{float(logits['standard'].abs().max()):.3f})")
+    assert err <= BLOCKWISE_TOL and torch.isfinite(logits["blockwise"]).all()
+    del batch, logits
+
+    batch = big_v_batch(cfg, BIG_TRAIN_B, seed=132)
+
+    def kernels(sfx="", remat=False):
+        return {"fused_rank_softmax" + sfx: 1,
+                "trilinear_pool" + sfx: (2 if remat else 1) * cfg.gamma,
+                "softmax_vqa_backward": 1}
+
+    per_step = {"standard": kernels(), "blockwise": {},
+                "remat": kernels(remat=True), "fused": kernels(),
+                "standard bf16": kernels("_bf16"),
+                "remat bf16": kernels("_bf16", remat=True)}
+    out = {}
+    for run in per_step:
+        knob, _, half = run.partition(" ")
+        state = make_train_state(model_of(knob), device="cuda")
+        step = make_train_step(state.model, TrainConfig(
+            update_freq=1, batch_size=BIG_TRAIN_B,
+            compute_dtype="bfloat16" if half else "float32"))
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        K.reset_launches()
+        first = step(state, batch, 1e-3, gen)
+        times = []
+        for _ in range(BIG_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(state, batch, 1e-3, gen)
+            end.record()
+            times.append((start, end))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        path_counts[f"phase 13b {run} training V={BIG_V}"] = counts = dict(
+            K.launches)
+        n = BIG_STEPS + 1
+        assert {k: c for k, c in counts.items() if c} == {
+            k: n * c for k, c in per_step[run].items()}, (run, counts)
+        ms = statistics.median(s.elapsed_time(e) for s, e in times)
+        out[run] = dict(loss=float(first["loss"]),
+                        grad_norm=float(first["grad_norm"]), peak=peak,
+                        base=base, ms=ms, counts=counts)
+        assert np.isfinite(float(m["loss"])), run
+        print(f"phase 13b {run} step, B={BIG_TRAIN_B}, V={BIG_V}, dropout on "
+              f"({smi}): peak {peak / 2**30:.3f} GiB allocated "
+              f"({(peak - base) / 2**30:.3f} GiB above the weights, Adamax "
+              f"state and batch), median step {ms:.3f} ms of {BIG_STEPS} (CUDA "
+              f"events), {BIG_TRAIN_B / ms * 1e3:.1f} samples/s; first loss "
+              f"{out[run]['loss']:.6f}, grad norm {out[run]['grad_norm']:.6f}; "
+              f"launches per step {per_step[run]}")
+        del state, step, first, m
+        torch.cuda.empty_cache()
+    for run, base_run in (("blockwise", "standard"), ("remat", "standard"),
+                          ("fused", "standard"),
+                          ("remat bf16", "standard bf16")):
+        d_peak = (out[run]["peak"] - out[base_run]["peak"]) / 2**20
+        print(f"phase 13b {run} vs {base_run}: peak {d_peak:+.1f} MiB, step "
+              f"{out[run]['ms'] - out[base_run]['ms']:+.3f} ms")
+    # the same masks in the same order: remat equal (at bf16 too, where the
+    # recompute runs on the forward's bf16 weights), blockwise to its sums
+    for run, base_run in (("remat", "standard"),
+                          ("remat bf16", "standard bf16")):
+        got, want = out[run], out[base_run]
+        assert got["loss"] == want["loss"], (run, got, want)
+        assert (abs(got["grad_norm"] - want["grad_norm"])
+                <= 1e-5 * want["grad_norm"]), (run, got, want)
+    std = out["standard"]
+    for k in ("loss", "grad_norm"):
+        assert abs(out["blockwise"][k] - std[k]) <= TRAIN_TOL * abs(std[k]), k
+    return out
+
+
+class _RecordingMasks:
+    """A mask source drawing each 0/1 mask with numpy as it is asked for (keep
+    0.7), keeping them for a replay."""
+
+    def __init__(self, seed):
+        self.rs = np.random.RandomState(seed)
+        self.masks = []
+
+    def next_mask(self, shape):
+        m = (self.rs.rand(*shape) < 0.7).astype(np.float32)
+        self.masks.append(m)
+        return m
+
+
+def phase13_knobs_vs_cpu(cfg, params, path_counts) -> None:
+    """(c) one training step of ``fused_v_tucker`` and of ``remat_glimpse``
+    at V=50, B=4, dropout on, on the CPU with numpy-drawn masks and then on
+    the card with the same masks: the loss and the pre-clip grad norm
+    within 1e-4 relative, every mask used once."""
+    from vqatpu_torch.config import TrainConfig
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.ops.module import Ctx, MaskSource
+    from vqatpu_torch.train import make_train_state, make_train_step
+    from vqatpu_torch.weights import load_jax_params, numpy_batch
+
+    batch = numpy_batch(cfg, 4, seed=133, boxes=V, real_boxes=REAL_BOXES,
+                        target=True)
+    for knob in ("fused", "remat"):
+        got = {}
+        for device in ("cpu", "cuda"):
+            model = load_jax_params(build_model(dataclasses.replace(
+                cfg, **KNOBS[knob])), params)
+            state = make_train_state(model, device=device)
+            if device == "cpu":
+                source = _RecordingMasks(134)
+            else:
+                source = MaskSource(recorded)
+            step = make_train_step(model, TrainConfig(update_freq=1),
+                                   ctx_factory=lambda: Ctx(train=True,
+                                                           mask_source=source))
+            K.reset_launches()
+            m = step(state, batch, 1e-3)
+            got[device] = (float(m["loss"]), float(m["grad_norm"]))
+            if device == "cpu":
+                recorded = source.masks
+            else:
+                source.assert_exhausted()
+                torch.cuda.synchronize()
+                path_counts[f"phase 13c {knob} step vs the CPU"] = dict(
+                    K.launches)
+            del state, model
+        err = max(abs(c - w) / abs(w) for c, w in zip(got["cuda"], got["cpu"]))
+        print(f"phase 13c {knob} step (B=4, V={V}, {len(recorded)} injected "
+              f"masks): card loss {got['cuda'][0]:.6f}, grad norm "
+              f"{got['cuda'][1]:.6f} vs the CPU's {got['cpu'][0]:.6f}, "
+              f"{got['cpu'][1]:.6f}: largest relative error {err:.3e} "
+              f"(tol {TRAIN_TOL:.0e})")
+        assert err <= TRAIN_TOL, (knob, got)
+
+
+def phase13_pth_serving(cfg, path_counts, smi) -> None:
+    """(d) the phase's seeded CTI and BAN weights exported by the port's
+    exporter to ``model_epoch0.pth`` and saved as ``model_epoch0.ckpt``:
+    CTI served in-process by the CLI's parser from each (``--model cti``),
+    BAN by ``python -m vqatpu_torch.cli.serve`` with no ``--model`` (JAX's
+    default, BAN) from the ``.pth``, against an in-process session on the
+    ``.ckpt``; the logits equal to the bit."""
+    import socket
+
+    from vqatpu_torch.cli import serve as cli
+    from vqatpu_torch.data import Dictionary
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.tools.export_torch import export_checkpoint
+    from vqatpu_torch.train.checkpoints import save_params
+    from vqatpu_torch.weights import load_jax_params, numpy_batch, numpy_params
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    words = Dictionary()
+    for i in range(cfg.ntoken):
+        words.add_word(f"w{i}")
+    words.dump_to_file(str(root / "dictionary.pkl"))
+    (root / "cache").mkdir()
+    labels = [f"ans{i}" for i in range(cfg.num_ans_candidates)]
+    with open(root / "cache" / "trainval_label2ans.pkl", "wb") as f:
+        pickle.dump(labels, f)
+    b = numpy_batch(cfg, 5, seed=135, boxes=V, real_boxes=REAL_BOXES)
+    rows = {"features": b["v"], "question_tokens": b["q"].astype(np.int32)}
+    proc = None
+    try:
+        for name in ("cti", "ban"):
+            mcfg = dataclasses.replace(cfg, model=name)
+            params = numpy_params(mcfg, seed=0)
+            for kind in ("pth", "ckpt"):
+                (root / f"{name}_{kind}").mkdir()
+            export_checkpoint(str(root / f"{name}_pth" / "model_epoch0.pth"),
+                              load_jax_params(build_model(mcfg), params))
+            save_params(str(root / f"{name}_ckpt" / "model_epoch0.ckpt"),
+                        params)
+            flags = ["--dataroot", str(root), "--epoch", "0", "--device",
+                     "cuda"] + (["--model", "cti"] if name == "cti" else [])
+            K.reset_launches()
+            sess, _ = cli.build_session(cli.build_parser().parse_args(
+                flags + ["--input", str(root / f"{name}_ckpt")]))
+            want = sess.logits(b["v"], None, b["q"], b["a"])
+            if name == "cti":
+                sess_pth, _ = cli.build_session(cli.build_parser().parse_args(
+                    flags + ["--input", str(root / f"{name}_pth")]))
+                got = sess_pth.logits(b["v"], None, b["q"], b["a"])
+                how = "in-process, cli.build_session --model cti"
+                del sess_pth
+            else:
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", 0))
+                    port = s.getsockname()[1]
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "vqatpu_torch.cli.serve"] + flags
+                    + ["--input", str(root / f"{name}_pth"), "--port",
+                       str(port)], cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+                t0 = time.perf_counter()
+                while True:
+                    assert proc.poll() is None, proc.stdout.read()
+                    try:
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{port}/healthz",
+                                timeout=5) as r:
+                            health = json.loads(r.read())
+                        break
+                    except OSError:
+                        assert time.perf_counter() - t0 < 240, "no server"
+                        time.sleep(0.5)
+                got = post(port, "/logits", rows, npz=True)["logits"]
+                how = (f"python -m vqatpu_torch.cli.serve, no --model "
+                       f"(/healthz: {health}), up in "
+                       f"{time.perf_counter() - t0:.1f} s")
+                assert health["model"] == "ban", health
+                proc.terminate()
+                proc.wait(timeout=60)
+                proc = None
+            torch.cuda.synchronize()
+            path_counts[f"phase 13d {name} .ckpt and .pth serving"] = dict(
+                K.launches)
+            equal = bool(np.array_equal(got, want))
+            print(f"phase 13d {name} served from model_epoch0.pth ({how}) vs "
+                  f"model_epoch0.ckpt in-process: {got.shape} logits equal to "
+                  f"the bit: {equal} (max_abs_err "
+                  f"{float(np.abs(got - want).max()):.3e}); {smi}")
+            assert equal, name
+            del sess
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        tmp.cleanup()
+
+
+def phase13_encoders(cfg) -> None:
+    """(e) a bidirectional 2-layer GRU and an LSTM at num_hid 1024 over Q=12,
+    B=128 (600-d words), on cuDNN against the CPU path, every state and the
+    last."""
+    from vqatpu_torch.ops.rnn import QuestionEmbedding
+
+    x = torch.randn(128, Q, cfg.word_dim, generator=torch.Generator()
+                    .manual_seed(136))
+    for kw in (dict(nlayers=2, bidirect=True), dict(rnn_type="LSTM")):
+        torch.manual_seed(137)
+        enc = QuestionEmbedding(cfg.word_dim, cfg.num_hid, **kw).eval()
+        with torch.inference_mode():
+            want, want_last = enc(x), enc.forward_last(x)
+            enc = enc.to("cuda")
+            xc = x.to("cuda")
+            got, got_last = enc(xc), enc.forward_last(xc)
+            t = time_events(lambda: enc(xc))
+        err = max(float((got.cpu() - want).abs().max()),
+                  float((got_last.cpu() - want_last).abs().max()))
+        print(f"phase 13e QuestionEmbedding({kw}) on cuDNN, B=128, Q={Q}, "
+              f"num_hid {cfg.num_hid}: out {tuple(got.shape)}, max_abs_err vs "
+              f"the CPU {err:.3e} (tol {ENCODER_TOL:.0e}); forward "
+              f"{t:.3f} ms (CUDA events, median of 10)")
+        assert err <= ENCODER_TOL, (kw, err)
+
+
+def time_events(fn, runs: int = 10) -> float:
+    fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+def phase13_profile(path_counts, p9) -> None:
+    """(f) ``ffoe_train --profile_dir`` for one epoch on phase 9's dataroot
+    (4 steps: the window is steps 1-3): the trace names K1's and K2's CUDA
+    kernels and the ``train_step`` range."""
+    out = os.path.join(p9["tmp"].name, "profiled")
+    trace_dir = os.path.join(p9["tmp"].name, "trace")
+    counts, _, wall = run_train("phase 13f ffoe_train --profile_dir",
+                                p9["args"] + ["--output", out, "--epochs", "1",
+                                              "--profile_dir", trace_dir],
+                                path_counts)
+    files = sorted(Path(trace_dir).glob("*.pt.trace.json"))
+    assert len(files) == 1, files
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernels = sorted(n for n in names if "rank_softmax" in n or "tri_pool" in n)
+    steps = [e for e in events if e.get("name") == "train_step"
+             and e.get("cat") == "user_annotation"]  # the host's ranges
+    on_card = [e for e in events if e.get("cat") == "kernel"]
+    log = open(os.path.join(out, "log.txt")).read()
+    print(f"phase 13f ffoe_train --profile_dir, 1 epoch in {wall:.1f} s: "
+          f"{files[0].name} ({files[0].stat().st_size / 2**20:.1f} MiB), "
+          f"{len(steps)} train_step ranges on the host (and "
+          f"{sum(e.get('cat') == 'gpu_user_annotation' and e.get('name') == 'train_step' for e in events)}"
+          f" on the card), {len(on_card)} CUDA kernel "
+          f"events, K1/K2 kernels named {kernels}; log: "
+          f"{[l for l in log.splitlines() if 'profile of' in l]}; launches "
+          f"{counts}")
+    assert len(steps) == 3 and on_card
+    assert any("rank_softmax" in k for k in kernels)
+    assert any("tri_pool" in k for k in kernels)
+
+
 def sass_hmma(lib: Path) -> dict:
     """Each kernel of the built library ``lib`` and its number of HMMA
     (tensor-core) instructions, from ``cuobjdump -sass``."""
@@ -3070,7 +3463,7 @@ def main() -> int:
         pickle.dump({"params": params}, f)  # a save_params file
     args = cli.build_parser().parse_args([
         "--dataroot", str(root), "--input", str(root / "ckpt"), "--epoch", "0",
-        "--port", "0", "--device", "cuda", "--feature_split", "small",
+        "--model", "cti", "--port", "0", "--device", "cuda", "--feature_split", "small",
         "--micro_batch", "32", "--micro_batch_wait_ms", "5"])
     K.reset_launches()
     served, server = cli.build_server(args)
@@ -3331,7 +3724,6 @@ def main() -> int:
     phase11_training(models, path_counts)
     del models
     phase11_kd_loop(path_counts, p9)
-    p9["tmp"].cleanup()
 
     # -- 12. the Visual7W multiple-choice models (TanModel, BAN-MC, SAN-MC) -
     def phase12_kernels(tan) -> list:
@@ -3504,6 +3896,14 @@ def main() -> int:
     phase12_training(models12, path_counts, train_throughput)
     del models12
     phase12_cli(path_counts)
+
+    # -- 13. CTI's large-V path and v-side knobs, .pth, encoders, profile -
+    phase13_large_v(cfg, params, path_counts, smi)
+    phase13_knobs_vs_cpu(cfg, params, path_counts)
+    phase13_pth_serving(cfg, path_counts, smi)
+    phase13_encoders(cfg)
+    phase13_profile(path_counts, p9)
+    p9["tmp"].cleanup()
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

@@ -35,6 +35,9 @@ import vqatpu_torch.eval.tdiuc, vqatpu_torch.cli.evaluate_tdiuc
 import vqatpu_torch.cli.ensemble, vqatpu_torch.data.device_store
 import vqatpu_torch.data.native, vqatpu_torch.data.upload
 import vqatpu_torch.ops.bilinear, vqatpu_torch.ops.counter
+import vqatpu_torch.tools.import_torch, vqatpu_torch.tools.export_torch
+import vqatpu_torch.tools.create_embedding, vqatpu_torch.train.profiling
+import vqatpu_torch.kernels.blockwise, vqatpu_torch.ops.tensor
 from vqatpu_torch.models import build_model
 from vqatpu_torch.weights import load_jax_params, numpy_batch, numpy_params
 from vqatpu_torch.train.checkpoints import restore_train_state
@@ -69,6 +72,24 @@ for name in ("ban", "san"):  # the new models, through the port alone
     m = make_train_step(model, TrainConfig(update_freq=1, distillation=True))(
         state, nb, 1e-3, torch.Generator().manual_seed(0))
     assert np.isfinite(m["loss"].item())
+# the .pth tools and CTI's v-side knobs, through the port alone
+import dataclasses, tempfile
+from vqatpu_torch.tools.export_torch import export_checkpoint
+from vqatpu_torch.train.checkpoints import load_params_any
+with tempfile.TemporaryDirectory() as d:
+    export_checkpoint(d + "/model_epoch0.pth",
+                      load_jax_params(build_model(cfg), numpy_params(cfg, 2)))
+    assert load_params_any(d, 0, build_model(cfg))["t_att"]["tc"]["T_g"].shape
+for knob in (dict(v_block_size=2), dict(fused_v_tucker=True),
+             dict(remat_glimpse=True)):
+    model = load_jax_params(build_model(dataclasses.replace(cfg, **knob)),
+                            numpy_params(cfg, 2))
+    out, _ = model(torch.from_numpy(rs.randn(2, 5, 16).astype(np.float32)),
+                   torch.from_numpy(rs.randint(0, 31, (2, 12))),
+                   torch.from_numpy(rs.randint(0, 31, (2, 3))))
+    assert np.isfinite(out.detach().numpy()).all()
+with vqatpu_torch.train.profiling.trace(None):
+    pass
 q8, _ = vqatpu_torch.data.native.quantize_rows(rs.randn(3, 16))
 assert q8.dtype == np.int8  # the port's host runtime, built and loaded
 with open("/proc/self/maps") as f:
@@ -93,8 +114,9 @@ def test_port_runs_without_jax_or_vqatpu(tmp_path):
     assert proc.returncode == 0, proc.stderr
     modules = json.loads(proc.stdout.splitlines()[-1])
     assert "vqatpu_torch.weights" in modules
-    assert {"vqatpu_torch.ops.bilinear", "vqatpu_torch.ops.counter"} <= set(
-        modules)
+    assert {"vqatpu_torch.ops.bilinear", "vqatpu_torch.ops.counter",
+            "vqatpu_torch.tools.import_torch", "vqatpu_torch.train.profiling",
+            "vqatpu_torch.kernels.blockwise"} <= set(modules)
     assert [m for m in modules if _is_forbidden(m)] == []
     # the port's own runtime is loaded, never the JAX package's
     libs = json.loads(proc.stdout.splitlines()[-2])
@@ -154,3 +176,41 @@ def test_entry_points_default_to_cuda(cli):
     assert parse([]).device == "cuda"
     for fn in (train, DeviceFeatureStore.build):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("tool", ["create_embedding", "export_torch"])
+def test_tool_entry_points_default_to_cuda(tool):
+    """The answer-embedding tool encodes (GRU and BERT) on ``--device
+    cuda`` unless told otherwise; the ``.pth`` exporter is a host-only file conversion and
+    takes no ``--device``."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(f"vqatpu_torch.tools.{tool}")
+    if tool == "export_torch":
+        assert "--device" not in inspect.getsource(mod)
+        return
+    assert "--device" in inspect.getsource(mod.main)
+    for fn in (mod.create_answer_embedding, mod.create_bert_embedding,
+               mod.bert_embedding_matrix):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    parser_default = [line for line in inspect.getsource(mod.main).splitlines()
+                      if '"--device"' in line]
+    assert parser_default and 'default="cuda"' in parser_default[0]
+
+
+@pytest.mark.parametrize("kind,fn", [("gru", "create_answer_embedding"),
+                                     ("bert", "create_bert_embedding")])
+@pytest.mark.parametrize("argv,device", [([], "cuda"),
+                                         (["--device", "cpu"], "cpu")])
+def test_create_embedding_main_passes_its_device(monkeypatch, kind, fn,
+                                                 argv, device):
+    """``create_embedding.main`` hands ``--device`` to the encoder of
+    either kind."""
+    from vqatpu_torch.tools import create_embedding
+
+    seen = {}
+    monkeypatch.setattr(create_embedding, fn,
+                        lambda *a, **k: seen.update(k) or "out")
+    create_embedding.main(["--kind", kind, *argv])
+    assert seen["device"] == device

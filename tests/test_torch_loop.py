@@ -341,12 +341,10 @@ def test_out_of_memory_step_is_skipped_and_counted(roots, tmp_path,
     assert calls[:3] == [0, 1, 0] and state.step == 1 + 2
 
 
-@pytest.mark.parametrize("option", ["orbax", "tp", "num_devices", "profile",
-                                    "shard"])
+@pytest.mark.parametrize("option", ["orbax", "tp", "num_devices", "shard"])
 def test_unported_loop_options_raise(roots, tmp_path, option):
     kw = {"orbax": dict(cfg=dict(ckpt_backend="orbax")), "tp": dict(tp=2),
           "num_devices": dict(num_devices=2),
-          "profile": dict(profile_dir=str(tmp_path / "p")),
           "shard": dict(cfg=dict(shard_feature_store=True))}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         port_loop(roots, str(tmp_path / "x"), 1, **kw)

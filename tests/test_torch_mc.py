@@ -32,6 +32,7 @@ from vqatpu_torch.models import build_model
 from vqatpu_torch.models.mc import (BanModelMC, StackedAttentionModelMC,
                                     TanModel)
 from vqatpu_torch.ops.losses import bce_with_logits_sum
+from vqatpu_torch.ops.module import Ctx, MaskSource
 from vqatpu_torch.train import (compute_score_mc, make_eval_step,
                                 make_train_state, make_train_step)
 from vqatpu_torch.weights import (jax_params_from_torch, load_jax_params,
@@ -50,6 +51,18 @@ TOL = 1e-5
 def jax_batch(batch):
     return {k: jnp.asarray(x.astype(np.int32) if x.dtype == np.int64 else x)
             for k, x in batch.items()}
+
+
+class OnesSource(MaskSource):
+    """Ones for every dropout mask asked for, the shapes recorded."""
+
+    def __init__(self):
+        super().__init__([])
+        self.shapes = []
+
+    def next_mask(self, shape):
+        self.shapes.append(tuple(shape))
+        return np.ones(shape, np.float32)
 
 
 def rows(kw, n=3, seed=4, boxes=50, real_boxes=44):
@@ -148,23 +161,28 @@ def test_tan_ignores_fused_v_tucker_and_v_block_size(small):
     assert np.isfinite(float(m["loss"]))
 
 
-@pytest.mark.parametrize("task,model,refused", [
+@pytest.mark.parametrize("task,model,reads", [
     ("ffoe", "cti", True), ("ffoe", "ban", False), ("ffoe", "san", False),
     ("mc", "tan", False), ("mc", "ban", False), ("mc", "san", False)])
-def test_fused_v_tucker_is_refused_only_where_jax_reads_it(task, model,
-                                                           refused):
+def test_fused_v_tucker_is_read_only_where_jax_reads_it(task, model, reads):
     """Only JAX's free-form CTI reads ``fused_v_tucker``
-    (``vqatpu/models/ffoe.py:253-273``); every other model ignores it, so
-    the port's step takes it with dropout on."""
-    cfg = ModelConfig(**dict(SMALL, task=task, model=model,
-                             fused_v_tucker=True))
-    model_ = build_model(cfg)
-    make_train_state(model_, device="cpu")
-    if refused:
-        with pytest.raises(NotImplementedError, match="fused_v_tucker"):
-            make_train_step(model_, TrainConfig())
-    else:
-        make_train_step(model_, TrainConfig(), mc_scoring=task == "mc")
+    (``vqatpu/models/ffoe.py:253-275``): with dropout on, its step draws
+    one mask on ``v`` for the fused tuckers; every other model ignores the
+    flag and draws as it does without it."""
+    kw = dict(SMALL, task=task, model=model)
+    b = (rows(kw, seed=6) if task == "mc" else numpy_batch(
+        ModelConfig(**kw), 4, seed=6, boxes=8, real_boxes=6, target=True))
+    counts = []
+    for fused in (False, True):
+        model_ = build_model(ModelConfig(**kw, fused_v_tucker=fused))
+        state = make_train_state(model_, seed=0, device="cpu")
+        source = OnesSource()
+        step = make_train_step(
+            model_, TrainConfig(), mc_scoring=task == "mc",
+            ctx_factory=lambda: Ctx(train=True, mask_source=source))
+        assert np.isfinite(float(step(state, b, 1e-3)["loss"]))
+        counts.append(source.shapes.count(b["v"].shape))
+    assert counts[1] == (1 if reads else counts[0])
 
 
 @pytest.mark.parametrize("task,model,cls", [

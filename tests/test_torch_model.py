@@ -20,7 +20,8 @@ from vqatpu.train import steps as jsteps
 from vqatpu_torch.config import ModelConfig
 from vqatpu_torch.models import build_model
 from vqatpu_torch.ops.trilinear import TCNet
-from vqatpu_torch.weights import (load_jax_params, numpy_batch, numpy_params,
+from vqatpu_torch.weights import (jax_params_from_torch, load_jax_params,
+                                  numpy_batch, numpy_params,
                                   torch_state_from_jax)
 
 GOLDEN = Path(__file__).parent / "data" / "torch_cti_golden.npz"
@@ -266,11 +267,19 @@ def test_loading_is_strict(edit):
         load_jax_params(build_model(ModelConfig(**SMALL)), params)
 
 
-def test_bidirectional_gru_weights_are_refused():
+def test_bidirectional_gru_weights_take_the_reverse_names():
+    """A ``bwd`` direction's leaves map to ``nn.GRU``'s ``*_l0_reverse``
+    parameters and back, unchanged."""
     params = numpy_params(ModelConfig(**SMALL), seed=1)
-    params["q_emb"]["bwd"] = params["q_emb"]["fwd"]
-    with pytest.raises(NotImplementedError, match="bidirectional"):
-        torch_state_from_jax(params)
+    params["q_emb"]["bwd"] = {k: v + 1.0 for k, v in
+                              params["q_emb"]["fwd"].items()}
+    state = torch_state_from_jax(params)
+    np.testing.assert_array_equal(state["q_emb.weight_ih_l0_reverse"].numpy(),
+                                  params["q_emb"]["bwd"]["w_ih"])
+    back = jax_params_from_torch(state)
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("task,model", [

@@ -308,7 +308,7 @@ def test_build_session_and_cli_flags(ckpt, tmp_path, rng):
     save_checkpoint(str(tmp_path / "sm" / "model_epoch3.ckpt"), state, 3)
     args = cli.build_parser().parse_args([
         "--dataroot", root, "--input", str(tmp_path / "sm"), "--epoch", "3",
-        "--v_dim", str(V_DIM), "--num_hid", "16", "--h_mm", "8",
+        "--model", "cti", "--v_dim", str(V_DIM), "--num_hid", "16", "--h_mm", "8",
         "--rank", "2", "--max_boxes", "12", "--device", "cpu"])
     sess, d = cli.build_session(args)
     assert sess.device == torch.device("cpu")
@@ -726,7 +726,7 @@ def test_cli_serving_flags_over_http(dataroot, tmp_path, rng, flags):
     save_checkpoint(str(tmp_path / "sm" / "model_epoch1.ckpt"), state, 1)
     args = cli.build_parser().parse_args([
         "--dataroot", dataroot, "--input", str(tmp_path / "sm"), "--epoch",
-        "1", "--v_dim", str(V_DIM), "--num_hid", "16", "--h_mm", "8",
+        "1", "--model", "cti", "--v_dim", str(V_DIM), "--num_hid", "16", "--h_mm", "8",
         "--rank", "2", "--max_boxes", "10", "--device", "cpu", "--port", "0",
         "--feature_split", "val", *flags])
     session, server = cli.build_server(args)

@@ -202,39 +202,61 @@ def test_unported_train_options_raise(field, value):
         make_train_step(model, TrainConfig(**{field: value}))
 
 
-@pytest.mark.parametrize("deterministic,remat,refused", [
-    (False, False, True), (True, False, False), (False, True, False)],
+class _CountingSource(MaskSource):
+    """Ones for every mask asked for, counted by shape."""
+
+    def __init__(self):
+        super().__init__([])
+        self.shapes = []
+
+    def next_mask(self, shape):
+        self.shapes.append(tuple(shape))
+        return np.ones(shape, np.float32)
+
+
+@pytest.mark.parametrize("deterministic,remat,v_masks", [
+    (False, False, 1), (True, False, 0), (False, True, 3)],
     ids=["dropout", "deterministic", "remat_glimpse"])
-def test_fused_v_tucker_is_refused_where_dropout_differs(deterministic, remat,
-                                                         refused):
-    """JAX draws one dropout mask on v for the 1+gamma v-side tuckers under
-    fused_v_tucker, unless remat_glimpse turns the fusion off
-    (vqatpu/models/ffoe.py:253-258); the port would draw 1+gamma, so its
-    train step refuses the flag with dropout on.  Without dropout the math
-    is the same, and the step is built."""
-    model = build_model(ModelConfig(**SMALL, fused_v_tucker=True,
-                                    remat_glimpse=remat))
-    make_train_state(model, device="cpu")
-    tcfg = TrainConfig(deterministic=deterministic)
-    if refused:
-        with pytest.raises(NotImplementedError, match="queue A item 8"):
-            make_train_step(model, tcfg)
-    else:
-        make_train_step(model, tcfg)
+def test_fused_v_tucker_draws_one_mask_on_v(deterministic, remat, v_masks):
+    """Under fused_v_tucker JAX draws one dropout mask on v for the 1+gamma
+    v-side tuckers, unless remat_glimpse turns the fusion off and each
+    tucker draws its own (vqatpu/models/ffoe.py:253-275); the port's step
+    draws as many, and none without dropout."""
+    cfg = ModelConfig(**SMALL, fused_v_tucker=True, remat_glimpse=remat)
+    model = build_model(cfg)
+    state = make_train_state(model, seed=0, device="cpu")
+    source = _CountingSource()
+    step = make_train_step(
+        model, TrainConfig(deterministic=deterministic),
+        ctx_factory=lambda: Ctx(train=not deterministic, mask_source=source))
+    batch = small_batches(1)[0]
+    m = step(state, batch, 1e-3)
+    assert np.isfinite(float(m["loss"]))
+    assert source.shapes.count(batch["v"].shape) == v_masks
 
 
-def test_blockwise_regime_is_refused():
-    """v_block_size below the box count selects JAX's blockwise path, which
-    returns att=None (vqatpu/models/ffoe.py:357): the port's forward
-    refuses it and still runs at or below the block size."""
+def test_blockwise_forward_returns_no_attention():
+    """v_block_size below the box count selects JAX's blockwise path,
+    which returns att=None (vqatpu/models/ffoe.py:357) and the standard
+    path's logits; at or below the block size the standard path runs."""
     cfg = ModelConfig(**SMALL, v_block_size=6)
-    model = build_model(cfg).eval()
+    params = numpy_params(cfg, seed=1)
+    model = load(build_model(cfg), params).eval()
+    plain = load(build_model(ModelConfig(**SMALL)), params).eval()
     batch = numpy_batch(cfg, 2, seed=1, boxes=8, real_boxes=6)
     v, q, a = (torch.from_numpy(batch[k]) for k in "vqa")
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        model(v, q, a)
-    logits, att = model(v[:, :6], q, a)
+    with torch.no_grad():
+        logits, att = model(v, q, a)
+        want, _ = plain(v, q, a)
+        assert att is None
+        np.testing.assert_allclose(logits.numpy(), want.numpy(), atol=1e-5)
+        logits, att = model(v[:, :6], q, a)
     assert logits.shape == (2, 17) and att is not None
+
+
+def load(model, params):
+    model.load_state_dict(torch_state_from_jax(params))
+    return model
 
 
 def test_cti_step_ignores_distillation():

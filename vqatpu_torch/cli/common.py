@@ -8,10 +8,11 @@ gives meaning to (``--rng_impl``, ``--kernel_backend``,
 ``--compilation_cache_dir``) says so in its help and selects nothing here;
 a flag whose machinery is not ported yet refuses the values that would
 change what runs (``--coordinator``, ``--tp``, ``--num_devices`` > 1,
-``--shard_feature_store``, ``--ckpt_backend orbax``, ``--profile_dir``,
-``--mask_replay``, ``--fused_v_tucker`` with dropout, a ``--v_block_size``
-below the box count).  The free-form models ``ban`` (``--use_counter``),
-``san`` and ``cti`` are ported, with ``--distillation`` for BAN and SAN,
+``--shard_feature_store``, ``--ckpt_backend orbax``, ``--mask_replay``).
+``--v_block_size``, ``--remat`` and ``--fused_v_tucker`` select CTI's
+blockwise, rematerialized and fused paths, as in JAX, and ``--profile_dir``
+traces early training steps with ``torch.profiler``.  The free-form models
+``ban`` (``--use_counter``), ``san`` and ``cti`` are ported, with ``--distillation`` for BAN and SAN,
 and ``mc_train``/``mc_test`` take the same flags for the multiple-choice
 models.  No flag that changes results is ignored.  ``--native_loader``
 (the default) assembles batches in the port's C++ runtime and ``--device_features auto`` (the default) puts the
@@ -137,8 +138,9 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "(label, score) pairs, densified on the card "
                              "bit-identically")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="trace early train steps (not ported: ROADMAP "
-                             "queue A item 10)")
+                        help="trace steps 1 to min(6, batches - 1) of the "
+                             "first epoch with torch.profiler (CUDA kernels "
+                             "on the card) into this directory")
     parser.add_argument("--kernel_backend", type=str, default="xla",
                         choices=["xla", "pallas"],
                         help="the JAX package's trilinear kernel path; "
@@ -180,17 +182,17 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "instead of saving them (not ported: autograd "
                              "keeps the masks; raises)")
     parser.add_argument("--fused_v_tucker", action="store_true", default=False,
-                        help="one GEMM for the v-side tucker projections "
-                             "(shared dropout mask; not ported: training "
-                             "with dropout raises, ROADMAP queue A item 8)")
+                        help="one GEMM for CTI's v-side tucker projections "
+                             "(one dropout mask on v for all of them; "
+                             "ignored with --remat)")
     parser.add_argument("--remat", action="store_true", default=False,
-                        help="rematerialize per-glimpse joint embeddings "
-                             "(memory only, same results; not ported: "
-                             "selects nothing here)")
+                        help="rematerialize CTI's per-glimpse joint "
+                             "embeddings in the backward (memory only, same "
+                             "results)")
     parser.add_argument("--v_block_size", type=int, default=0,
-                        help="blockwise attention+pool over V blocks (0=off; "
-                             "not ported: more boxes than this raise, "
-                             "ROADMAP queue A item 8)")
+                        help="CTI's blockwise attention+pool over V blocks "
+                             "of this size where there are more boxes (0 = "
+                             "off); returns no attention map")
     parser.add_argument("--compilation_cache_dir", type=str, default="",
                         help="the JAX package's persistent XLA compilation "
                              "cache; selects nothing here: the port "
@@ -215,10 +217,18 @@ def validate_args(args) -> None:
 
 
 def model_config_from_args(args, dataset, task: str = "ffoe") -> ModelConfig:
+    return model_config_of(args, dataset.dictionary.ntoken, dataset.v_dim,
+                           dataset.num_ans_candidates, task)
+
+
+def model_config_of(args, ntoken: int, v_dim: int, num_ans: int,
+                    task: str = "ffoe") -> ModelConfig:
+    """The parsed flags' model config for a vocabulary of ``ntoken``,
+    ``v_dim`` features and ``num_ans`` classes (serving has no dataset)."""
     return ModelConfig(
-        ntoken=dataset.dictionary.ntoken,
-        v_dim=dataset.v_dim,
-        num_ans_candidates=dataset.num_ans_candidates,
+        ntoken=ntoken,
+        v_dim=v_dim,
+        num_ans_candidates=num_ans,
         model="san" if args.model == "stacked_attention" else args.model,
         num_hid=args.num_hid,
         op=args.op,

@@ -66,7 +66,7 @@ def main(argv=None):
                        quantize_features=args.quantize_store)
 
     model = build_model(model_config_from_args(args, eval_dset))
-    load_jax_params(model, load_params_any(args.input, args.epoch))
+    load_jax_params(model, load_params_any(args.input, args.epoch, model))
     model = model.to(args.device).eval()
 
     # the sweep with the features on the card (auto: where the split fits

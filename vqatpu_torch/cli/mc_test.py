@@ -58,7 +58,7 @@ def main(argv=None) -> float:
                            quantize_features=args.quantize_store)
 
     model = build_model(model_config_from_args(args, eval_dset, task="mc"))
-    load_jax_params(model, load_params_any(args.input, args.epoch))
+    load_jax_params(model, load_params_any(args.input, args.epoch, model))
     model = model.to(args.device).eval()
 
     dev_store = None

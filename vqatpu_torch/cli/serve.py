@@ -31,6 +31,12 @@ to N rows.  ``/answer_mc`` answers 400 on a server not started with
 ``--task mc``, as the JAX server does; the by-id endpoints answer 400
 without ``--feature_split``.
 
+The flags are the train and test CLIs' (``--model`` defaults to ``ban``, as
+in JAX) with serving's own; the weights come from ``{--input}/model_epoch
+{--epoch}.ckpt`` or, failing that, the reference's ``.pth``.  CTI's
+``--v_block_size``, ``--remat`` and ``--fused_v_tucker`` select its
+blockwise, rematerialized and fused forwards.
+
 Run: ``python -m vqatpu_torch.cli.serve --input saved_models/cti --epoch 12
      --dataroot data_vqa --model cti --port 8399 --device cuda
      [--feature_split val --micro_batch 32]`` (``--model ban --use_counter``,
@@ -51,24 +57,17 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from vqatpu_torch.config import ModelConfig
+from vqatpu_torch.cli.common import (add_common_args, model_config_of,
+                                     validate_args)
 from vqatpu_torch.data import Dictionary
 from vqatpu_torch.data.mc_dataset import MC_ANS_LEN
 
 
-def model_config_from_args(args, ntoken: int, num_ans: int) -> ModelConfig:
-    return ModelConfig(
-        ntoken=ntoken, v_dim=args.v_dim, num_ans_candidates=num_ans,
-        model="san" if args.model == "stacked_attention" else args.model,
-        num_hid=args.num_hid, op=args.op, gamma=args.gamma,
-        activation=args.activation, dropout=args.dropout,
-        num_layers=args.num_layers, use_counter=args.use_counter,
-        num_stacks=args.num_stacks, h_mm=args.h_mm, h_out=args.h_out,
-        rank=args.rank, k=args.k, task=args.task)
-
-
 def build_session(args):
+    from vqatpu_torch.models import build_model
     from vqatpu_torch.serve import InferenceSession
+    from vqatpu_torch.train.checkpoints import load_params_any
+    from vqatpu_torch.weights import load_jax_params
 
     dictionary = Dictionary.load_from_file(
         os.path.join(args.dataroot, "dictionary.pkl"))
@@ -80,11 +79,12 @@ def build_session(args):
         with open(os.path.join(args.dataroot, "cache",
                                "trainval_label2ans.pkl"), "rb") as f:
             label2ans = pickle.load(f)
-    cfg = model_config_from_args(args, dictionary.ntoken, len(label2ans))
-    ckpt = os.path.join(args.input, f"model_epoch{args.epoch}.ckpt")
+    model = build_model(model_config_of(args, dictionary.ntoken, args.v_dim,
+                                        len(label2ans), task=args.task))
+    load_jax_params(model, load_params_any(args.input, args.epoch, model))
     wire = None if args.transfer_dtype == "float32" else args.transfer_dtype
-    return InferenceSession.from_checkpoint(
-        ckpt, cfg, label2ans, max_boxes=args.max_boxes, transfer_dtype=wire,
+    return InferenceSession(
+        model, label2ans, max_boxes=args.max_boxes, transfer_dtype=wire,
         compute_dtype=args.compute_dtype, device=args.device), dictionary
 
 
@@ -252,44 +252,20 @@ def serve_in_thread(session, dictionary, model_name: str, port: int,
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The flags of the train and test CLIs (:func:`~vqatpu_torch.cli.
+    common.add_common_args`: the model's, ``--device``, the wire and
+    compute dtypes, CTI's ``--v_block_size``, ``--remat`` and
+    ``--fused_v_tucker``) and serving's own, as JAX's serve parser
+    (``vqatpu/cli/serve.py:262-306``)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--dataroot", type=str, default="data_vqa")
-    p.add_argument("--input", type=str, default=None)
+    add_common_args(p)
     p.add_argument("--epoch", type=str, default="12")
     p.add_argument("--port", type=int, default=8399)
     p.add_argument("--host", type=str, default="127.0.0.1")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="device to serve on; cpu runs the kernels' plain "
-                        "PyTorch versions")
-    p.add_argument("--model", type=str, default="cti",
-                   choices=["ban", "san", "cti", "stacked_attention"])
+    p.add_argument("--v_dim", type=int, default=2048)
     p.add_argument("--task", type=str, default="ffoe", choices=("ffoe", "mc"),
                    help="mc serves a Visual7W 2-class checkpoint: POST "
                         "/answer_mc with each question's candidates")
-    p.add_argument("--v_dim", type=int, default=2048)
-    p.add_argument("--num_hid", type=int, default=1024)
-    p.add_argument("--op", type=str, default="c")
-    p.add_argument("--gamma", type=int, default=2, help="glimpse")
-    p.add_argument("--activation", type=str, default="relu",
-                   choices=["relu", "swish"])
-    p.add_argument("--dropout", default=0.5, type=float)
-    p.add_argument("--num_layers", default=1, type=int)
-    p.add_argument("--use_counter", action="store_true", default=False,
-                   help="BAN's counting branch (requests then need spatials)")
-    p.add_argument("--num_stacks", default=2, type=int, help="SAN's rounds")
-    p.add_argument("--rank", default=32, type=int)
-    p.add_argument("--h_out", default=1, type=int)
-    p.add_argument("--h_mm", default=512, type=int)
-    p.add_argument("--k", default=1, type=int)
-    p.add_argument("--max_boxes", default=50, type=int)
-    p.add_argument("--kernel_backend", type=str, default="xla",
-                   choices=["xla", "pallas"],
-                   help="accepted for the JAX CLI's sake; the port has one "
-                        "path, its CUDA kernels")
-    p.add_argument("--transfer_dtype", type=str, default="float32",
-                   choices=["float32", "float16", "bfloat16", "int8"])
-    p.add_argument("--compute_dtype", type=str, default="float32",
-                   choices=["float32", "bfloat16"])
     p.add_argument("--feature_split", type=str, default=None,
                    help="serve POST /answer_by_id and /logits_by_id from a "
                         "server-resident feature store: the split "
@@ -305,8 +281,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--feature_f32", action="store_true", default=False,
                    help="keep card-resident features float32 (4x the memory "
                         "of int8; the upload path's logits exactly)")
-    p.add_argument("--quantize_store", action="store_true", default=False,
-                   help="keep the --feature_split store int8 in host memory")
     p.add_argument("--micro_batch", type=int, default=0,
                    help="coalesce concurrent requests into one forward of up "
                         "to this many rows (0: off); adds at most "
@@ -341,6 +315,7 @@ def build_server(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    validate_args(args)
     session, server = build_server(args)
     print(f"serving {args.model} on http://{args.host}:{args.port} "
           f"({args.device})")

@@ -8,16 +8,16 @@ Every model is ported: for ``task="ffoe"`` ``ban`` (``use_counter``,
 (Visual7W, a 2-class head: :attr:`ModelConfig.num_classes`) ``ban``,
 ``san`` and ``cti`` or ``tan`` (TanModel).  CTI and TanModel have one
 path, that of JAX's ``kernel_backend="pallas"`` (the fused attention and
-pooling kernels, and its dtypes at bf16 compute); CTI's blockwise,
-fused-tucker and remat variants are ROADMAP queue A item 8.
-``kernel_backend`` and ``remat_glimpse`` select nothing here and change no
-result.
-``fused_v_tucker`` changes no eval result (``vqatpu/config.py:47-50``), but
-with dropout on JAX's free-form CTI draws one mask on ``v`` for the 1+γ
-v-side tuckers, so :func:`vqatpu_torch.train.make_train_step` refuses it
-there.  ``v_block_size`` > 0 with more boxes than it makes JAX's CTI
-forward return no attention (``vqatpu/models/ffoe.py:357``); the port's
-CTI forward refuses it.  JAX's TanModel reads neither, and neither does
+pooling kernels, and its dtypes at bf16 compute); ``kernel_backend``
+selects nothing here.  JAX's free-form CTI reads the three v-side knobs,
+and so does the port's (:class:`vqatpu_torch.models.ffoe.CTIModel`):
+``v_block_size`` > 0 with more boxes than it selects the blockwise large-V
+path, which returns no attention (``vqatpu/models/ffoe.py:357``);
+``fused_v_tucker`` runs the 1+γ v-side tuckers as one GEMM and, with
+dropout, draws one mask on ``v`` for them (``vqatpu/config.py:47-50``);
+``remat_glimpse`` recomputes each glimpse's joint embedding in the
+backward (memory only, the same results) and overrides
+``fused_v_tucker``.  JAX's TanModel reads none of them, and neither does
 the port's.
 """
 
@@ -50,7 +50,8 @@ class ModelConfig:
     rank: int = 32
     k: int = 1
     task: str = "ffoe"  # ffoe | mc
-    # accepted for compatibility with the JAX package (see the docstring)
+    # JAX's kernel path (selects nothing here) and CTI's v-side knobs (see
+    # the docstring)
     kernel_backend: str = "xla"
     v_block_size: int = 0
     fused_v_tucker: bool = False

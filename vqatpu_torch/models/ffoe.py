@@ -20,9 +20,8 @@ does; it returns ``(logits [B, num_classes], att)``.
 
 Dropout sites fire in JAX's order.
 
-CTI's blockwise large-V path, ``fused_v_tucker`` and ``remat_glimpse`` are
-not ported yet: a ``v_block_size`` below the box count raises (JAX's
-blockwise path returns no attention, ``:357``).  With bf16 parameters and a
+CTI's blockwise large-V path returns ``att=None`` (``:357``); every caller
+discards the attention.  With bf16 parameters and a
 bf16 ``v`` (``compute_dtype="bfloat16"``) CTI's dtypes follow JAX's Pallas
 backend: the GRU states, the rank projections
 and ``vt`` are bf16; ``att`` and each glimpse's joint embedding are
@@ -37,6 +36,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from vqatpu_torch.config import ModelConfig
 from vqatpu_torch.numerics import promote
@@ -47,9 +47,11 @@ from vqatpu_torch.ops.classifier import SimpleClassifier
 from vqatpu_torch.ops.counter import Counter
 from vqatpu_torch.ops.embedding import WordEmbedding
 from vqatpu_torch.ops.linear import FCNet
-from vqatpu_torch.ops.module import Ctx
+from vqatpu_torch.kernels.blockwise import (attention_pool_blockwise,
+                                            precontract_qa, softmax_stats)
+from vqatpu_torch.ops.module import Ctx, checkpoint_with_dropout
 from vqatpu_torch.ops.rnn import QuestionEmbedding
-from vqatpu_torch.ops.trilinear import TCNet
+from vqatpu_torch.ops.trilinear import TCNet, fused_tucker_projection
 
 
 class BanModel(nn.Module):
@@ -87,7 +89,7 @@ class BanModel(nn.Module):
                 ctx: Optional[Ctx] = None, b: Optional[torch.Tensor] = None):
         if v_mask is None:
             v_mask = box_mask_from_features(v)
-        q_state = self.q_emb(self.w_emb(q, ctx))  # [B, Q, H]
+        q_state = self.q_emb(self.w_emb(q, ctx), ctx)  # [B, Q, H]
         att_qv, logits_qv = self.v_att.apply_gqv(v, q_state, v_mask, ctx)
         if self.counter is not None:
             if b is None:
@@ -131,8 +133,34 @@ class StackedAttentionModel(nn.Module):
                 a: Optional[torch.Tensor] = None,
                 v_mask: Optional[torch.Tensor] = None,
                 ctx: Optional[Ctx] = None, b: Optional[torch.Tensor] = None):
-        q_last = self.q_emb.forward_last(self.w_emb(q, ctx))  # [B, H]
+        q_last = self.q_emb.forward_last(self.w_emb(q, ctx), ctx)  # [B, H]
         return self.classifier(self.v_att(v, q_last, ctx=ctx), ctx), None
+
+
+class _Glimpse(nn.Module):
+    """A glimpse's joint embedding as a module's forward, so that
+    ``functional_call`` runs it on the weights the model's forward read."""
+
+    def __init__(self, net: TCNet):
+        super().__init__()
+        self.net = net
+
+    def forward(self, ctx, v, q, a, w):
+        return self.net.apply_with_weights(v, q, a, w, ctx)
+
+
+def _remat_joint(net: TCNet, ctx: Optional[Ctx], v, q_state, a_state, w):
+    """``net.apply_with_weights`` under
+    :func:`~vqatpu_torch.ops.module.checkpoint_with_dropout`.  The weights
+    are checkpoint inputs: at bf16 compute they are the forward's bf16
+    casts (``functional_call`` has swapped them in), which the recompute in
+    the backward, after ``functional_call`` has put the float32 masters
+    back, must run on too."""
+    glimpse = _Glimpse(net)
+    weights = dict(glimpse.named_parameters())
+    return checkpoint_with_dropout(
+        lambda c, ws, *x: functional_call(glimpse, ws, (c, *x)),
+        ctx, weights, v, q_state, a_state, w)
 
 
 class TrilinearModel(nn.Module):
@@ -142,9 +170,28 @@ class TrilinearModel(nn.Module):
     streams (question + answer), trilinear attention, and per glimpse a
     joint embedding with residual updates to both streams.  The attention
     lives under :attr:`att_name` (``t_att`` in CTI, ``v_att`` in TanModel,
-    JAX's tree paths); the classifier has ``cfg.num_classes`` outputs."""
+    JAX's tree paths); the classifier has ``cfg.num_classes`` outputs.
+
+    With :attr:`reads_v_knobs` (CTI; TanModel ignores them, as JAX's does)
+    the forward takes JAX's three variants (``vqatpu/models/ffoe.py:
+    250-357``):
+
+    - ``0 < v_block_size < V`` (``:250-253``): the blockwise path
+      (:mod:`vqatpu_torch.kernels.blockwise`, ``_apply_blockwise``
+      ``:332-357``), which runs none of the CUDA kernels and returns
+      ``att=None``;
+    - ``fused_v_tucker`` without ``remat_glimpse`` (``:255-275``): the 1+γ
+      v-side tuckers as one GEMM with one dropout mask on ``v``
+      (:func:`~vqatpu_torch.ops.trilinear.fused_tucker_projection`), drawn
+      before the attention's other masks;
+    - ``remat_glimpse`` (``:292-322``): each glimpse's joint embedding runs
+      under ``torch.utils.checkpoint`` (:func:`_remat_joint`), so its
+      tucker activations are not kept for the backward but recomputed with
+      the same dropout masks; the recompute launches K2 again.
+    """
 
     att_name = "t_att"
+    reads_v_knobs = False
     inputs = ("v", "q", "a")
 
     def __init__(self, cfg: ModelConfig):
@@ -167,41 +214,70 @@ class TrilinearModel(nn.Module):
             self.add_module(f"q_prj{g}", FCNet((H, H), "", 0.2))
             self.add_module(f"a_prj{g}", FCNet((H, H), "", 0.2))
 
+    def _residual(self, g: int, joint, q_state, a_state, ctx):
+        joint = joint[:, None, :]
+        return (getattr(self, f"q_prj{g}")(joint, ctx) + q_state,
+                getattr(self, f"a_prj{g}")(joint, ctx) + a_state)
+
+    def _head(self, q_state, a_state, ctx):
+        return self.classifier(q_state.sum(1) + a_state.sum(1), ctx)
+
     def forward(self, v: torch.Tensor, q: torch.Tensor,
                 a: Optional[torch.Tensor] = None,
                 v_mask: Optional[torch.Tensor] = None,
                 ctx: Optional[Ctx] = None, b: Optional[torch.Tensor] = None):
         if a is None:
             raise ValueError(f"{type(self).__name__} needs answer tokens")
+        cfg = self.cfg
+        knobs = self.reads_v_knobs
+        q_state = self.q_emb(self.w_emb(q, ctx), ctx)       # [B, Q, H]
+        a_state = self.ans_emb(self.wa_emb(a, ctx), ctx)    # [B, A, H]
         if v_mask is None:
             v_mask = box_mask_from_features(v)
-        q_state = self.q_emb(self.w_emb(q, ctx))       # [B, Q, H]
-        a_state = self.ans_emb(self.wa_emb(a, ctx))    # [B, A, H]
-        att, _ = getattr(self, self.att_name)(
-            v, q_state, a_state, v_mask, ctx)          # [B, V, Q, A, G]
+        if knobs and 0 < cfg.v_block_size < v.shape[1]:
+            return self._forward_blockwise(v, q_state, a_state, v_mask, ctx)
+        att_net = getattr(self, self.att_name)
+        nets = [getattr(self, f"t_net{g}") for g in range(cfg.gamma)]
+        v_ts = [None] * (1 + cfg.gamma)
+        if knobs and cfg.fused_v_tucker and not cfg.remat_glimpse:
+            # one dropout draw and activation for every net: valid only
+            # while their configs agree (JAX's assert)
+            tuckers = [att_net.tc.v_tucker] + [n.v_tucker for n in nets]
+            if len({(t.dropout, t.act) for t in tuckers}) > 1:
+                raise ValueError("fused_v_tucker requires matching "
+                                 "t_att/t_net tucker configs")
+            v_ts = fused_tucker_projection(tuckers, v, tuckers[1].dropout,
+                                           tuckers[1].act, ctx)
+        att, _ = att_net(v, q_state, a_state, v_mask, ctx,
+                         v_t=v_ts[0])                   # [B, V, Q, A, G]
+        for g, net in enumerate(nets):
+            if knobs and cfg.remat_glimpse:
+                joint = _remat_joint(net, ctx, v, q_state, a_state,
+                                     att[..., g])
+            else:
+                joint = net.apply_with_weights(
+                    v, q_state, a_state, att[..., g], ctx, v_t=v_ts[1 + g])
+            q_state, a_state = self._residual(g, joint, q_state, a_state, ctx)
+        return self._head(q_state, a_state, ctx), att
+
+    def _forward_blockwise(self, v, q_state, a_state, v_mask, ctx):
+        """The same math with O(v_block_size) memory in V; no attention."""
+        block = self.cfg.v_block_size
+        v_r, q_r, a_r, T = getattr(self, self.att_name).tc.rank_projections(
+            v, q_state, a_state, ctx)
+        tqa = precontract_qa(q_r, a_r, T)
+        m, den = softmax_stats(v_r, tqa, v_mask, block)
         for g in range(self.cfg.gamma):
-            joint = getattr(self, f"t_net{g}").apply_with_weights(
-                v, q_state, a_state, att[..., g], ctx)
-            joint = joint[:, None, :]
-            q_state = getattr(self, f"q_prj{g}")(joint, ctx) + q_state
-            a_state = getattr(self, f"a_prj{g}")(joint, ctx) + a_state
-        pooled = q_state.sum(1) + a_state.sum(1)
-        return self.classifier(pooled, ctx), att
+            vt, qt, at = getattr(self, f"t_net{g}").tucker_projections(
+                v, q_state, a_state, ctx)
+            joint = attention_pool_blockwise(v_r, tqa, v_mask, m, den, g,
+                                             vt, qt, at, block)
+            q_state, a_state = self._residual(g, joint, q_state, a_state, ctx)
+        return self._head(q_state, a_state, ctx), None
 
 
 class CTIModel(TrilinearModel):
-    """The free-form CTI model (``vqatpu/models/ffoe.py:179-330``); a
-    ``v_block_size`` below the box count selects JAX's blockwise path,
-    which is not ported, and raises."""
+    """The free-form CTI model (``vqatpu/models/ffoe.py:179-357``): the
+    shared body with the v-side knobs read."""
 
-    def forward(self, v: torch.Tensor, q: torch.Tensor,
-                a: Optional[torch.Tensor] = None,
-                v_mask: Optional[torch.Tensor] = None,
-                ctx: Optional[Ctx] = None, b: Optional[torch.Tensor] = None):
-        block = self.cfg.v_block_size
-        if block > 0 and v.shape[1] > block:
-            raise NotImplementedError(
-                f"v_block_size={block} with {v.shape[1]} boxes selects JAX's "
-                "blockwise path, which returns no attention; it is not "
-                "ported (ROADMAP queue A item 8)")
-        return super().forward(v, q, a, v_mask, ctx, b)
+    reads_v_knobs = True

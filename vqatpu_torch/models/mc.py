@@ -7,7 +7,7 @@ convention is the free-form models' (:mod:`vqatpu_torch.models.ffoe`).
 - :class:`TanModel` (``:133-221``): CTI with a 2-way head, the attention
   under ``v_att``; its path is JAX's ``kernel_backend="pallas"`` one, K1
   for the attention and K2 for each glimpse's pool.  As in JAX it reads
-  neither ``fused_v_tucker`` nor ``v_block_size``.
+  none of ``fused_v_tucker``, ``remat_glimpse`` and ``v_block_size``.
 - :class:`BanModelMC` (``:33-130``): a second bilinear attention ``va_att``
   over (v, answer states), with ``tva_net{g}`` / ``a_prj{g}`` residuals on
   the answer stream and, with ``use_counter``, the counting branch on the
@@ -81,8 +81,8 @@ class BanModelMC(nn.Module):
             raise ValueError("BanModelMC needs answer tokens")
         if v_mask is None:
             v_mask = box_mask_from_features(v)
-        q_state = self.q_emb(self.w_emb(q, ctx))       # [B, Q, H]
-        a_state = self.ans_emb(self.wa_emb(a, ctx))    # [B, A, H]
+        q_state = self.q_emb(self.w_emb(q, ctx), ctx)     # [B, Q, H]
+        a_state = self.ans_emb(self.wa_emb(a, ctx), ctx)  # [B, A, H]
         att_qv, logits_qv = self.v_att.apply_gqv(v, q_state, v_mask, ctx)
         va_att_qv, _ = self.va_att.apply_gqv(v, a_state, v_mask, ctx)
         if self.counter is not None:
@@ -134,8 +134,8 @@ class StackedAttentionModelMC(nn.Module):
                 ctx: Optional[Ctx] = None, b: Optional[torch.Tensor] = None):
         if a is None:
             raise ValueError("StackedAttentionModelMC needs answer tokens")
-        q_last = self.q_emb.forward_last(self.w_emb(q, ctx))   # [B, H]
-        a_last = self.a_emb.forward_last(self.wa_emb(a, ctx))  # [B, H]
+        q_last = self.q_emb.forward_last(self.w_emb(q, ctx), ctx)   # [B, H]
+        a_last = self.a_emb.forward_last(self.wa_emb(a, ctx), ctx)  # [B, H]
         vq = self.v_att(v, q_last, ctx=ctx)
         va = self.va_att(v, a_last, ctx=ctx)
         return self.classifier(vq + va, ctx), None

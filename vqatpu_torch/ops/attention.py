@@ -82,14 +82,16 @@ class TriAttention(nn.Module):
                         dropout=dropout, k=k)
 
     def forward(self, v, q, a, v_mask=None, ctx: Optional[Ctx] = None,
-                return_logits: bool = False):
+                return_logits: bool = False, v_t=None):
+        """``v_t``: the v-tucker activation, computed outside
+        (``fused_v_tucker``)."""
         if v_mask is None:
             v_mask = box_mask_from_features(v)
         if not return_logits:
-            v_r, q_r, a_r, T = self.tc.rank_projections(v, q, a, ctx)
+            v_r, q_r, a_r, T = self.tc.rank_projections(v, q, a, ctx, v_t)
             att = fused_rank_softmax(v_r, precontract_qa(q_r, a_r, T), v_mask)
             return att, None
-        logits = self.tc(v, q, a, ctx)
+        logits = self.tc(v, q, a, ctx, v_t)
         att = masked_softmax_vqa(logits, v_mask)
         mask5 = v_mask[:, :, None, None, None]
         return att, logits.masked_fill(~mask5, float("-inf"))

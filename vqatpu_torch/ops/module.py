@@ -9,14 +9,19 @@ context that drives it (``vqatpu/ops/module.py:32-167``).
 - :class:`MaskSource` replays injected 0/1 masks, so that a test can feed
   the port and the JAX package the same masks (their generators never
   agree).
+- :func:`checkpoint_with_dropout` runs a function under
+  ``torch.utils.checkpoint`` so that its recompute draws the masks its
+  forward drew (``jax.checkpoint`` of a function that takes its dropout
+  key as an argument, ``vqatpu/models/ffoe.py:294-312``).
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Iterable, Optional
+from typing import Callable, Iterable, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 class MaskSource:
@@ -40,6 +45,19 @@ class MaskSource:
         left = {s: len(q) for s, q in self._fifo.items() if q}
         if left:
             raise AssertionError(f"unconsumed injected dropout masks: {left}")
+
+
+class _Recorder(MaskSource):
+    """Pops from ``source`` and keeps what it popped, in order."""
+
+    def __init__(self, source: MaskSource):
+        self.source = source
+        self.popped: List = []
+
+    def next_mask(self, shape):
+        m = self.source.next_mask(shape)
+        self.popped.append(m)
+        return m
 
 
 class Ctx:
@@ -78,3 +96,41 @@ def dropout(x: torch.Tensor, rate: float,
                            torch.zeros_like(x))
     mask = torch.rand(x.shape, generator=ctx.generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def checkpoint_with_dropout(fn: Callable, ctx: Optional[Ctx], *args):
+    """``fn(sub_ctx, *args)`` under ``torch.utils.checkpoint``
+    (``use_reentrant=False``): only ``args`` and the output are kept for
+    the backward, which runs ``fn`` again.  Both runs draw the same dropout
+    masks.  A generator's state is taken before the first run and each run
+    draws from a copy of it; the caller's generator then moves on past those
+    draws (no host sync: a CUDA generator's state lives on the host).
+    Injected masks (``ctx.mask_source``) are popped once, by the first run,
+    and replayed to the recompute.  Without grad (serving) ``fn`` just runs
+    with ``ctx``."""
+    if not torch.is_grad_enabled():
+        return fn(ctx, *args)
+    if ctx is None or not ctx.train:
+        return checkpoint(fn, ctx, *args, use_reentrant=False)
+    inject = ctx.mask_source is not None
+    if not inject and ctx.generator is None:
+        raise ValueError("Ctx needs a torch.Generator for dropout in training")
+    state = None if inject else ctx.generator.get_state()
+    runs: List[Ctx] = []  # each run's context, the forward's first
+
+    def run(*xs):
+        if inject:
+            source = (MaskSource(runs[0].mask_source.popped) if runs
+                      else _Recorder(ctx.mask_source))
+            sub = Ctx(train=True, mask_bits=ctx.mask_bits, mask_source=source)
+        else:
+            gen = torch.Generator(device=ctx.generator.device)
+            gen.set_state(state)
+            sub = Ctx(train=True, generator=gen, mask_bits=ctx.mask_bits)
+        runs.append(sub)
+        return fn(sub, *xs)
+
+    out = checkpoint(run, *args, use_reentrant=False)
+    if not inject:
+        ctx.generator.set_state(runs[0].generator.get_state())
+    return out

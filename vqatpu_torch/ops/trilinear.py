@@ -6,12 +6,14 @@ each to [rank, h_sub], and the PARALIND core ``T_g`` joins them.
 :meth:`TCNet.forward` gives the attention logits [B, V, Q, A, G], and
 :meth:`TCNet.apply_with_weights` is the weighted trilinear pool that the CTI
 joint embedding uses.  Every method takes the training context ``ctx``
-(:mod:`vqatpu_torch.ops.module`), None at eval.
+(:mod:`vqatpu_torch.ops.module`), None at eval, and those that project
+``v`` take an optional ``v_t``, the v-tucker activation computed outside
+(:func:`fused_tucker_projection`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +26,25 @@ from vqatpu_torch.ops.linear import FCNet, frobenius, uniform_
 from vqatpu_torch.ops.module import Ctx, dropout
 
 RANK_NET_GATE = 1024  # reference `if self.h_dim < 1024` (tc.py:27)
+
+
+def fused_tucker_projection(nets: Sequence[FCNet], x: torch.Tensor,
+                            rate: float, act: str,
+                            ctx: Optional[Ctx] = None) -> List[torch.Tensor]:
+    """Several single-layer tucker FCNets over the same ``x`` as one GEMM
+    over their concatenated weights, each net's weight-norm scale ``g /
+    ||v||_F`` applied to its output columns, and one dropout mask on ``x``
+    instead of one per net (``vqatpu/ops/trilinear.py:41-71``); -> the
+    per-net outputs, each contiguous (K2 takes its ``vt`` so; XLA's
+    slices are copies too)."""
+    ls = [n.l0 for n in nets]
+    scale = torch.cat([(l.g / frobenius(l.v)).expand(l.v.shape[0])
+                       for l in ls])
+    w_all = torch.cat([l.v for l in ls], 0)
+    b_all = torch.cat([l.b for l in ls])
+    x = dropout(x, rate, ctx)
+    out = get_activation(act)(F.linear(*promote(x, w_all)) * scale + b_all)
+    return [t.contiguous() for t in out.split([l.v.shape[0] for l in ls], -1)]
 
 
 class _RankLinear(nn.Module):
@@ -91,31 +112,37 @@ class TCNet(nn.Module):
             self.T_g = nn.Parameter(
                 torch.randn(rank, h, h, h, glimpse, self.ho_dim))
 
-    def rank_projections(self, v, q, a, ctx: Optional[Ctx] = None):
+    def tucker_projections(self, v, q, a, ctx: Optional[Ctx] = None,
+                           v_t: Optional[torch.Tensor] = None):
+        """-> (v_t [B,V,d], q_t, a_t): the tuckers, in the JAX order."""
+        if v_t is None:
+            v_t = self.v_tucker(v, ctx)
+        return v_t, self.q_tucker(q, ctx), self.a_tucker(a, ctx)
+
+    def rank_projections(self, v, q, a, ctx: Optional[Ctx] = None,
+                         v_t: Optional[torch.Tensor] = None):
         """-> (v_r [B,V,R,x], q_r, a_r, T [R,x,y,z,G]), the operands of the
         PARALIND contraction.  Dropout fires in the JAX order: the three
         tuckers, then the three rank nets."""
         if not self.has_rank_nets:
             raise ValueError("rank projections need the rank-net regime")
-        v_t = self.v_tucker(v, ctx)
-        q_t = self.q_tucker(q, ctx)
-        a_t = self.a_tucker(a, ctx)
+        v_t, q_t, a_t = self.tucker_projections(v, q, a, ctx, v_t)
         v_r = self.v_net(v_t, ctx)
         q_r = self.q_net(q_t, ctx)
         a_r = self.a_net(a_t, ctx)
         T = self.T_g[..., 0] if self.ho_dim == 1 else self.T_g.sum(-1)
         return v_r, q_r, a_r, T
 
-    def forward(self, v, q, a, ctx: Optional[Ctx] = None) -> torch.Tensor:
+    def forward(self, v, q, a, ctx: Optional[Ctx] = None,
+                v_t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Attention logits [B, V, Q, A, G] (``vqatpu/ops/trilinear.py:
         205-215``) through the plain einsum chain."""
-        return attention_logits_ref(*self.rank_projections(v, q, a, ctx))
+        return attention_logits_ref(*self.rank_projections(v, q, a, ctx, v_t))
 
-    def apply_with_weights(self, v, q, a, w,
-                           ctx: Optional[Ctx] = None) -> torch.Tensor:
+    def apply_with_weights(self, v, q, a, w, ctx: Optional[Ctx] = None,
+                           v_t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Joint embedding with attention ``w`` [B, V, Q, A] -> [B, d]
         (``tc.py:54-61``), through the trilinear pool kernel.  At bf16
         compute ``v`` and the weights are bf16, ``q`` and ``a`` bf16 at
         the first glimpse and float32 after it; the pool is float32."""
-        return trilinear_pool(self.v_tucker(v, ctx), self.q_tucker(q, ctx),
-                              self.a_tucker(a, ctx), w)
+        return trilinear_pool(*self.tucker_projections(v, q, a, ctx, v_t), w)

@@ -32,8 +32,9 @@ frozen (``MaskedNode`` leaves there).
   would hand it their ``count`` method, a dict its item.  m and u are
   written float32 whatever the Adamax storage.
 
-``.orbax`` checkpoints (multi-device, ROADMAP queue A item 9) and the
-reference's ``.pth`` (item 10) are not read.
+:func:`load_params_any` also reads the reference's ``model_epoch{N}.pth``
+(:mod:`vqatpu_torch.tools.import_torch`); ``.orbax`` checkpoints
+(multi-device, ROADMAP queue A item 9) are not read.
 """
 
 from __future__ import annotations
@@ -146,7 +147,18 @@ def restore_train_state(path: str, state: TrainState
     place: params, Adamax m, u and count, the update count; the
     accumulation window starts empty.  Returns ``(state, start_epoch,
     extra)``, ``extra`` carrying e.g. ``best_eval``.  A checkpoint of
-    another model or width raises ``ValueError``."""
+    another model or width raises ``ValueError``.  A reference ``.pth``
+    gives the params (imported for ``state.model``) and its epoch; the
+    optimizer starts afresh, as after :func:`make_train_state` (the
+    port's exporter writes no optimizer state)."""
+    if path.endswith(".pth"):
+        from vqatpu_torch.tools.import_torch import (convert_state_dict,
+                                                     load_torch_checkpoint)
+
+        sd, epoch = load_torch_checkpoint(path)
+        load_jax_params(state.model, convert_state_dict(sd, state.model))
+        state.grad_accum, state.accum_count = None, 0
+        return state, (-1 if epoch is None else int(epoch)) + 1, {}
     payload = load_checkpoint(path)
     saved_model = (payload.get("extra") or {}).get("model")
     try:
@@ -205,10 +217,11 @@ def save_params(path: str, params: Any) -> None:
         pickle.dump({"params": params}, f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
-def load_params_any(input_dir: str, epoch) -> Any:
-    """Eval params from ``{input_dir}/model_epoch{epoch}.ckpt``, as a
-    ``vqatpu`` param tree.  JAX's ``.orbax`` directories and the
-    reference's ``.pth`` files are not read yet."""
+def load_params_any(input_dir: str, epoch, model) -> Any:
+    """Eval params of ``model`` (a port module, for the ``.pth`` mapping)
+    as a ``vqatpu`` param tree, from ``{input_dir}/model_epoch{epoch}.ckpt``
+    or the reference's ``.pth`` (``FFOE/test.py:157-166``; ``vqatpu/train/
+    checkpoints.py:49-69``).  JAX's ``.orbax`` directories are not read."""
     ckpt = os.path.join(input_dir, f"model_epoch{epoch}.ckpt")
     if os.path.exists(ckpt):
         return load_params(ckpt)
@@ -216,9 +229,10 @@ def load_params_any(input_dir: str, epoch) -> Any:
         raise NotImplementedError(
             "orbax checkpoints are not read by the port (ROADMAP queue A "
             "item 9)")
-    if os.path.exists(os.path.join(input_dir, f"model_epoch{epoch}.pth")):
-        raise NotImplementedError(
-            "reference .pth checkpoints are not read by the port (ROADMAP "
-            "queue A item 10)")
+    pth = os.path.join(input_dir, f"model_epoch{epoch}.pth")
+    if os.path.exists(pth):
+        from vqatpu_torch.tools.import_torch import import_checkpoint
+
+        return import_checkpoint(pth, model)
     raise FileNotFoundError(
         f"no model_epoch{epoch}.{{ckpt,orbax,pth}} under {input_dir}")

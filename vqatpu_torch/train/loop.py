@@ -41,14 +41,18 @@ Where batches come from (JAX's rules and log lines, ``loop.py:47-160``):
   :class:`~vqatpu_torch.data.upload.PinnedUploader`: page-locked, double
   buffered, the upload of batch n+1 beside step n.
 
+``profile_dir`` traces steps 1 to ``min(6, n_batches - 1)`` of the first
+epoch (JAX's window, ``vqatpu/train/loop.py:377-385``) with
+``torch.profiler`` (:mod:`vqatpu_torch.train.profiling`), each step in a
+``train_step`` range, the card synchronized before the trace stops.
+
 Not ported, and so refused rather than ignored: the row-sharded store
 (``shard_feature_store``), meshes over several devices, ``tp > 1``, several
-processes and orbax checkpoints (ROADMAP queue A item 9), and
-``profile_dir`` (item 10).  An out-of-memory error of the card
-(``torch.cuda.OutOfMemoryError``) skips its batch, drops the accumulation
-window and is counted (the reference's policy, ``FFOE/trainer.py:206-219``);
-a step that fails that way may have left its update half applied, where
-JAX's functional state is untouched.
+processes and orbax checkpoints (ROADMAP queue A item 9).  An
+out-of-memory error of the card (``torch.cuda.OutOfMemoryError``) skips
+its batch, drops the accumulation window and is counted (the reference's
+policy, ``FFOE/trainer.py:206-219``); a step that fails that way may have
+left its update half applied, where JAX's functional state is untouched.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ from vqatpu_torch.eval.mc import evaluate_mc
 from vqatpu_torch.train.checkpoints import save_checkpoint
 from vqatpu_torch.train.logging import Logger, time_since
 from vqatpu_torch.train.optim import lr_for_epoch
+from vqatpu_torch.train.profiling import annotate, start_trace, stop_trace
 from vqatpu_torch.train.steps import (TrainState, make_train_state,
                                       make_train_step, wire_cast)
 
@@ -137,8 +142,7 @@ def _make_device_store(dataset, cfg: TrainConfig, logger, device,
 
 
 def _refuse_unported(cfg: TrainConfig, task: str, use_mesh: bool,
-                     num_devices: Optional[int], tp: int,
-                     profile_dir: Optional[str]) -> None:
+                     num_devices: Optional[int], tp: int) -> None:
     if task not in ("ffoe", "mc"):
         raise ValueError(f"unknown task {task!r}; expected ffoe or mc")
     if cfg.ckpt_backend != "pickle":
@@ -149,9 +153,6 @@ def _refuse_unported(cfg: TrainConfig, task: str, use_mesh: bool,
         raise NotImplementedError(
             "training on several devices (a data mesh or tp > 1) is not "
             "ported (ROADMAP queue A item 9)")
-    if profile_dir:
-        raise NotImplementedError(
-            "profile_dir is not ported (ROADMAP queue A item 10)")
     normalize_device_features(cfg.device_features)  # raises if unknown
     if cfg.shard_feature_store:
         raise NotImplementedError(
@@ -176,14 +177,15 @@ def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
     checkpoint being resumed, so that a resumed run cannot overwrite a
     better ``model_epoch_best``.  ``use_mesh`` on one device trains as
     without it."""
-    _refuse_unported(cfg, task, use_mesh, num_devices, tp, profile_dir)
+    _refuse_unported(cfg, task, use_mesh, num_devices, tp)
     os.makedirs(output, exist_ok=True)
     logger = Logger(os.path.join(output, "log.txt"))
     loaders = []  # the C++ loaders' worker threads end with the run
     try:
         return _train(model, train_ds, eval_ds, cfg, output, task, state,
                       start_epoch, tfidf_loaded, print_interval,
-                      use_native_loader, best_eval, device, logger, loaders)
+                      use_native_loader, best_eval, device, logger, loaders,
+                      profile_dir)
     finally:
         for loader in loaders:
             if hasattr(loader, "close"):
@@ -193,7 +195,7 @@ def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
 
 def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
            tfidf_loaded, print_interval, use_native_loader, best_eval,
-           device, logger, loaders) -> TrainState:
+           device, logger, loaders, profile_dir) -> TrainState:
     logger.write(f"config: {cfg}")
     if state is None:
         state = make_train_state(model, seed=cfg.seed,
@@ -240,6 +242,10 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
         print_every = max(1, print_interval // cfg.update_freq)
         n_batches = len(loader)
         micro_count = 0  # the step's accumulation count, known on the host
+        # the profiled window: steps 1 to min(6, n_batches - 1), first epoch
+        prof_steps = (range(1, min(6, n_batches - 1) + 1)
+                      if profile_dir and epoch == start_epoch else range(0))
+        prof = None
         for i, batch in enumerate(loader):
             if mc:  # candidate rows, and their ds_idx for the store
                 batch = expand_mc_batch(batch)
@@ -251,8 +257,14 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
             # the reference flushes accumulation on each epoch's last batch
             # (FFOE/train.py:78-82): windows never straddle epochs
             force = cfg.update_freq > 1 and (i == n_batches - 1)
+            if i in prof_steps and prof is None:
+                prof = start_trace(profile_dir)
             try:
-                metrics = step_fn(state, db, lr, gen, force)
+                if prof is None:
+                    metrics = step_fn(state, db, lr, gen, force)
+                else:
+                    with annotate("train_step"):
+                        metrics = step_fn(state, db, lr, gen, force)
             except torch.cuda.OutOfMemoryError:
                 num_oom += 1
                 logger.write(f"| WARNING: out of memory, skipping batch {i}")
@@ -262,6 +274,12 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
                     state.grad_accum, state.accum_count = None, 0
                     micro_count = 0
                 continue
+            finally:
+                if prof is not None and i + 1 not in prof_steps:
+                    stop_trace(prof)
+                    prof = None
+                    logger.write(f"profile of steps {prof_steps.start}-{i} "
+                                 f"written to {profile_dir}")
             micro_count += 1
             did_update = force or micro_count >= cfg.update_freq
             if did_update:

@@ -228,15 +228,6 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
         raise ValueError(f"unknown transfer_dtype {cfg.transfer_dtype!r}; "
                          f"expected one of {WIRES}")
     mcfg = model.cfg
-    if (mcfg.task == "ffoe" and mcfg.model == "cti" and mcfg.fused_v_tucker
-            and not mcfg.remat_glimpse
-            and (not cfg.deterministic or ctx_factory is not None)):
-        # JAX draws one dropout mask on v for the 1+gamma v-side tuckers
-        # (vqatpu/ops/trilinear.py:41-71); the port would draw 1+gamma
-        raise NotImplementedError(
-            "fused_v_tucker with dropout on is not ported: the port would "
-            "draw a dropout mask per v-side tucker where JAX draws one "
-            "(ROADMAP queue A item 8)")
     if cfg.mask_replay:
         raise NotImplementedError(
             "mask_replay is not ported: autograd keeps the dropout mask "

@@ -3,10 +3,12 @@
 - :func:`torch_state_from_jax` turns a ``vqatpu`` param tree (nested dicts
   with numpy leaves, the format of ``vqatpu/train/checkpoints.py``) into the
   port's ``state_dict``.  Port keys are the tree paths joined with ``.``
-  (``t_att.tc.v_net.l0.v``, ``t_net0.v_tucker.l0.g``), except the GRUs,
-  whose ``fwd.w_ih`` / ``fwd_l{n}.w_ih`` (and ``w_hh``, ``b_ih``, ``b_hh``)
-  leaves become ``nn.GRU``'s ``weight_ih_l{n}`` (...) parameters
-  (``q_emb.fwd.w_ih`` -> ``q_emb.weight_ih_l0``).
+  (``t_att.tc.v_net.l0.v``, ``t_net0.v_tucker.l0.g``), except the GRUs
+  and LSTMs, whose ``fwd.w_ih`` / ``fwd_l{n}.w_ih`` / ``bwd.w_ih`` /
+  ``bwd_l{n}.w_ih`` (and ``w_hh``, ``b_ih``, ``b_hh``) leaves become
+  ``nn.GRU``'s ``weight_ih_l{n}`` / ``weight_ih_l{n}_reverse`` (...)
+  parameters (``q_emb.fwd.w_ih`` -> ``q_emb.weight_ih_l0``,
+  ``q_emb.bwd_l1.b_hh`` -> ``q_emb.bias_hh_l1_reverse``).
 - :func:`jax_params_from_torch` is its inverse: a ``state_dict`` back to
   a ``vqatpu`` param tree with numpy leaves.
 - :func:`load_jax_params` loads such a tree strictly: a leaf left unused, a
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import collections
 import pickle
+import re
 from typing import Dict, Optional
 
 import numpy as np
@@ -50,16 +53,12 @@ def _flatten(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def _torch_key(path: str) -> str:
     *module, direction, leaf = [""] + path.split(".")
-    if leaf not in _GRU_LEAVES:
+    m = re.fullmatch(r"(fwd|bwd)(?:_l(\d+))?", direction)
+    if leaf not in _GRU_LEAVES or m is None:
         return path
-    if direction == "fwd":
-        layer = 0
-    elif direction.startswith("fwd_l"):
-        layer = int(direction[len("fwd_l"):])
-    else:
-        raise NotImplementedError(
-            f"{path}: bidirectional GRU weights are not ported yet")
-    return ".".join([*module[1:], f"{_GRU_LEAVES[leaf]}_l{layer}"])
+    suffix = f"_l{m.group(2) or 0}" + ("_reverse" if m.group(1) == "bwd"
+                                      else "")
+    return ".".join([*module[1:], _GRU_LEAVES[leaf] + suffix])
 
 
 def torch_state_from_jax(params: dict) -> Dict[str, torch.Tensor]:
@@ -73,11 +72,13 @@ _GRU_NAMES = {v: k for k, v in _GRU_LEAVES.items()}
 
 def _jax_path(key: str) -> str:
     *module, leaf = key.split(".")
-    name, _, layer = leaf.rpartition("_l")
-    if name not in _GRU_NAMES:
+    m = re.fullmatch(r"(\w+)_l(\d+)(_reverse)?", leaf)
+    if m is None or m.group(1) not in _GRU_NAMES:
         return key
-    direction = "fwd" if layer == "0" else f"fwd_l{layer}"
-    return ".".join([*module, direction, _GRU_NAMES[name]])
+    direction = "bwd" if m.group(3) else "fwd"
+    if m.group(2) != "0":
+        direction += f"_l{m.group(2)}"
+    return ".".join([*module, direction, _GRU_NAMES[m.group(1)]])
 
 
 def jax_params_from_torch(state_dict: Dict[str, torch.Tensor]) -> dict:
