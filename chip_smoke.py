@@ -192,9 +192,29 @@ at ``compute_dtype="bfloat16"``).  Then:
     ``ffoe_train --profile_dir`` on phase 9's dataroot, whose trace names
     K1's and K2's kernels and the ``train_step`` ranges.
 
+14. the offline preprocessing tools and several processes, at the same
+    full width: (a) a seeded bottom-up TSV of 200 images (10-100 boxes of
+    2048-d) and VQA question and annotation JSONs through
+    ``create_dictionary``, ``compute_softscore`` and ``feature_converter``
+    (without ``h5py`` its named ``ImportError`` asserted and the splits
+    written as ``.npz`` from its arrays), then ``ffoe_train`` for 2 epochs
+    from that dataroot; (b) ``ffoe_train --coordinator`` at world size 1
+    over NCCL against the same run without it (per-step losses within
+    1e-6) and an NCCL all-reduce on the card; in two processes on the one
+    card joined by gloo over CUDA tensors (NCCL refuses two ranks on one
+    device): (c) DDP, 3 deterministic steps of B=256 (128 rows a rank) and
+    (d) tp=2 (``d / 2`` = 512 columns a rank for K2, the attention through
+    the logits path and K3), each against one process (loss, pre-clip grad
+    norm and params within 1e-5), launches per rank, under tp the leaves
+    split and those ``fits`` leaves replicated, K2, K3 and the softmax
+    backward on the tp path's own inputs against their plain versions, and
+    K2 at ``d / 2`` timed (a row of the JSON line with a ``shape``); (e) the
+    row-sharded store at 2 ranks, its gathers bit-equal to the replicated
+    store's.  Two processes on one card check correctness, not scaling.
+
 Each path (serving at each wire and compute dtype, the logits path in
 float32 and bf16, by-id serving, training in float32 and bf16, each entry
-point call of phases 9 to 13) is driven with the launch counts set
+point call of phases 9 to 14 and each rank's steps of 14c-d) is driven with the launch counts set
 to 0 just before it and read just after; the kernels' ``launches`` in the
 JSON line are their sums.
 
@@ -2349,6 +2369,503 @@ def phase13_profile(path_counts, p9) -> None:
     assert any("tri_pool" in k for k in kernels)
 
 
+# -- 14. the preprocessing tools and several processes -----------------------
+
+P14_TRAIN_IMAGES, P14_VAL_IMAGES = 150, 50  # 14a: about 200 images
+P14_TRAIN, P14_VAL, P14_EPOCHS = 1024, 256, 2
+NCCL_TOL = 1e-6        # 14b: per-step losses, NCCL at world size 1 vs none
+P14_STEPS = 3          # 14c-d: deterministic steps at B=256
+P14_TOL = 1e-5         # 14c-d: loss, pre-clip grad norm, params vs one process
+P14_STORE_IMAGES, P14_GATHERS = 2000, 10  # 14e
+P14_TIMEOUT = 900      # seconds for the two worker processes
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase14_tools(path_counts) -> dict:
+    """(a) Item 11 end to end: a seeded bottom-up TSV of about 200 images
+    (10-100 boxes of 2048-d) and VQA question and annotation JSONs through
+    ``create_dictionary``, ``compute_softscore`` and ``feature_converter``
+    (where ``h5py`` is absent, its named ``ImportError`` is asserted and the
+    split written as ``.npz`` from the converter's own arrays), then
+    ``ffoe_train`` at full width, B=256, for 2 epochs from that dataroot
+    (the defaults: the C++ loader and the card-resident store).  -> the
+    dataroot and the CLI's arguments, for 14b."""
+    from vqatpu_torch.data.synthetic import write_bottomup_tsv, write_raw_vqa
+    from vqatpu_torch.tools import (compute_softscore, create_dictionary,
+                                    feature_converter)
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = os.path.join(tmp.name, "data_vqa")
+    os.makedirs(root)
+    rng = np.random.RandomState(14)
+    images = {"train": range(1, 1 + P14_TRAIN_IMAGES),
+              "val": range(5001, 5001 + P14_VAL_IMAGES)}
+    write_raw_vqa(root, images["train"], images["val"], P14_TRAIN, P14_VAL,
+                  seed=14)
+    tsvs = {}
+    for i, (split, ids) in enumerate(images.items()):
+        tsvs[split] = os.path.join(tmp.name, f"{split}.tsv")
+        write_bottomup_tsv(tsvs[split], [(im, int(rng.randint(10, 101)))
+                                         for im in ids], v_dim=2048, seed=i)
+    t_inputs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    create_dictionary.main(["--dataroot", root])
+    compute_softscore.main(["--dataroot", root])
+    try:
+        import h5py  # noqa: F401
+        has_h5py = True
+    except ImportError:
+        has_h5py = False
+    for split, tsv in tsvs.items():
+        if has_h5py:
+            feature_converter.main(["--split", split, "--tsv", tsv, "--out",
+                                    root])
+            continue
+        try:
+            feature_converter.main(["--split", split, "--tsv", tsv, "--out",
+                                    root])
+        except ImportError as e:
+            assert "feature_converter writes .hdf5 files and needs h5py" in str(
+                e), e
+        else:
+            raise AssertionError("feature_converter ran without h5py")
+        arrays, img_id2idx = feature_converter.adaptive_arrays([tsv])
+        np.savez(os.path.join(root, f"{split}.npz"),
+                 image_features=arrays["image_features"],
+                 spatial_features=arrays["spatial_features"],
+                 pos_boxes=arrays["pos_boxes"])
+        with open(os.path.join(root, f"{split}_imgid2idx.pkl"), "wb") as f:
+            pickle.dump(img_id2idx, f)
+    if not has_h5py:
+        print("phase 14a: h5py is absent on this machine: feature_converter "
+              "raised its named ImportError (asserted); the splits were "
+              "written as .npz from feature_converter.adaptive_arrays")
+    with open(os.path.join(root, "cache", "trainval_label2ans.pkl"), "rb") as f:
+        n_ans = len(pickle.load(f))
+    made = sorted(os.listdir(root)) + sorted(
+        os.path.join("cache", x) for x in os.listdir(os.path.join(root, "cache")))
+    print(f"phase 14a tools: inputs written in {t_inputs:.1f} s "
+          f"({sum(os.path.getsize(t) for t in tsvs.values()) / 2**20:.1f} MiB "
+          f"of TSV), the three tools ran in {time.perf_counter() - t0:.1f} s: "
+          f"{n_ans} answers kept; files {made}")
+    args = ["--model", "cti", "--dataroot", root, "--num_hid", "1024",
+            "--h_mm", "512", "--rank", "32", "--gamma", "2", "--batch_size",
+            str(TRAIN_B), "--max_boxes", str(V), "--device", "cuda",
+            "--print_interval", "1000"]
+    out = os.path.join(tmp.name, "saved_models", "tools")
+    counts, record, wall = run_train(
+        "phase 14a ffoe_train on the tools' dataroot",
+        args + ["--output", out, "--epochs", str(P14_EPOCHS)], path_counts)
+    text, losses, scores, secs = log_of(os.path.join(out, "log.txt"))
+    steps = P14_TRAIN // TRAIN_B
+    step_losses = [float(x) for r in record for x in r["losses"]]
+    print(f"phase 14a ffoe_train, {P14_EPOCHS} epochs of {steps} steps in "
+          f"{wall:.1f} s: train losses {losses}, eval scores {scores}, "
+          f"seconds an epoch {secs}; launches {counts}; log: "
+          f"{[ln for ln in text.splitlines() if 'feature store' in ln]}")
+    assert len(losses) == P14_EPOCHS and np.isfinite(step_losses).all()
+    assert len(step_losses) == P14_EPOCHS * steps
+    assert counts["fused_rank_softmax"] >= P14_EPOCHS * steps
+    assert counts["trilinear_pool"] >= 2 * P14_EPOCHS * steps
+    return {"tmp": tmp, "args": args}
+
+
+def phase14_nccl(p14, path_counts) -> None:
+    """(b) NCCL at world size 1: one epoch of ``ffoe_train`` on 14a's
+    dataroot with ``--coordinator 127.0.0.1:<free port> --num_processes 1
+    --process_id 0`` against the same run without it (per-step losses
+    within NCCL_TOL), then an all-reduce and a barrier through NCCL on the
+    card."""
+    import torch.distributed as dist
+
+    losses = {}
+    for label, extra in (("without --coordinator", []),
+                         ("NCCL, world size 1", [
+                             "--coordinator", f"127.0.0.1:{free_port()}",
+                             "--num_processes", "1", "--process_id", "0"])):
+        out = os.path.join(p14["tmp"].name, "nccl" if extra else "single")
+        counts, record, wall = run_train(
+            f"phase 14b ffoe_train {label}", p14["args"] + extra + [
+                "--output", out, "--epochs", "1"], path_counts)
+        losses[label] = np.array([float(x) for r in record
+                                  for x in r["losses"]])
+        assert not dist.is_initialized()  # the CLI ended its group
+        print(f"phase 14b ffoe_train {label}: {wall:.1f} s, per-step losses "
+              f"{losses[label].tolist()}; launches {counts}")
+    a, b = losses.values()
+    err = float(np.max(np.abs(a - b) / np.abs(a)))
+    print(f"phase 14b per-step losses, NCCL world size 1 vs one process: "
+          f"largest relative difference {err:.3e} (tol {NCCL_TOL:.0e})")
+    assert len(a) == len(b) and err <= NCCL_TOL
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.arange(4.0, device="cuda")
+        dist.all_reduce(x)
+        dist.barrier()
+        assert x.tolist() == [0.0, 1.0, 2.0, 3.0], x
+        print(f"phase 14b NCCL {torch.cuda.nccl.version()}: all_reduce and "
+              "barrier on the card at world size 1")
+    finally:
+        dist.destroy_process_group()
+
+
+def p14_batches(cfg):
+    from vqatpu_torch.weights import numpy_batch
+
+    return [numpy_batch(cfg, TRAIN_B, seed=1400 + i, boxes=V,
+                        real_boxes=REAL_BOXES, target=True)
+            for i in range(P14_STEPS)]
+
+
+def p14_run(state, mesh, batches):
+    """P14_STEPS deterministic steps (lr 1e-3) of this rank's share of each
+    global batch; -> per step (loss, pre-clip grad norm)."""
+    from vqatpu_torch.config import TrainConfig
+    from vqatpu_torch.parallel import shard_batch
+    from vqatpu_torch.train import make_train_step
+
+    step = make_train_step(state.model, TrainConfig(
+        update_freq=1, deterministic=True), mesh=mesh)
+    out = []
+    for b in batches:
+        local = shard_batch(b, mesh) if mesh is not None else b
+        m = step(state, local, 1e-3)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    return out
+
+
+def p14_param_diffs(full: dict, ref: dict) -> dict:
+    """Params against the one-process run's, leaf by leaf on the card:
+    ``stats``, the largest relative difference of the per-leaf l2 and l1
+    norms and of the sum relative to the l1 norm (phase 8's trajectory
+    measure, :func:`vqatpu_torch.weights.param_stats`), and the
+    elementwise largest difference, where it is and how many elements
+    differ by more than P14_TOL."""
+    stats, worst, n_over, n = 0.0, (0.0, ""), 0, 0
+    for k, r in ref.items():
+        g, w = full[k].double(), r.to(full[k].device).double()
+        d = (g - w).abs()
+        worst = max(worst, (float(d.max()), k))
+        n_over += int((d > P14_TOL).sum())
+        n += d.numel()
+        l1w = float(w.abs().sum())
+        for a, b in ((g.norm(), w.norm()), (g.abs().sum(), l1w)):
+            if float(b) > 0:
+                stats = max(stats, abs(float(a) - float(b)) / float(b))
+        if l1w > 0:
+            stats = max(stats, abs(float(g.sum() - w.sum())) / l1w)
+    return {"stats": stats, "max_abs": worst[0], "worst_leaf": worst[1],
+            "n_over": n_over, "n": n}
+
+
+def p14_state(cfg):
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.train import make_train_state
+    from vqatpu_torch.weights import load_jax_params, numpy_params
+
+    model = load_jax_params(build_model(cfg), numpy_params(cfg, seed=0))
+    return make_train_state(model, device="cuda")
+
+
+def phase14_worker(rank, world, port, out_dir):
+    """One of 14c-e's two processes on the one card, joined by gloo over
+    CUDA tensors (NCCL refuses two ranks on one device): writes
+    ``rank{rank}.json`` (and rank 0 the K2 inputs of the tp path)."""
+    import torch.distributed as dist
+
+    from vqatpu_torch.config import ModelConfig, TrainConfig
+    from vqatpu_torch.data.device_store import DeviceFeatureStore
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.ops import attention as ops_attention
+    from vqatpu_torch.ops import trilinear as ops_trilinear
+    from vqatpu_torch.parallel import make_mesh, make_mesh_2d, shard_batch
+    from vqatpu_torch.train.loop import put_on_mesh
+    from vqatpu_torch.train.steps import upcast_wire
+    from vqatpu_torch.weights import gather_state
+
+    res = {}
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        # gloo with CUDA tensors: all_reduce and broadcast, the two the
+        # port's gloo collectives are built from
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        y = torch.arange(4.0, device="cuda") * (rank + 1)
+        dist.broadcast(y, 0)
+        res["gloo_cuda"] = {"all_reduce": x.tolist(), "broadcast": y.tolist()}
+        if x.tolist() != [3.0] * 4 or y.tolist() != [0.0, 1.0, 2.0, 3.0]:
+            raise RuntimeError(f"gloo over CUDA tensors gave {res['gloo_cuda']}")
+        cfg = ModelConfig(**CFG)
+        batches = p14_batches(cfg)
+        ref = torch.load(os.path.join(out_dir, "ref.pt"))
+        control = torch.load(os.path.join(out_dir, "control.pt"))
+        captured = {}
+
+        def capture(name, fn):
+            def wrapped(*args):
+                captured.setdefault(name, [a.detach().clone() for a in args])
+                return fn(*args)
+            return wrapped
+
+        for label, make in (("ddp", make_mesh),
+                            ("tp", lambda: make_mesh_2d(1, 2))):
+            state = p14_state(cfg)
+            mesh = make()
+            specs = put_on_mesh(state, mesh, TrainConfig())
+            if label == "tp":
+                ops_trilinear.trilinear_pool = capture(
+                    "k2", K.trilinear_pool)
+                ops_attention.masked_softmax_vqa = capture(
+                    "k3", K.masked_softmax_vqa)
+            K.reset_launches()
+            t = time.perf_counter()
+            metrics = p14_run(state, mesh, batches)
+            wall = time.perf_counter() - t
+            counts = dict(K.launches)
+            ops_trilinear.trilinear_pool = K.trilinear_pool
+            ops_attention.masked_softmax_vqa = K.masked_softmax_vqa
+            full = gather_state({n: p.detach() for n, p in
+                                 state.model.named_parameters()}, mesh, specs)
+            res[label] = {"metrics": metrics, "launches": counts,
+                          "params": p14_param_diffs(full, ref),
+                          "vs_control": p14_param_diffs(full, control),
+                          "seconds": wall,
+                          "split": sorted(k for k, d in specs.items()
+                                          if d is not None),
+                          "local_rows": int(shard_batch(batches[0], mesh)[
+                              "v"].shape[0])}
+            del state, full
+            torch.cuda.empty_cache()
+        # the tp path's kernels against their plain versions, on its inputs
+        vt, qt, at, w = captured["k2"]
+        got, want = K.trilinear_pool(vt, qt, at, w), K.trilinear_pool_ref(
+            vt, qt, at, w)
+        logits, mask = captured["k3"]
+        att, att_ref = (K.masked_softmax_vqa(logits, mask),
+                        K.masked_softmax_vqa_ref(logits, mask))
+        g = torch.randn(att.shape, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(14))
+        res["tp_kernels"] = {
+            "k2_shape": list(vt.shape), "k3_shape": list(logits.shape),
+            "k2_err": float((got - want).abs().max()),
+            "k2_scale": float(want.abs().max()),
+            "k3_err": float((att - att_ref).abs().max()),
+            "bwd_err": float((K.softmax_vqa_backward(att_ref, g)
+                              - K.softmax_vqa_backward_ref(att_ref, g)).abs().max())}
+        if rank == 0:
+            torch.save({"vt": vt, "qt": qt, "at": at, "w": w},
+                       os.path.join(out_dir, "k2_tp_inputs.pt"))
+        del captured, vt, qt, at, w, logits, att, att_ref, got, want, g
+        torch.cuda.empty_cache()
+        # 14e: the row-sharded store against the replicated one
+        from vqatpu_torch.data.features import FeatureStore  # noqa: F401
+
+        mesh = make_mesh()
+        ds = StoreSet(seeded_store(P14_STORE_IMAGES, 2048, 1414, int8=False),
+                      np.arange(P14_STORE_IMAGES), V)
+        rs = np.random.RandomState(1415)
+        store_res = {}
+        for wire in ("float32", "int8"):
+            rep = DeviceFeatureStore.build(ds, transfer_dtype=wire)
+            sh = DeviceFeatureStore.build(ds, transfer_dtype=wire, shard=True,
+                                          mesh=mesh)
+            equal, t_sh = 0, 0.0
+            for _ in range(P14_GATHERS):
+                idx = rs.randint(0, len(ds), TRAIN_B)
+                local = shard_batch({"i": idx}, mesh)["i"]
+                want = upcast_wire(rep.gather(local))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = sh.gather(local)
+                torch.cuda.synchronize()
+                t_sh += time.perf_counter() - t
+                equal += all(torch.equal(got[k], want[k])
+                             for k in ("v", "b", "v_mask"))
+            store_res[wire] = {"equal": equal, "rows": int(rep.feats.shape[0]),
+                               "local_rows": int(sh.feats.shape[0]),
+                               "describe": sh.describe(),
+                               "gather_ms": t_sh / P14_GATHERS * 1e3}
+            del rep, sh
+            torch.cuda.empty_cache()
+        res["store"] = store_res
+    except BaseException:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+        raise
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def p14_params_line(d: dict) -> str:
+    return (f"params' per-leaf norms and sums within {d['stats']:.3e}; "
+            f"elementwise largest difference {d['max_abs']:.3e} "
+            f"({d['worst_leaf']}), {d['n_over']} of {d['n']} elements over "
+            f"{P14_TOL:.0e}")
+
+
+def phase14_parallel(path_counts) -> dict:
+    """(c) DDP, (d) tp=2 and (e) the row-sharded store in two processes on
+    the one card (:func:`phase14_worker`), against one process: the same
+    P14_STEPS deterministic steps of B=256 (c: 128 rows a rank) from
+    ``numpy_params(cfg, 0)``; loss and pre-clip grad norm within P14_TOL
+    relative.  The params after them: Adamax's first updates are about
+    ``lr * sign(g)``, so a gradient element that a float32 sum in another
+    order brings near zero from the other side moves by up to ``2 lr``.
+    The control shows it: one process, each batch as two microbatches of
+    128 rows.  DDP's params must equal the control's within P14_TOL
+    elementwise (it sums the same halves); tp's per-leaf norms and sums
+    (phase 8's measure) must be as close to the one-pass run's as the
+    control's are, within twice their difference or P14_TOL; every
+    difference is printed.  K1, K2, K3 launches per rank; under tp K1 none, K2 at ``d / 2`` and K3 with the softmax
+    backward held to their plain versions on the path's own inputs, and the
+    leaves split and left replicated by ``fits``; the sharded store's
+    gathers bit-equal to the replicated one's.  -> the tp path's K2
+    inputs."""
+    from vqatpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(**CFG)
+    tmp = tempfile.TemporaryDirectory()
+    state = p14_state(cfg)
+    t = time.perf_counter()
+    want = p14_run(state, None, p14_batches(cfg))
+    one_s = time.perf_counter() - t
+    ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
+    torch.save(ref, os.path.join(tmp.name, "ref.pt"))
+    del state
+    # the control: one process, each batch as two microbatches of 128 rows
+    # (update_freq 2), the gradients summed in another order as DDP's are
+    from vqatpu_torch.config import TrainConfig
+    from vqatpu_torch.train import make_train_step
+
+    state = p14_state(cfg)
+    step = make_train_step(state.model, TrainConfig(update_freq=2,
+                                                    deterministic=True))
+    for b in p14_batches(cfg):
+        for i in range(2):
+            step(state, {k: x[i * TRAIN_B // 2:(i + 1) * TRAIN_B // 2]
+                         for k, x in b.items()}, 1e-3, None, i == 1)
+    control_params = {n: p.detach() for n, p in
+                      state.model.named_parameters()}
+    control = p14_param_diffs(control_params, ref)
+    torch.save({n: p.cpu() for n, p in control_params.items()},
+               os.path.join(tmp.name, "control.pt"))
+    del state, ref, control_params
+    torch.cuda.empty_cache()
+    print(f"phase 14c-d one process: {P14_STEPS} steps of B={TRAIN_B} in "
+          f"{one_s:.2f} s, (loss, grad norm) {want}; the control (each batch "
+          f"as two microbatches of {TRAIN_B // 2}, one process) against it: "
+          f"{p14_params_line(control)}")
+    ctx = torch.multiprocessing.get_context("spawn")
+    port = free_port()
+    t = time.perf_counter()
+    procs = [ctx.Process(target=phase14_worker, args=(r, 2, port, tmp.name))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(P14_TIMEOUT)
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results = []
+    for r in range(2):
+        path = os.path.join(tmp.name, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path) else {})
+    for r, res in enumerate(results):
+        if "gloo_cuda" in res:
+            print(f"phase 14c rank {r}: gloo over CUDA tensors: {res['gloo_cuda']}")
+        if "error" in res:
+            print(f"phase 14 worker rank {r} failed:\n{res['error']}")
+    assert not hung, f"phase 14 workers {hung} did not end in {P14_TIMEOUT} s"
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    print(f"phase 14c-e: two processes on the card in "
+          f"{time.perf_counter() - t:.1f} s")
+    for label, tag in (("ddp", "14c DDP, 2 ranks"), ("tp", "14d tp=2")):
+        for r, res in enumerate(results):
+            got = res[label]
+            loss_err = max(abs(g[0] - w[0]) / abs(w[0])
+                           for g, w in zip(got["metrics"], want))
+            norm_err = max(abs(g[1] - w[1]) / abs(w[1])
+                           for g, w in zip(got["metrics"], want))
+            c = got["launches"]
+            path_counts[f"phase {tag} rank {r}"] = c
+            print(f"phase {tag} rank {r}: {got['local_rows']} rows a step, "
+                  f"{P14_STEPS} steps in {got['seconds']:.2f} s; largest "
+                  f"relative difference from one process: loss {loss_err:.3e}, "
+                  f"pre-clip grad norm {norm_err:.3e} (tol {P14_TOL:.0e}); "
+                  f"after {P14_STEPS} updates the "
+                  f"{p14_params_line(got['params'])}; launches K1 "
+                  f"{c['fused_rank_softmax']}, K2 "
+                  f"{c['trilinear_pool']}, K3 {c['masked_softmax_vqa']}, "
+                  f"softmax backward {c['softmax_vqa_backward']}")
+            assert max(loss_err, norm_err) <= P14_TOL, got
+            if label == "ddp":
+                # DDP sums each step's two halves as the control does
+                print(f"phase {tag} rank {r} against the control: "
+                      f"{p14_params_line(got['vs_control'])}")
+                assert got["vs_control"]["max_abs"] <= P14_TOL, got
+            else:
+                # tp sums in other orders again: held to the drift that
+                # the control's reordering gives on one process
+                assert got["params"]["stats"] <= max(
+                    P14_TOL, 2 * control["stats"]), (got, control)
+            if label == "ddp":
+                assert got["local_rows"] == TRAIN_B // 2 and not got["split"]
+                assert (c["fused_rank_softmax"], c["trilinear_pool"],
+                        c["masked_softmax_vqa"]) == (P14_STEPS,
+                                                     2 * P14_STEPS, 0), c
+            else:
+                assert got["local_rows"] == TRAIN_B
+                assert (c["fused_rank_softmax"], c["trilinear_pool"],
+                        c["masked_softmax_vqa"],
+                        c["softmax_vqa_backward"]) == (
+                    0, 2 * P14_STEPS, P14_STEPS, P14_STEPS), c
+    split = results[0]["tp"]["split"]
+    replicated_by_fits = [k for k in ("classifier.l2.v", "classifier.l2.b")
+                          if k not in split]
+    print(f"phase 14d split over the model axis ({len(split)} leaves): "
+          f"{split}; left replicated by fits (3129 answers, odd): "
+          f"{replicated_by_fits}")
+    assert replicated_by_fits == ["classifier.l2.v", "classifier.l2.b"]
+    for r, res in enumerate(results):
+        k = res["tp_kernels"]
+        print(f"phase 14d rank {r} kernels on the tp path's inputs against "
+              f"their plain versions: K2 at {k['k2_shape']} (d / 2) "
+              f"{k['k2_err']:.3e} (tol {K2_REL_TOL * k['k2_scale']:.3e}), K3 "
+              f"at {k['k3_shape']} {k['k3_err']:.3e}, softmax backward "
+              f"{k['bwd_err']:.3e} (tol {K3_TOL:.0e})")
+        assert k["k2_shape"] == [TRAIN_B, V, CFG["h_mm"]]  # d / 2 = 512
+        assert k["k2_err"] <= K2_REL_TOL * k["k2_scale"]
+        assert max(k["k3_err"], k["bwd_err"]) <= K3_TOL
+        for wire, s in res["store"].items():
+            print(f"phase 14e rank {r}, {wire} wire: {s['describe']} of "
+                  f"{s['rows']} rows; {s['equal']} of {P14_GATHERS} gathers "
+                  f"of {TRAIN_B // 2} rows bit-equal to the replicated "
+                  f"store's; {s['gather_ms']:.2f} ms a sharded gather (host "
+                  "clock, gloo)")
+            assert s["equal"] == P14_GATHERS
+            assert s["local_rows"] == -(-s["rows"] // 2)
+    k2 = torch.load(os.path.join(tmp.name, "k2_tp_inputs.pt"))
+    tmp.cleanup()
+    return {**k2, "err": max(r["tp_kernels"]["k2_err"] for r in results)}
+
+
 def sass_hmma(lib: Path) -> dict:
     """Each kernel of the built library ``lib`` and its number of HMMA
     (tensor-core) instructions, from ``cuobjdump -sass``."""
@@ -3904,6 +4421,23 @@ def main() -> int:
     phase13_encoders(cfg)
     phase13_profile(path_counts, p9)
     p9["tmp"].cleanup()
+
+    # -- 14. the preprocessing tools, NCCL, DDP, tp and the sharded store --
+    p14 = phase14_tools(path_counts)
+    phase14_nccl(p14, path_counts)
+    p14["tmp"].cleanup()
+    k2 = phase14_parallel(path_counts)
+    flush = torch.empty(128 * 2**20 // 4, device=dev)  # > the 50 MB L2
+    shape = f"tp=2, one rank's d / 2 = {CFG['h_mm']}, B={TRAIN_B}"
+    args = (k2["vt"], k2["qt"], k2["at"], k2["w"])
+    with torch.inference_mode():
+        rows.append(dict(timed(
+            "trilinear_pool", shape,
+            (K.trilinear_pool, K.trilinear_pool_ref, K.trilinear_pool_ref),
+            args, *k2_cost(*args),
+            row=("tri_pool.cu", "vqatpu/kernels/trilinear.py:369",
+                 k2["err"])), shape=shape))
+    del flush, k2, args
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

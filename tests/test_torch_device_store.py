@@ -224,9 +224,24 @@ def test_capability_and_tristate(roots, monkeypatch):
 
 
 def test_sharded_store_is_refused(roots):
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        DeviceFeatureStore.build(load(roots[1], "train", True), shard=True,
-                                 device="cpu")
+    """No longer refused: without a mesh ``shard=True`` builds the row-sharded
+    store over one rank (all the rows), whose float32 gathers equal the
+    replicated store's after the step's upcast, bit for bit, on every wire
+    (tests/test_torch_parallel.py shards over two processes)."""
+    from vqatpu_torch.train.steps import upcast_wire
+
+    ds = load(roots[1], "train", True)
+    idx = np.array([0, 3, -1, len(ds) - 1])
+    for wire in WIRES:
+        rep = DeviceFeatureStore.build(ds, transfer_dtype=wire, device="cpu")
+        sh = DeviceFeatureStore.build(ds, transfer_dtype=wire, shard=True,
+                                      device="cpu")
+        assert sh.sharded and not rep.sharded
+        assert "sharded, rank 0 of 1" in sh.describe()
+        got, want = sh.gather(idx), upcast_wire(rep.gather(idx))
+        assert set(got) == {"v", "b", "v_mask"}
+        for k in got:
+            assert torch.equal(got[k], want[k]), (wire, k)
 
 
 def test_sparse_targets(roots):

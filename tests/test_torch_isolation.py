@@ -38,6 +38,9 @@ import vqatpu_torch.ops.bilinear, vqatpu_torch.ops.counter
 import vqatpu_torch.tools.import_torch, vqatpu_torch.tools.export_torch
 import vqatpu_torch.tools.create_embedding, vqatpu_torch.train.profiling
 import vqatpu_torch.kernels.blockwise, vqatpu_torch.ops.tensor
+import vqatpu_torch.parallel, vqatpu_torch.parallel.distributed
+import vqatpu_torch.tools.create_dictionary, vqatpu_torch.tools.compute_softscore
+import vqatpu_torch.tools.feature_converter
 from vqatpu_torch.models import build_model
 from vqatpu_torch.weights import load_jax_params, numpy_batch, numpy_params
 from vqatpu_torch.train.checkpoints import restore_train_state
@@ -116,7 +119,14 @@ def test_port_runs_without_jax_or_vqatpu(tmp_path):
     assert "vqatpu_torch.weights" in modules
     assert {"vqatpu_torch.ops.bilinear", "vqatpu_torch.ops.counter",
             "vqatpu_torch.tools.import_torch", "vqatpu_torch.train.profiling",
-            "vqatpu_torch.kernels.blockwise"} <= set(modules)
+            "vqatpu_torch.kernels.blockwise", "vqatpu_torch.parallel.sharding",
+            "vqatpu_torch.parallel.collectives",
+            "vqatpu_torch.parallel.distributed",
+            "vqatpu_torch.tools.create_dictionary",
+            "vqatpu_torch.tools.compute_softscore",
+            "vqatpu_torch.tools.feature_converter"} <= set(modules)
+    # the converter imports h5py only when it writes
+    assert "h5py" not in modules
     assert [m for m in modules if _is_forbidden(m)] == []
     # the port's own runtime is loaded, never the JAX package's
     libs = json.loads(proc.stdout.splitlines()[-2])
@@ -178,17 +188,25 @@ def test_entry_points_default_to_cuda(cli):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("tool", ["create_embedding", "export_torch"])
+HOST_TOOLS = ("export_torch", "create_dictionary", "compute_softscore",
+              "feature_converter")
+
+
+@pytest.mark.parametrize("tool", ["create_embedding", *HOST_TOOLS])
 def test_tool_entry_points_default_to_cuda(tool):
     """The answer-embedding tool encodes (GRU and BERT) on ``--device
-    cuda`` unless told otherwise; the ``.pth`` exporter is a host-only file conversion and
-    takes no ``--device``."""
+    cuda`` unless told otherwise; the ``.pth`` exporter and the offline
+    preprocessing tools are host-only file conversions and take no
+    ``--device`` (the preprocessing tools import no torch either)."""
     import importlib
     import inspect
 
     mod = importlib.import_module(f"vqatpu_torch.tools.{tool}")
-    if tool == "export_torch":
-        assert "--device" not in inspect.getsource(mod)
+    if tool in HOST_TOOLS:
+        source = inspect.getsource(mod)
+        assert "--device" not in source
+        if tool != "export_torch":
+            assert "import torch" not in source
         return
     assert "--device" in inspect.getsource(mod.main)
     for fn in (mod.create_answer_embedding, mod.create_bert_embedding,
@@ -214,3 +232,19 @@ def test_create_embedding_main_passes_its_device(monkeypatch, kind, fn,
                         lambda *a, **k: seen.update(k) or "out")
     create_embedding.main(["--kind", kind, *argv])
     assert seen["device"] == device
+
+
+def test_parallel_defaults_to_cuda():
+    """Several processes join over NCCL, on CUDA, unless the caller asks for
+    gloo (the CPU); the train CLIs ask for it with ``--device cpu`` only."""
+    import inspect
+
+    from vqatpu_torch.cli import common
+    from vqatpu_torch.parallel import distributed
+
+    sig = inspect.signature(distributed.init_distributed)
+    assert sig.parameters["cpu_gloo"].default is False
+    assert 'cpu_gloo=args.device == "cpu"' in inspect.getsource(
+        common.maybe_init_distributed)
+    for fn in (distributed.local_batch_slice, distributed.replicate_tree_global):
+        assert "device" not in inspect.signature(fn).parameters

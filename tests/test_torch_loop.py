@@ -343,11 +343,32 @@ def test_out_of_memory_step_is_skipped_and_counted(roots, tmp_path,
 
 @pytest.mark.parametrize("option", ["orbax", "tp", "num_devices", "shard"])
 def test_unported_loop_options_raise(roots, tmp_path, option):
-    kw = {"orbax": dict(cfg=dict(ckpt_backend="orbax")), "tp": dict(tp=2),
-          "num_devices": dict(num_devices=2),
-          "shard": dict(cfg=dict(shard_feature_store=True))}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-        port_loop(roots, str(tmp_path / "x"), 1, **kw)
+    """orbax checkpoints stay refused (they are JAX's).  The several-device
+    options run where they can (tests/test_torch_parallel.py runs them
+    over several processes): in this one process ``tp=2`` and
+    ``num_devices=2`` raise, naming the one-process-a-device rule, and the
+    row-sharded store trains over this process's one-rank data axis to
+    the replicated store's params, bit for bit."""
+    if option == "orbax":
+        with pytest.raises(NotImplementedError, match="orbax checkpoints "
+                           "are JAX's"):
+            port_loop(roots, str(tmp_path / "x"), 1,
+                      cfg=dict(ckpt_backend="orbax"))
+    elif option in ("tp", "num_devices"):
+        with pytest.raises(ValueError, match="process"):
+            port_loop(roots, str(tmp_path / "x"), 1, **{option: 2})
+    else:
+        runs = {}
+        for shard in (False, True):
+            out = str(tmp_path / f"shard{shard}")
+            state, *_ = port_loop(roots, out, 1, cfg=dict(
+                device_features="on", shard_feature_store=shard))
+            runs[shard] = state.model.state_dict()
+            line = [ln for ln in open(os.path.join(out, "log.txt"))
+                    if ln.startswith("device feature store: ")]
+            assert line and (("sharded, rank 0 of 1" in line[0]) == shard)
+        for k, v in runs[False].items():
+            assert torch.equal(runs[True][k], v), k
 
 
 def test_eval_and_export_match_jax(roots, tmp_path):

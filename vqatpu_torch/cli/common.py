@@ -6,9 +6,13 @@ with ``--device`` (default ``cuda``) for the device to run on.
 Every flag of the JAX CLI is accepted.  A flag that only a JAX backend
 gives meaning to (``--rng_impl``, ``--kernel_backend``,
 ``--compilation_cache_dir``) says so in its help and selects nothing here;
-a flag whose machinery is not ported yet refuses the values that would
-change what runs (``--coordinator``, ``--tp``, ``--num_devices`` > 1,
-``--shard_feature_store``, ``--ckpt_backend orbax``, ``--mask_replay``).
+``--ckpt_backend orbax`` (JAX's format) and ``--mask_replay`` are refused.
+Several devices run one process each: ``--coordinator host:port
+--num_processes N --process_id i`` join them
+(:func:`maybe_init_distributed`; NCCL, or gloo with ``--device cpu``),
+``--num_devices`` (N where given) and ``--tp`` shape the mesh, and
+``--shard_feature_store`` row-shards the card's feature tables over its
+data axis (:mod:`vqatpu_torch.parallel`).
 ``--v_block_size``, ``--remat`` and ``--fused_v_tucker`` select CTI's
 blockwise, rematerialized and fused paths, as in JAX, and ``--profile_dir``
 traces early training steps with ``torch.profiler``.  The free-form models
@@ -74,26 +78,25 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="device to run on; cpu runs the kernels' plain "
                              "PyTorch versions")
     parser.add_argument("--num_devices", type=int, default=None,
-                        help="limit the data-parallel mesh size (the port "
-                             "trains on one device: more is ROADMAP queue A "
-                             "item 9)")
+                        help="the mesh size: the number of processes, one "
+                             "a device (the default)")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel (model-axis) size: trains on a "
                              "2-D data x model mesh sharding the classifier "
                              "vocab, the PARALIND rank, and the t_net "
-                             "tuckers (Megatron column/row pairing); not "
-                             "ported: ROADMAP queue A item 9")
+                             "tuckers (Megatron column/row pairing)")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help="multi-host: coordinator address host:port "
-                             "(one process per host); not ported: ROADMAP "
-                             "queue A item 9")
+                        help="several processes, one a device: the "
+                             "rendezvous address host:port (rank 0 serves "
+                             "it; torch.distributed, NCCL on cuda, gloo on "
+                             "cpu)")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="multi-host: total process count")
+                        help="several processes: their number (the world "
+                             "size, one a device)")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="multi-host: this process's id")
+                        help="several processes: this one's global rank")
     parser.add_argument("--no_mesh", action="store_true",
-                        help="run single-device (no data mesh; the port "
-                             "always does)")
+                        help="run single-device (no data mesh)")
     parser.add_argument("--native_loader", action="store_true", default=True,
                         help="use the C++ prefetch data loader (the "
                              "default; it yields the Python loader's "
@@ -129,9 +132,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--shard_feature_store", action="store_true",
                         default=False,
                         help="row-shard the card's feature tables across "
-                             "the mesh's data axis; implies "
-                             "--device_features (not ported, ROADMAP queue A "
-                             "item 9: raises)")
+                             "the mesh's data axis (stores bigger than one "
+                             "card); implies --device_features")
     parser.add_argument("--sparse_targets", action="store_true",
                         default=False,
                         help="with --device_features: ship targets as "
@@ -148,8 +150,9 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "its CUDA kernels (JAX's pallas backend)")
     parser.add_argument("--ckpt_backend", type=str, default="pickle",
                         choices=["pickle", "orbax"],
-                        help="checkpoint format (orbax = sharded/multi-host, "
-                             "not ported: ROADMAP queue A item 9)")
+                        help="checkpoint format (orbax is the JAX "
+                             "package's and is refused: rank 0 writes the "
+                             "whole state as .ckpt)")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--skip_nonfinite", action="store_true", default=False,
@@ -210,10 +213,28 @@ def validate_args(args) -> None:
             "error: --quantize_store and --stream_features are mutually "
             "exclusive (--quantize_store IS the low-RAM mode: int8-resident "
             "features, 4x less RAM than f32)")
-    if getattr(args, "coordinator", None):
-        raise NotImplementedError(
-            "multi-process training (--coordinator) is not ported (ROADMAP "
-            "queue A item 9)")
+
+
+def maybe_init_distributed(args) -> bool:
+    """Join the process group where ``--coordinator`` is given (the train
+    CLIs call it first); -> True where it did, and the caller ends the
+    group when it is done."""
+    if not getattr(args, "coordinator", None):
+        return False
+    from vqatpu_torch.parallel.distributed import init_distributed
+
+    assert args.num_processes and args.process_id is not None, \
+        "--coordinator needs --num_processes and --process_id"
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     cpu_gloo=args.device == "cpu")
+    return True
+
+
+def end_distributed(started: bool) -> None:
+    if started:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 def model_config_from_args(args, dataset, task: str = "ffoe") -> ModelConfig:

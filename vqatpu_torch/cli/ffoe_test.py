@@ -53,10 +53,6 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     validate_args(args)
-    if args.shard_feature_store:
-        raise NotImplementedError(
-            "the row-sharded device feature store (--shard_feature_store) "
-            "spans several devices: not ported (ROADMAP queue A item 9)")
     dataroot = args.TDIUC_dir if args.use_TDIUC else args.dataroot
     dictionary = Dictionary.load_from_file(os.path.join(dataroot, "dictionary.pkl"))
     ds_cls = TDIUCFeatureDataset if args.use_TDIUC else VQAFeatureDataset
@@ -74,7 +70,8 @@ def main(argv=None):
     # v/b there; the logits are the wire path's
     dev_store = None
     build, why = devstore_decision(eval_dset, args.device_features,
-                                   args.transfer_dtype, device=args.device)
+                                   args.transfer_dtype, device=args.device,
+                                   shard=args.shard_feature_store)
     if build:
         dev_store = DeviceFeatureStore.build(
             eval_dset, transfer_dtype=args.transfer_dtype, device=args.device)

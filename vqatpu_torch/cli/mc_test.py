@@ -44,10 +44,6 @@ def main(argv=None) -> float:
     """-> the split's accuracy (a fraction), as printed in percent."""
     args = parse_args(argv)
     validate_args(args)
-    if args.shard_feature_store:
-        raise NotImplementedError(
-            "the row-sharded device feature store (--shard_feature_store) "
-            "spans several devices: not ported (ROADMAP queue A item 9)")
     dictionary = Dictionary.load_from_file(
         os.path.join(args.dataroot, "dictionary.pkl"))
     eval_dset = V7WDataset(args.split, dictionary, dataroot=args.dataroot,
@@ -64,6 +60,7 @@ def main(argv=None) -> float:
     dev_store = None
     build, why = devstore_decision(eval_dset, args.device_features,
                                    args.transfer_dtype, task="mc",
+                                   shard=args.shard_feature_store,
                                    device=args.device)
     if build:
         dev_store = DeviceFeatureStore.build(

@@ -19,12 +19,15 @@ from __future__ import annotations
 import argparse
 import os
 
-from vqatpu_torch.cli.common import (add_common_args, model_config_from_args,
+from vqatpu_torch.cli.common import (add_common_args, end_distributed,
+                                     maybe_init_distributed,
+                                     model_config_from_args,
                                      train_config_from_args, validate_args)
 from vqatpu_torch.data.dictionary import Dictionary
 from vqatpu_torch.data.mc_dataset import V7WDataset
 from vqatpu_torch.data.tfidf import tfidf_loading
 from vqatpu_torch.models import build_model
+from vqatpu_torch.parallel.distributed import process_index
 from vqatpu_torch.train.checkpoints import restore_train_state
 from vqatpu_torch.train.loop import train
 from vqatpu_torch.train.steps import make_train_state
@@ -43,6 +46,14 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     validate_args(args)
+    started = maybe_init_distributed(args)
+    try:
+        return _main(args)
+    finally:
+        end_distributed(started)
+
+
+def _main(args):
     dataroot = args.dataroot
     dictionary = Dictionary.load_from_file(
         os.path.join(dataroot, "dictionary.pkl"))
@@ -60,7 +71,9 @@ def main(argv=None):
     state = make_train_state(model, seed=args.seed, tfidf_loaded=tfidf,
                              optim_state_dtype=tcfg.optim_state_dtype,
                              device=args.device)
-    if tfidf:
+    # on a mesh of several processes only rank 0 builds the tables (and
+    # writes their cache): the loop gives every process rank 0's weights
+    if tfidf and (args.no_mesh or process_index() == 0):
         for key in ("w_emb", "wa_emb"):
             if hasattr(model, key):
                 tfidf_loading(getattr(model, key), dataroot, dictionary,

@@ -75,9 +75,9 @@ class TrainConfig:
     and nothing here.  The epoch loop (:func:`vqatpu_torch.train.loop.
     train`) reads the rest: ``device_features`` (``"auto"``, ``"on"``,
     ``"off"``) decides whether the features go to the card
-    (:mod:`vqatpu_torch.data.device_store`, with ``sparse_targets``), while
-    ``shard_feature_store`` and ``ckpt_backend="orbax"`` (ROADMAP queue A
-    item 9) raise.  ``compute_dtype`` (float32 or bfloat16) and
+    (:mod:`vqatpu_torch.data.device_store`, with ``sparse_targets``;
+    ``shard_feature_store`` row-shards it over the mesh's data axis), while
+    ``ckpt_backend="orbax"`` (JAX's format) raises.  ``compute_dtype`` (float32 or bfloat16) and
     ``transfer_dtype`` (float32, float16, bfloat16 or int8) are ported.  ``distillation``
     applies to BAN and SAN only (``vqatpu/train/steps.py:208``), so the CTI
     step ignores it, as JAX's does.  ``mask_replay`` (not ported: autograd

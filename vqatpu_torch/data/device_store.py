@@ -24,9 +24,18 @@ give by-id serving its tables (:class:`vqatpu_torch.serve.
 ResidentFeatures`).  The decision helpers follow JAX's: ``auto`` builds the
 store where the dataset can take it and its estimated size fits the
 budget, half the card's free memory (``VQATPU_DEVSTORE_BUDGET_MB``
-overrides it; 4 GiB on a CPU device).  The row-sharded store
-(``shard=True``) spans several devices and is not ported (ROADMAP queue A
-item 9).
+overrides it; 4 GiB on a CPU device).
+
+The row-sharded store (``shard=True``, ``vqatpu/data/device_store.py:
+340-366, 429-470``) is for tables larger than one card: each rank of the
+mesh's data axis holds ``t_local = ceil(T / n)`` consecutive rows of the
+tables (the sentinel among them, the last rank's padded with zero rows).
+Each gather all-gathers the ranks' index slabs, gathers and dequantizes to
+float32 the rows it owns, zeroes the others, and a reduce-scatter over the
+batch axis hands each rank its own rows.  Every row is owned by exactly
+one rank and the others add exact zeros, so ``v`` and ``b`` equal the
+replicated store's after the step's upcast, bit for bit; they come out
+float32, with no ``v_scale``, as JAX's do.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 
 from vqatpu_torch.data.native import dataset_members
 from vqatpu_torch.data.upload import PinnedUploader
+from vqatpu_torch.parallel.collectives import Group
 from vqatpu_torch.train.steps import wire_cast
 
 # box rows cast or quantized at a time while a store is built, so that no
@@ -227,19 +237,24 @@ class DeviceFeatureStore:
 
     def __init__(self, feats: torch.Tensor, scales: Optional[torch.Tensor],
                  spats: torch.Tensor, rows_table: np.ndarray,
-                 sample_img: np.ndarray, sentinel: int):
-        self.feats = feats           # [T + 1, v_dim] on the card
-        self.scales = scales         # [T + 1] float32, or None
-        self.spats = spats           # [T + 1, s_dim]
+                 sample_img: np.ndarray, sentinel: int, group=None):
+        self.feats = feats           # [T + 1, v_dim] on the card (sharded:
+        self.scales = scales         # [T + 1] float32, or None   this rank's
+        self.spats = spats           # [T + 1, s_dim]          t_local rows)
         self.rows_table = rows_table  # host [n_images_total, max_boxes]
         self.sample_img = sample_img  # host [n_samples] -> rows_table row
         self.sentinel = int(sentinel)
+        self.group = group  # the data axis of a sharded store, else None
         self.device = feats.device
         self._upload = PinnedUploader(self.device)
 
+    @property
+    def sharded(self) -> bool:
+        return self.group is not None
+
     @classmethod
     def build(cls, dataset, transfer_dtype: str = "float32", device="cuda",
-              shard: bool = False) -> "DeviceFeatureStore":
+              shard: bool = False, mesh=None) -> "DeviceFeatureStore":
         """Put the dataset's store(s) on ``device`` as gather tables, in the
         wire's dtypes (``train.steps.wire_cast``), so that gathered batches
         are the host-shipped ones bit for bit:
@@ -254,11 +269,9 @@ class DeviceFeatureStore:
           (``--quantize_store``): then the rows stay int8 and the step
           dequantizes them on the card (the same ``q * s`` product).
 
-        The tables are filled ``BUILD_CHUNK_ROWS`` rows at a time."""
-        if shard:
-            raise NotImplementedError(
-                "the row-sharded device feature store spans several devices: "
-                "not ported (ROADMAP queue A item 9)")
+        The tables are filled ``BUILD_CHUNK_ROWS`` rows at a time.
+        ``shard``: this rank's rows only, over ``mesh``'s data axis (one
+        rank without a mesh; see the module docstring)."""
         if transfer_dtype not in ("float32", "float16", "bfloat16", "int8"):
             raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}")
         device = torch.device(device)
@@ -274,25 +287,34 @@ class DeviceFeatureStore:
         n_rows = sum(f[0].shape[0] for f in flats)
         v_dim, s_dim = flats[0][0].shape[1], flats[0][2].shape[1]
         sentinel = n_rows  # the all-zero row after the last store's rows
+        group = None
+        if shard:
+            group = (mesh.data if mesh is not None
+                     else Group(None, [0], 0, None))
+        n_dev = 1 if group is None else group.size
+        t_local = -(-(n_rows + 1) // n_dev)  # this rank's rows
+        base = 0 if group is None else group.index * t_local
         # b's dtype follows the wire alone: float16 under int8, untouched
         # under float32 (also when the resident v stays int8)
         spat_dtype = "float16" if transfer_dtype == "int8" else transfer_dtype
-        spats = torch.zeros((n_rows + 1, s_dim),
+        spats = torch.zeros((t_local, s_dim),
                             dtype=_TORCH_DTYPES[spat_dtype], device=device)
         if want_int8:
-            feats = torch.zeros((n_rows + 1, v_dim), dtype=torch.int8,
+            feats = torch.zeros((t_local, v_dim), dtype=torch.int8,
                                 device=device)
-            scales = torch.ones((n_rows + 1,), dtype=torch.float32,
+            scales = torch.ones((t_local,), dtype=torch.float32,
                                 device=device)
         else:
-            feats = torch.zeros((n_rows + 1, v_dim),
+            feats = torch.zeros((t_local, v_dim),
                                 dtype=_TORCH_DTYPES[transfer_dtype],
                                 device=device)
             scales = None
-        off = 0
+        off = -base  # a store's first row, in this rank's table
         for flat_f, sc, flat_sp in flats:
-            for lo in range(0, flat_f.shape[0], BUILD_CHUNK_ROWS):
-                hi = min(flat_f.shape[0], lo + BUILD_CHUNK_ROWS)
+            rows = flat_f.shape[0]
+            for lo in range(max(0, -off), min(rows, t_local - off),
+                            BUILD_CHUNK_ROWS):
+                hi = min(rows, t_local - off, lo + BUILD_CHUNK_ROWS)
                 chunk = {"v": flat_f[lo:hi], "b": flat_sp[lo:hi]}
                 if sc is not None and want_int8:
                     chunk["v_scale"] = sc[lo:hi]  # resident: wired already
@@ -317,7 +339,8 @@ class DeviceFeatureStore:
         sample_img = np.concatenate([
             np.asarray([e["image"] for e in d.entries], np.int64)
             + img_off[id(d.store)] for d in members])
-        return cls(feats, scales, spats, rows_table, sample_img, sentinel)
+        return cls(feats, scales, spats, rows_table, sample_img, sentinel,
+                   group)
 
     @property
     def hbm_bytes(self) -> int:
@@ -327,9 +350,11 @@ class DeviceFeatureStore:
 
     def describe(self) -> str:
         dtype = str(self.feats.dtype).replace("torch.", "")
+        kind = ("replicated" if self.group is None else
+                f"sharded, rank {self.group.index} of {self.group.size}")
         return (f"{self.feats.shape[0]} box rows x {self.feats.shape[1]}d "
                 f"{dtype}, {self.hbm_bytes / 2**20:.1f} MiB on "
-                f"{self.device} (replicated), {self.rows_table.shape[0]} "
+                f"{self.device} ({kind}), {self.rows_table.shape[0]} "
                 "images")
 
     def rows_for(self, ds_idx) -> np.ndarray:
@@ -349,6 +374,8 @@ class DeviceFeatureStore:
         "v_scale"]}`` in the dtypes the wire ships (see :meth:`build`).
         The ``rows`` slab goes up from a page-locked double buffer."""
         rows = self._upload({"rows": self.rows_for(ds_idx)})["rows"]
+        if self.group is not None:
+            return self._gather_sharded(rows)
         flat = rows.reshape(-1)
         shape = tuple(rows.shape)
         out = {"v": self.feats.index_select(0, flat).view(*shape, -1),
@@ -357,3 +384,21 @@ class DeviceFeatureStore:
         if self.scales is not None:
             out["v_scale"] = self.scales.index_select(0, flat).view(shape)
         return out
+
+    def _gather_sharded(self, rows: torch.Tensor) -> dict:
+        """The row-sharded gather: ``rows`` are this rank's ``[b,
+        max_boxes]``; -> float32 ``v``, ``b`` and ``v_mask`` for them."""
+        group, t_local = self.group, self.feats.shape[0]
+        rows_all = group.all_gather(rows, 0)  # every rank's, in rank order
+        loc = rows_all.long() - group.index * t_local
+        owned = ((loc >= 0) & (loc < t_local))[..., None]
+        flat = loc.clamp(0, t_local - 1).reshape(-1)
+        shape = tuple(rows_all.shape)
+        v = self.feats.index_select(0, flat).view(*shape, -1).float()
+        if self.scales is not None:
+            v = v * self.scales.index_select(0, flat).view(shape)[..., None]
+        sp = self.spats.index_select(0, flat).view(*shape, -1).float()
+        zero = torch.zeros((), dtype=torch.float32, device=v.device)
+        return {"v": group.reduce_scatter(torch.where(owned, v, zero), 0),
+                "b": group.reduce_scatter(torch.where(owned, sp, zero), 0),
+                "v_mask": rows != self.sentinel}

@@ -9,7 +9,8 @@ layout with 10..max boxes per image, soft-score targets).  Features go to
 ``{split}.hdf5`` where ``h5py`` imports, else to ``{split}.npz``.  The
 Visual7W fixture (:func:`make_v7w_fixture`) writes the bottom-up
 features as JAX's does; :func:`add_v7w_grid_fixture` adds the grid path's
-fixed 196-cell features under ``v7w/``.
+fixed 196-cell features under ``v7w/``.  :func:`write_bottomup_tsv` and
+:func:`write_raw_vqa` write the preprocessing tools' raw inputs.
 """
 
 from __future__ import annotations
@@ -28,6 +29,67 @@ WORDS = (
 
 ANSWERS = ["red", "blue", "green", "two", "three", "cat", "dog", "yes", "no",
            "on table", "left", "right"]
+
+
+def write_bottomup_tsv(path: str, image_boxes, v_dim: int = 2048,
+                       seed: int = 0) -> None:
+    """A bottom-up-attention TSV in the feature converter's input format,
+    one row per ``(image_id, num_boxes)`` pair with base64 float32 boxes
+    and features (``vqatpu/data/synthetic.py:28-48``: the same bytes)."""
+    import base64
+
+    rng = np.random.RandomState(seed)
+    rows = []
+    for img_id, n in image_boxes:
+        boxes = (rng.rand(n, 4) * 100).astype(np.float32)
+        feats = rng.randn(n, v_dim).astype(np.float32)
+        rows.append("\t".join([
+            str(img_id), "640", "480", str(n),
+            base64.b64encode(boxes.tobytes()).decode(),
+            base64.b64encode(feats.tobytes()).decode()]))
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_raw_vqa(dataroot: str, train_images, val_images, n_train: int,
+                  n_val: int, emb_dim: int = 300, seed: int = 0) -> None:
+    """The preprocessing tools' inputs over each split's images: VQA-2.0
+    question and annotation JSONs (``v2_OpenEnded_mscoco_{split}2014_
+    questions.json``, ``v2_mscoco_{split}2014_annotations.json``, ten
+    annotator answers a question, drawn from :data:`ANSWERS` in raw
+    spellings the normalizer maps onto them) and a GloVe text file
+    ``glove/glove.6B.{emb_dim}d.txt`` over :data:`WORDS`.  Port only."""
+    rng = np.random.RandomState(seed)
+    spellings = {"two": ["two", "2", "Two"], "yes": ["yes", "Yes!"],
+                 "on table": ["on the table", "on table"]}
+    os.makedirs(os.path.join(dataroot, "glove"), exist_ok=True)
+    with open(os.path.join(dataroot, "glove", f"glove.6B.{emb_dim}d.txt"),
+              "w") as f:
+        for w in WORDS:
+            f.write(" ".join([w] + [f"{x:.5f}" for x in rng.randn(emb_dim)])
+                    + "\n")
+    for split, n, image_ids in (("train", n_train, list(train_images)),
+                                ("val", n_val, list(val_images))):
+        questions, annotations = [], []
+        for i in range(n):
+            qid = i * 10 + (0 if split == "train" else 5)
+            img = image_ids[rng.randint(len(image_ids))]
+            questions.append({"question_id": qid, "image_id": img,
+                              "question": _questions(rng, 1)[0]})
+            answers = rng.choice(ANSWERS, size=10)
+            raw = [str(rng.choice(spellings.get(a, [a]))) for a in answers]
+            annotations.append({
+                "question_id": qid, "image_id": img,
+                "multiple_choice_answer": raw[0],
+                "answers": [{"answer": a, "answer_id": j + 1}
+                            for j, a in enumerate(raw)]})
+        with open(os.path.join(
+                dataroot, f"v2_OpenEnded_mscoco_{split}2014_questions.json"),
+                "w") as f:
+            json.dump({"questions": questions}, f)
+        with open(os.path.join(
+                dataroot, f"v2_mscoco_{split}2014_annotations.json"), "w") as f:
+            json.dump({"annotations": annotations}, f)
 
 
 def _questions(rng: np.random.RandomState, n: int):

@@ -26,6 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from vqatpu_torch.parallel.sharding import shard_batch
 from vqatpu_torch.train.steps import make_eval_step, wire_cast
 
 _EVAL_KEYS = ("v", "v_scale", "b", "q", "a", "v_mask", "target")
@@ -55,17 +56,44 @@ def get_logits(model, loader, compute_dtype: str = "float32",
     return np.concatenate(preds, 0), np.concatenate(qids, 0)
 
 
+_warned_eval_fallback = False
+
+
+def maybe_shard(batch: dict, mesh) -> Tuple[dict, bool]:
+    """``_maybe_shard``'s rule (``vqatpu/eval/ffoe.py:57-80``): with several
+    data indices, this rank's rows of an eval batch where the data axis
+    divides it, else the whole batch (JAX's warning, once); -> (batch,
+    split?)."""
+    if mesh is None or mesh.dp == 1:
+        return batch, False
+    rows = len(next(iter(batch.values())))
+    if rows % mesh.dp != 0:
+        global _warned_eval_fallback
+        if not _warned_eval_fallback:
+            print(f"| WARNING: eval batch {rows} not divisible by the "
+                  f"data-mesh size {mesh.dp}; evaluating without batch "
+                  "sharding (slower on pods — pick a divisible eval batch)")
+            _warned_eval_fallback = True
+        return batch, False
+    return shard_batch(batch, mesh), True
+
+
 def evaluate(model, loader, compute_dtype: str = "float32",
              transfer_dtype: str = "float32",
-             dev_store=None) -> Tuple[float, float]:
+             dev_store=None, mesh=None) -> Tuple[float, float]:
     """Soft accuracy and its upper bound over a val loader
-    (``FFOE/train.py:119-149``), as fractions of the valid rows."""
+    (``FFOE/train.py:119-149``), as fractions of the valid rows.  With a
+    ``mesh`` of several data indices each rank scores its rows of a batch
+    (:func:`maybe_shard`) and the sums are added over the data axis
+    (``vqatpu/eval/ffoe.py:83-103``); every rank returns the totals."""
     eval_step = make_eval_step(model, compute_dtype=compute_dtype)
     dev = next(model.parameters()).device
-    score = torch.zeros((), dtype=torch.float64, device=dev)
-    upper = torch.zeros((), dtype=torch.float64, device=dev)
+    # [whole batches' score, upper bound, split batches' score, bound]
+    sums = torch.zeros(4, dtype=torch.float64, device=dev)
     n = 0
     for batch in loader:
+        n += int(batch["valid"].sum())
+        batch, split = maybe_shard(batch, mesh)
         valid = batch.pop("valid")
         db = _eval_batch(batch, transfer_dtype, dev_store)
         # a padded row's target is zero already; masking by ``valid``, as
@@ -73,10 +101,13 @@ def evaluate(model, loader, compute_dtype: str = "float32",
         db["target"] = np.where(valid[:, None], db["target"], 0.0).astype(
             np.float32)
         out = eval_step(db)
-        score += out["score"].double()
-        upper += out["upper_bound"].double()
-        n += int(valid.sum())
-    return float(score) / max(n, 1), float(upper) / max(n, 1)
+        at = 2 if split else 0
+        sums[at] += out["score"].double()
+        sums[at + 1] += out["upper_bound"].double()
+    if mesh is not None:
+        mesh.data.all_reduce(sums[2:])
+    score, upper = (sums[:2] + sums[2:]).tolist()
+    return score / max(n, 1), upper / max(n, 1)
 
 
 def compute_score_with_embedding(pred_emb: np.ndarray, labels: np.ndarray,

@@ -11,8 +11,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from vqatpu_torch.data.mc_dataset import NUM_CANDIDATES, expand_mc_batch
+from vqatpu_torch.eval.ffoe import maybe_shard
 from vqatpu_torch.train.steps import make_eval_step, wire_cast
 
 _EVAL_KEYS = ("v", "v_scale", "b", "q", "a")
@@ -47,7 +49,7 @@ def compute_score_with_emb(pred_emb: np.ndarray, mc_emb: np.ndarray,
 
 def evaluate_mc(model, loader, compute_dtype: str = "float32",
                 transfer_dtype: str = "float32",
-                dev_store=None) -> Tuple[float, float]:
+                dev_store=None, mesh=None) -> Tuple[float, float]:
     """-> (accuracy over the loader's valid questions, upper bound 1.0),
     with training's ``x4`` expansion (``MC/test.py:89-126``).  Padded
     questions (``valid`` False) are not scored.
@@ -58,11 +60,19 @@ def evaluate_mc(model, loader, compute_dtype: str = "float32",
     gathered ``v_mask`` is dropped, as JAX drops it: neither path ships a
     mask, the model takes the boxes whose features are not all zero, and
     the sentinel rows gather to exact zeros, so the logits are the wire
-    path's."""
+    path's.
+
+    With a ``mesh`` of several data indices each rank scores its rows of
+    the questions, where the data axis divides them
+    (:func:`vqatpu_torch.eval.ffoe.maybe_shard`, before the expansion, so
+    that a rank holds whole groups of 4), and the counts are added over
+    the data axis (``vqatpu/eval/mc.py:47-80``)."""
     eval_step = make_eval_step(model, compute_dtype=compute_dtype)
-    score = 0.0
+    scores = np.zeros(2)  # whole batches', split batches'
     n = 0
     for batch in loader:
+        n += int(batch["valid"].sum())
+        batch, split = maybe_shard(batch, mesh)
         valid = batch.pop("valid")
         ex = expand_mc_batch(batch)
         ds_idx = ex.pop("ds_idx", None)
@@ -74,6 +84,11 @@ def evaluate_mc(model, loader, compute_dtype: str = "float32",
         logits = eval_step(db)["logits"].cpu().numpy()
         rows = np.repeat(valid, NUM_CANDIDATES)
         if rows.any():
-            score += compute_score_mc(logits[rows], ex["target"][rows])
-        n += int(valid.sum())
+            scores[int(split)] += compute_score_mc(logits[rows],
+                                                   ex["target"][rows])
+    score = float(scores[0])
+    if mesh is not None:
+        split = torch.tensor(scores[1], dtype=torch.float64,
+                             device=next(model.parameters()).device)
+        score += float(mesh.data.all_reduce(split))
     return score / max(n, 1), 1.0

@@ -15,6 +15,7 @@ from vqatpu_torch.ops.bilinear import BCNet
 from vqatpu_torch.ops.linear import Linear, frobenius
 from vqatpu_torch.ops.module import Ctx, dropout
 from vqatpu_torch.ops.trilinear import TCNet
+from vqatpu_torch.parallel.collectives import reduce_from
 
 
 def box_mask_from_features(v: torch.Tensor) -> torch.Tensor:
@@ -72,7 +73,13 @@ class TriAttention(nn.Module):
     returns ``(att, masked_logits)`` with masked boxes at -inf, as the JAX
     package's ``apply`` does under ``kernel_backend="pallas"``.  The JAX
     default is ``return_logits=True``; the port's is False, the serving
-    path."""
+    path.
+
+    With the rank split over a tensor-parallel group (``tc.tp``) both take
+    the logits path: each rank's partial logits over its ranks are summed
+    by ``reduce_from`` and K3 takes the sum (JAX's logits branch,
+    ``vqatpu/ops/attention.py:136-142``).  K1 cannot take a rank shard: it
+    fuses the rank contraction with a softmax over the whole sum."""
 
     def __init__(self, v_dim: int, q_dim: int, a_dim: int, h_dim: int,
                  h_out: int, rank: int, glimpse: int, k: int,
@@ -87,12 +94,14 @@ class TriAttention(nn.Module):
         (``fused_v_tucker``)."""
         if v_mask is None:
             v_mask = box_mask_from_features(v)
-        if not return_logits:
+        if not return_logits and self.tc.tp is None:
             v_r, q_r, a_r, T = self.tc.rank_projections(v, q, a, ctx, v_t)
             att = fused_rank_softmax(v_r, precontract_qa(q_r, a_r, T), v_mask)
             return att, None
-        logits = self.tc(v, q, a, ctx, v_t)
+        logits = reduce_from(self.tc(v, q, a, ctx, v_t), self.tc.tp)
         att = masked_softmax_vqa(logits, v_mask)
+        if not return_logits:
+            return att, None
         mask5 = v_mask[:, :, None, None, None]
         return att, logits.masked_fill(~mask5, float("-inf"))
 

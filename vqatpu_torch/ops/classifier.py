@@ -1,5 +1,7 @@
 """Answer classifier (``vqatpu/ops/classifier.py:17-36``):
-``WNLinear(in, hid) -> act -> Dropout -> WNLinear(hid, out)``."""
+``WNLinear(in, hid) -> act -> Dropout -> WNLinear(hid, out)``; under
+tensor parallelism ``l2`` may be split on the vocabulary, and its logits
+are gathered."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from torch import nn
 from vqatpu_torch.ops.activation import get_activation
 from vqatpu_torch.ops.linear import WNLinear
 from vqatpu_torch.ops.module import Ctx, dropout
+from vqatpu_torch.parallel.collectives import gather_from
 
 
 class SimpleClassifier(nn.Module):
@@ -25,4 +28,7 @@ class SimpleClassifier(nn.Module):
     def forward(self, x: torch.Tensor,
                 ctx: Optional[Ctx] = None) -> torch.Tensor:
         h = get_activation(self.activation)(self.l1(x))
-        return self.l2(dropout(h, self.dropout, ctx))
+        # a vocab-split l2 (tensor parallelism, where the vocabulary divides
+        # the group) gives this rank's columns: gathered before the loss
+        return gather_from(self.l2(dropout(h, self.dropout, ctx)),
+                           self.l2.tp)

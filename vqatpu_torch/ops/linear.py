@@ -12,11 +12,15 @@ Under ``compute_dtype="bfloat16"`` the weight norm is taken in the
 parameters' dtype (``vqatpu/ops/linear.py:55``), and a float32 input
 against bf16 weights is promoted to float32, as jnp promotes ``x @ v.T``
 (``:56``).
+
+Under tensor parallelism :class:`WNLinear` runs column- or row-parallel
+(see its docstring), and :class:`FCNet` drops out a row-parallel layer's
+split input with the whole input's mask.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +29,8 @@ from torch import nn
 from vqatpu_torch.numerics import promote
 from vqatpu_torch.ops.activation import get_activation
 from vqatpu_torch.ops.module import Ctx, dropout
+from vqatpu_torch.parallel.collectives import (all_reduce_both, copy_to,
+                                               reduce_from)
 
 
 def frobenius(v: torch.Tensor, dim=None) -> torch.Tensor:
@@ -42,7 +48,21 @@ def uniform_(t: torch.Tensor, bound: float) -> torch.Tensor:
 
 
 class WNLinear(nn.Module):
-    """``weight_norm(nn.Linear(in_dim, out_dim), dim=None)``."""
+    """``weight_norm(nn.Linear(in_dim, out_dim), dim=None)``.
+
+    Under tensor parallelism (``tp``, the model group, set by
+    :func:`vqatpu_torch.parallel.sharding.shard_model`) ``v`` is a slice:
+    ``tp_dim=0`` column-parallel (``v``, ``b`` split on the output dim; the
+    input enters by ``copy_to``, the output stays split), ``tp_dim=1``
+    row-parallel (``v`` split on the input dim; the partial products are
+    summed by ``reduce_from`` before the scale and the bias).  The norm is
+    always the whole matrix's, as JAX's ``weight_norm(dim=None)`` over a
+    sharded ``v`` is: ``||v||^2`` is summed over the group.  The replicated
+    ``g`` of a column-parallel layer enters by ``copy_to``, so that its
+    gradient, a partial sum on each rank, is summed too."""
+
+    tp = None
+    tp_dim = None
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
         super().__init__()
@@ -52,10 +72,26 @@ class WNLinear(nn.Module):
         self.b = (nn.Parameter(uniform_(torch.empty(out_dim), bound))
                   if bias else None)
 
+    def input_shard(self) -> Optional[Tuple[int, int]]:
+        """``(n, i)`` where the input is split over the model group (a
+        row-parallel layer), else None."""
+        if self.tp is None or self.tp_dim != 1:
+            return None
+        return self.tp.size, self.tp.index
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # (x @ vᵀ)·s rather than x @ (s·v)ᵀ, as the JAX package does: the
         # scale multiplies the GEMM output and no scaled weight is formed
-        y = F.linear(*promote(x, self.v)) * (self.g / frobenius(self.v))
+        if self.tp is None:
+            y = F.linear(*promote(x, self.v)) * (self.g / frobenius(self.v))
+        elif self.tp_dim == 0:
+            sq = all_reduce_both(self.v.square().sum(), self.tp)
+            y = (F.linear(*promote(copy_to(x, self.tp), self.v))
+                 * (copy_to(self.g, self.tp) / sq.sqrt()))
+        else:
+            sq = reduce_from(self.v.square().sum(), self.tp)
+            y = (reduce_from(F.linear(*promote(x, self.v)), self.tp)
+                 * (self.g / sq.sqrt()))
         if self.b is not None:
             y = y + self.b
         return y
@@ -107,6 +143,7 @@ class FCNet(nn.Module):
                 ctx: Optional[Ctx] = None) -> torch.Tensor:
         act = get_activation(self.act)
         for i in range(len(self.dims) - 1):
-            x = dropout(x, self.dropout, ctx)
-            x = act(getattr(self, f"l{i}")(x))
+            layer = getattr(self, f"l{i}")
+            x = dropout(x, self.dropout, ctx, layer.input_shard())
+            x = act(layer(x))
         return x

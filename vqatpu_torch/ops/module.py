@@ -18,7 +18,7 @@ context that drives it (``vqatpu/ops/module.py:32-167``).
 from __future__ import annotations
 
 from collections import deque
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -77,25 +77,39 @@ class Ctx:
         self.mask_source = mask_source
 
 
-def dropout(x: torch.Tensor, rate: float,
-            ctx: Optional[Ctx]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, ctx: Optional[Ctx],
+            shard: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``shard=(n, i)``: ``x`` is slice ``i`` of ``n`` along its last dim of
+    a tensor that the other ranks of a tensor-parallel group hold the rest
+    of; the mask of the whole is drawn (the group's generators agree) and
+    this slice of it applied, so that the masks are those of the unsplit
+    layer."""
     if rate <= 0.0 or ctx is None or not ctx.train:
         return x
     keep = 1.0 - rate
+    shape = tuple(x.shape)
+    if shard is not None:
+        shape = shape[:-1] + (shape[-1] * shard[0],)
+
+    def local(m: torch.Tensor) -> torch.Tensor:
+        if shard is None:
+            return m
+        return m.narrow(-1, shard[1] * x.shape[-1], x.shape[-1])
+
     if ctx.mask_source is not None:
-        mask = torch.as_tensor(ctx.mask_source.next_mask(x.shape),
+        mask = torch.as_tensor(ctx.mask_source.next_mask(shape),
                                dtype=x.dtype, device=x.device)
-        return x * mask / keep
+        return x * local(mask) / keep
     if ctx.generator is None:
         raise ValueError("Ctx needs a torch.Generator for dropout in training")
     if ctx.mask_bits == 16:
         thresh = max(round(keep * 65536.0), 1)
-        bits = torch.randint(0, 65536, x.shape, generator=ctx.generator,
+        bits = torch.randint(0, 65536, shape, generator=ctx.generator,
                              device=x.device, dtype=torch.int32)
-        return torch.where(bits < thresh, x * (65536.0 / thresh),
+        return torch.where(local(bits) < thresh, x * (65536.0 / thresh),
                            torch.zeros_like(x))
-    mask = torch.rand(x.shape, generator=ctx.generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    mask = torch.rand(shape, generator=ctx.generator, device=x.device) < keep
+    return torch.where(local(mask), x / keep, torch.zeros_like(x))
 
 
 def checkpoint_with_dropout(fn: Callable, ctx: Optional[Ctx], *args):

@@ -24,6 +24,7 @@ from vqatpu_torch.numerics import promote
 from vqatpu_torch.ops.activation import get_activation
 from vqatpu_torch.ops.linear import FCNet, frobenius, uniform_
 from vqatpu_torch.ops.module import Ctx, dropout
+from vqatpu_torch.parallel.collectives import copy_to
 
 RANK_NET_GATE = 1024  # reference `if self.h_dim < 1024` (tc.py:27)
 
@@ -51,6 +52,8 @@ class _RankLinear(nn.Module):
     """``rank`` weight-normed linears [d -> h_sub] stacked: ``v`` [R, h_sub,
     d], ``g`` [R], ``b`` [R, h_sub] (the JAX package's vmapped FCNet)."""
 
+    tp = None  # the model group where the rank dim is split
+
     def __init__(self, rank: int, d: int, h_sub: int):
         super().__init__()
         bound = 1.0 / (d ** 0.5)
@@ -66,6 +69,10 @@ class RankNets(nn.Module):
     h_sub].  Dropout draws one mask that all ranks share, as the JAX
     package does.  Under injected masks (``ctx.mask_source``) each rank
     takes its own mask, in rank order (``vqatpu/ops/trilinear.py:169-177``).
+
+    With the rank dim split over a tensor-parallel group (``l0.tp``) the
+    nets are this rank's share of the ranks; ``x`` enters by ``copy_to``.
+    Injected masks are popped for every rank and this share's applied.
     """
 
     def __init__(self, rank: int, d: int, h_sub: int, act: str, drop: float):
@@ -80,9 +87,12 @@ class RankNets(nn.Module):
         R, h_sub, d = p.v.shape
         act = get_activation(self.act)
         scale = p.g / frobenius(p.v.flatten(1), 1)
+        x = copy_to(x, p.tp)
         if ctx is not None and ctx.mask_source is not None:
+            n, i = (1, 0) if p.tp is None else (p.tp.size, p.tp.index)
+            xs = [dropout(x, self.drop, ctx) for _ in range(R * n)]
             return torch.stack([
-                act(F.linear(*promote(dropout(x, self.drop, ctx), p.v[r]))
+                act(F.linear(*promote(xs[i * R + r], p.v[r]))
                     * scale[r] + p.b[r]) for r in range(R)], dim=-2)
         x = dropout(x, self.drop, ctx)
         out = act(F.linear(*promote(x, p.v.reshape(R * h_sub, d)))
@@ -91,6 +101,13 @@ class RankNets(nn.Module):
 
 
 class TCNet(nn.Module):
+    """``tp``: the model group where ``T_g`` and the rank nets are split on
+    the rank dim (:meth:`forward` then gives this rank's partial logits);
+    a joint-embedding TCNet whose tuckers are split on ``d`` pools its
+    ``d / tp`` columns."""
+
+    tp = None
+
     def __init__(self, v_dim: int, q_dim: int, a_dim: int, h_dim: int,
                  h_out: int, rank: int, glimpse: int, act: str = "ReLU",
                  dropout: Tuple[float, float] = (0.2, 0.5), k: int = 1,
@@ -136,7 +153,8 @@ class TCNet(nn.Module):
     def forward(self, v, q, a, ctx: Optional[Ctx] = None,
                 v_t: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Attention logits [B, V, Q, A, G] (``vqatpu/ops/trilinear.py:
-        205-215``) through the plain einsum chain."""
+        205-215``) through the plain einsum chain; with the rank split
+        (``tp``), this rank's partial sum over its ranks."""
         return attention_logits_ref(*self.rank_projections(v, q, a, ctx, v_t))
 
     def apply_with_weights(self, v, q, a, w, ctx: Optional[Ctx] = None,
@@ -144,5 +162,8 @@ class TCNet(nn.Module):
         """Joint embedding with attention ``w`` [B, V, Q, A] -> [B, d]
         (``tc.py:54-61``), through the trilinear pool kernel.  At bf16
         compute ``v`` and the weights are bf16, ``q`` and ``a`` bf16 at
-        the first glimpse and float32 after it; the pool is float32."""
-        return trilinear_pool(*self.tucker_projections(v, q, a, ctx, v_t), w)
+        the first glimpse and float32 after it; the pool is float32.  With
+        the tuckers split on ``d`` (column-parallel), ``w`` enters by
+        ``copy_to`` and the result is this rank's ``d / tp`` columns."""
+        return trilinear_pool(*self.tucker_projections(v, q, a, ctx, v_t),
+                              copy_to(w, self.v_tucker.l0.tp))

@@ -92,3 +92,9 @@ def process_digit_article(text: str) -> str:
 def preprocess_answer(answer: str) -> str:
     answer = process_digit_article(process_punctuation(answer))
     return answer.replace(",", "")
+
+
+def get_score(occurrences: int) -> float:
+    """VQA soft score: average over 10-choose-9 annotator subsets
+    (``compute_softscore.py:86-96``)."""
+    return (0.0, 0.3, 0.6, 0.9)[occurrences] if occurrences < 4 else 1.0

@@ -33,8 +33,10 @@ frozen (``MaskedNode`` leaves there).
   written float32 whatever the Adamax storage.
 
 :func:`load_params_any` also reads the reference's ``model_epoch{N}.pth``
-(:mod:`vqatpu_torch.tools.import_torch`); ``.orbax`` checkpoints
-(multi-device, ROADMAP queue A item 9) are not read.
+(:mod:`vqatpu_torch.tools.import_torch`); JAX's ``.orbax`` checkpoints
+are not read (orbax is JAX's; the port's processes write ``.ckpt``).
+Under tensor parallelism :func:`save_checkpoint` gathers the whole state
+first (``mesh``).
 """
 
 from __future__ import annotations
@@ -54,17 +56,30 @@ from vqatpu_torch.weights import (_flatten, _jax_path, _torch_key,
 from vqatpu_torch.weights import load_params_file as load_params
 
 
-def _state_trees(state: TrainState):
+def _full(mesh):
+    """``(parameter, tensor) -> the whole tensor``: under tensor parallelism
+    a split parameter's slices (and its Adamax moments') are gathered over
+    the model group."""
+    def full(p, t):
+        dim = getattr(p, "_tp_dim", None)
+        if mesh is None or dim is None:
+            return t
+        return mesh.model.all_gather(t, dim)
+    return full
+
+
+def _state_trees(state: TrainState, mesh=None):
     """The Adamax m and u as ``vqatpu`` param trees (float32 numpy; None
     at the frozen leaves)."""
     opt = state.optimizer
     slot = {id(p): i for i, p in enumerate(opt.params)}
+    full = _full(mesh)
     trees = []
     for moments in (opt.m, opt.u):
         sd = {}
         for name, p in state.model.named_parameters():
             i = slot.get(id(p))
-            sd[name] = None if i is None else moments[i].float()
+            sd[name] = None if i is None else full(p, moments[i].float())
         tree = jax_params_from_torch({k: v for k, v in sd.items()
                                       if v is not None})
         for name in (k for k, v in sd.items() if v is None):
@@ -78,17 +93,26 @@ def _state_trees(state: TrainState):
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int,
-                    extra: Optional[dict] = None) -> None:
+                    extra: Optional[dict] = None, mesh=None,
+                    write: bool = True) -> None:
     """Write ``state`` at the end of ``epoch`` (atomically: a temporary
-    file, then a rename)."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    file, then a rename).  Under tensor parallelism (``mesh`` with ``tp >
+    1``) the whole state is gathered first, a collective of the model
+    group that each of its ranks calls, and the ranks with ``write``
+    False stop there: the file is always the whole, JAX-readable state."""
     opt = state.optimizer
-    m, u = _state_trees(state)
+    m, u = _state_trees(state, mesh)
+    full = _full(mesh)
+    params = jax_params_from_torch({n: full(p, p.detach()) for n, p in
+                                    state.model.named_parameters()})
+    if not write:
+        return
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     count = np.asarray(opt.count, np.int32)
     lr = np.asarray(float(opt.lr), np.float32)
     payload = {
         "epoch": epoch,
-        "params": jax_params_from_torch(state.model.state_dict()),
+        "params": params,
         "opt_state": {0: count, 1: {"learning_rate": lr}, 2: {},
                       3: ({0: count, 1: m, 2: u}, ())},
         "step": int(state.step),
@@ -227,8 +251,9 @@ def load_params_any(input_dir: str, epoch, model) -> Any:
         return load_params(ckpt)
     if os.path.isdir(os.path.join(input_dir, f"model_epoch{epoch}.orbax")):
         raise NotImplementedError(
-            "orbax checkpoints are not read by the port (ROADMAP queue A "
-            "item 9)")
+            "orbax checkpoints are not read by the port: they are JAX's, "
+            "written by orbax, which the port does not use (ROADMAP: not "
+            "ported, on purpose)")
     pth = os.path.join(input_dir, f"model_epoch{epoch}.pth")
     if os.path.exists(pth):
         from vqatpu_torch.tools.import_torch import import_checkpoint

@@ -46,9 +46,29 @@ epoch (JAX's window, ``vqatpu/train/loop.py:377-385``) with
 ``torch.profiler`` (:mod:`vqatpu_torch.train.profiling`), each step in a
 ``train_step`` range, the card synchronized before the trace stops.
 
-Not ported, and so refused rather than ignored: the row-sharded store
-(``shard_feature_store``), meshes over several devices, ``tp > 1``, several
-processes and orbax checkpoints (ROADMAP queue A item 9).  An
+Several devices (``vqatpu/train/loop.py:232-271``): one process a device,
+joined by :func:`vqatpu_torch.parallel.distributed.init_distributed`
+before the call.  Every process runs the same seeded loader over the whole
+set and takes its data index's rows of each batch; the step sums the
+gradients over the data axis (:func:`~vqatpu_torch.train.steps.
+make_train_step`).  ``tp > 1`` trains on a ``dp x tp`` mesh with the
+model split by :func:`~vqatpu_torch.parallel.sharding.shard_model`
+(``fused_v_tucker`` refused, as JAX refuses it; CTI's blockwise path too).
+Every process starts from rank 0's state (broadcast).  Only rank 0 writes
+``log.txt`` and checkpoints; under ``tp`` the model group gathers the
+whole state first, so the file is the single-device one.  The eval is
+split over the data axis where the eval batch divides it (each rank scores
+its rows, the sums are added over the axis).  Dropout draws from a
+generator seeded by ``(seed, data index)``, shared by a model group: its
+masks equal JAX's global-key masks in distribution, not bit for bit (with
+one data index, the single process's ``seed``).  Each process can put its
+features on its card: the replicated store, or with
+``shard_feature_store`` the row-sharded one, each rank owning a share of
+the rows (:class:`~vqatpu_torch.data.device_store.DeviceFeatureStore`).
+
+Refused rather than ignored: orbax checkpoints (``ckpt_backend="orbax"``):
+they are JAX's, written by orbax, which the machine with the card does
+not have; rank 0 writes the ``.ckpt`` format both packages read.  An
 out-of-memory error of the card (``torch.cuda.OutOfMemoryError``) skips
 its batch, drops the accumulation window and is counted (the reference's
 policy, ``FFOE/trainer.py:206-219``); a step that fails that way may have
@@ -61,6 +81,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from vqatpu_torch.config import TrainConfig
@@ -74,6 +95,10 @@ from vqatpu_torch.data.mc_dataset import expand_mc_batch
 from vqatpu_torch.data.upload import PinnedUploader
 from vqatpu_torch.eval.ffoe import evaluate as evaluate_ffoe
 from vqatpu_torch.eval.mc import evaluate_mc
+from vqatpu_torch.parallel.distributed import process_count
+from vqatpu_torch.parallel.sharding import (make_mesh, make_mesh_2d,
+                                            replicate, shard_batch,
+                                            shard_leaf, shard_model)
 from vqatpu_torch.train.checkpoints import save_checkpoint
 from vqatpu_torch.train.logging import Logger, time_since
 from vqatpu_torch.train.optim import lr_for_epoch
@@ -121,43 +146,144 @@ def _make_loader(dataset, cfg: TrainConfig, use_native: bool, logger=None,
 
 
 def _make_device_store(dataset, cfg: TrainConfig, logger, device,
-                       what: str = "", task: str = "ffoe"):
+                       what: str = "", task: str = "ffoe", mesh=None):
     """The card-resident store per ``cfg.device_features``
     (``vqatpu/train/loop.py:115-160``); a decline is logged with its
-    reason, except under ``off``."""
+    reason, except under ``off``.  ``shard_feature_store`` implies ``on``
+    and row-shards the tables over the mesh's data axis."""
     mode = normalize_device_features(cfg.device_features)
+    shard = cfg.shard_feature_store
+    if shard:
+        mode = "on"
     if mode == "off":
         return None
     build, why = devstore_decision(dataset, mode, cfg.transfer_dtype,
-                                   task=task, device=device)
+                                   task=task, shard=shard, device=device)
     if not build:
         tag = "auto-OFF" if mode == "auto" else "OFF"
         logger.write(f"{what}device feature store {tag} ({why}); "
                      "using host wire")
         return None
     store = DeviceFeatureStore.build(
-        dataset, transfer_dtype=cfg.transfer_dtype, device=device)
+        dataset, transfer_dtype=cfg.transfer_dtype, device=device,
+        shard=shard, mesh=mesh)
     logger.write(f"{what}device feature store: {store.describe()}")
     return store
 
 
-def _refuse_unported(cfg: TrainConfig, task: str, use_mesh: bool,
-                     num_devices: Optional[int], tp: int) -> None:
+def _make_eval_device_store(eval_ds, cfg: TrainConfig, logger, device,
+                            task: str, mesh):
+    """The eval's store (``vqatpu/train/loop.py:95-112``): declined where the
+    (2x) eval batch does not divide the data axis, since the store's gather
+    takes a rank's rows."""
+    dp = 1 if mesh is None else mesh.dp
+    if (cfg.batch_size * 2) % dp != 0:
+        logger.write("eval device feature store OFF (eval batch %d not "
+                     "divisible by the data mesh %d); using host wire"
+                     % (cfg.batch_size * 2, dp))
+        return None
+    return _make_device_store(eval_ds, cfg, logger, device, what="eval ",
+                              task=task, mesh=mesh)
+
+
+def _refuse_unported(cfg: TrainConfig, task: str) -> None:
     if task not in ("ffoe", "mc"):
         raise ValueError(f"unknown task {task!r}; expected ffoe or mc")
     if cfg.ckpt_backend != "pickle":
         raise NotImplementedError(
-            f"ckpt_backend={cfg.ckpt_backend!r} is not ported (ROADMAP queue "
-            "A item 9)")
-    if tp > 1 or (use_mesh and num_devices not in (None, 1)):
-        raise NotImplementedError(
-            "training on several devices (a data mesh or tp > 1) is not "
-            "ported (ROADMAP queue A item 9)")
+            f"ckpt_backend={cfg.ckpt_backend!r}: orbax checkpoints are "
+            "JAX's, written by orbax, which the machine with the card does "
+            "not have; the port writes the .ckpt format that both packages "
+            "read (ROADMAP: not ported, on purpose)")
     normalize_device_features(cfg.device_features)  # raises if unknown
-    if cfg.shard_feature_store:
-        raise NotImplementedError(
-            "the row-sharded device feature store (shard_feature_store) "
-            "spans several devices: not ported (ROADMAP queue A item 9)")
+
+
+def _make_mesh(model, use_mesh: bool, num_devices: Optional[int], tp: int):
+    """JAX's mesh choice (``vqatpu/train/loop.py:250-271``) over the
+    processes: None for one process without ``tp``."""
+    world = process_count()
+    if not use_mesh:
+        if tp > 1:
+            raise ValueError("tp > 1 needs the mesh (drop --no_mesh)")
+        return None
+    if tp > 1:
+        if model.cfg.fused_v_tucker:
+            # the fused GEMM joins the replicated t_att tucker with the
+            # d-split t_net tuckers (JAX's assert, loop.py:260-263)
+            raise ValueError("fused_v_tucker is incompatible with a model "
+                             "(tp) axis")
+        if getattr(model, "reads_v_knobs", False) and model.cfg.v_block_size:
+            raise ValueError("CTI's blockwise path (v_block_size) is not "
+                             "wired for a model (tp) axis")
+        ndev = num_devices if num_devices is not None else world
+        if ndev != world or ndev % tp:
+            raise ValueError(f"tp={tp} on {ndev} devices: the port runs one "
+                             f"process a device ({world} running), and tp "
+                             "must divide them")
+        return make_mesh_2d(ndev // tp, tp)
+    if world > 1 or num_devices not in (None, 1):
+        return make_mesh(num_devices)
+    return None
+
+
+def _check_pool_width(model, mesh, cfg: TrainConfig, device) -> None:
+    """K2 takes the ``d / tp`` columns of a rank's ``t_net`` tuckers in
+    16-byte copies: on CUDA ``d / tp`` must be a multiple of 4 at float32
+    compute and of 8 at bf16."""
+    net = getattr(model, "t_net0", None)
+    if net is None or torch.device(device).type != "cuda":
+        return
+    d, unit = net.d, 8 if cfg.compute_dtype == "bfloat16" else 4
+    if d % mesh.tp or (d // mesh.tp) % unit:
+        raise ValueError(
+            f"tp={mesh.tp}: K2 pools d / tp = {d} / {mesh.tp} columns a "
+            f"rank, which must be a whole multiple of {unit} at "
+            f"{cfg.compute_dtype} compute; choose tp with d % (tp * {unit}) "
+            "== 0")
+
+
+def put_on_mesh(state: TrainState, mesh, cfg: TrainConfig,
+                logger=None) -> dict:
+    """Every process takes rank 0's params and Adamax state; under ``tp``
+    the model and its moments keep this rank's slices.  -> the layout
+    (:func:`~vqatpu_torch.parallel.sharding.param_shardings`; all None at
+    ``tp == 1``)."""
+    opt = state.optimizer
+    replicate([p.data for p in state.model.parameters()] + opt.m + opt.u,
+              mesh)
+    if mesh.tp == 1:
+        return {n: None for n, _ in state.model.named_parameters()}
+    _check_pool_width(state.model, mesh, cfg, opt.params[0].device)
+    specs = shard_model(state.model, mesh)
+    for i, p in enumerate(opt.params):
+        dim = getattr(p, "_tp_dim", None)
+        if dim is not None:
+            opt.m[i] = shard_leaf(opt.m[i], dim, mesh)
+            opt.u[i] = shard_leaf(opt.u[i], dim, mesh)
+    state.grad_accum, state.accum_count = None, 0
+    split = sorted(k for k, d in specs.items() if d is not None)
+    if logger is not None:
+        logger.write(f"mesh: data={mesh.dp} x model={mesh.tp}; split over "
+                     f"the model axis: {split}")
+    return specs
+
+
+class _NullLogger:
+    """Ranks other than 0 log nothing (one writer of log.txt)."""
+
+    def write(self, *_args, **_kw):
+        pass
+
+    def close(self):
+        pass
+
+
+def _dropout_seed(cfg: TrainConfig, mesh) -> int:
+    """``seed``, or with several data indices a seed of ``(seed, d)``."""
+    if mesh is None or mesh.dp == 1:
+        return cfg.seed
+    return int(np.random.SeedSequence(
+        [cfg.seed, mesh.coords[0]]).generate_state(1)[0])
 
 
 def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
@@ -176,16 +302,21 @@ def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
     ``device``.  ``best_eval``: the best eval score so far, from the
     checkpoint being resumed, so that a resumed run cannot overwrite a
     better ``model_epoch_best``.  ``use_mesh`` on one device trains as
-    without it."""
-    _refuse_unported(cfg, task, use_mesh, num_devices, tp)
+    without it; over several processes (see the module docstring) it
+    builds the mesh, ``num_devices`` (their number) and ``tp`` its
+    shape."""
+    _refuse_unported(cfg, task)
+    mesh = _make_mesh(model, use_mesh, num_devices, tp)
+    primary = mesh is None or mesh.primary
     os.makedirs(output, exist_ok=True)
-    logger = Logger(os.path.join(output, "log.txt"))
+    logger = (Logger(os.path.join(output, "log.txt")) if primary
+              else _NullLogger())
     loaders = []  # the C++ loaders' worker threads end with the run
     try:
         return _train(model, train_ds, eval_ds, cfg, output, task, state,
                       start_epoch, tfidf_loaded, print_interval,
                       use_native_loader, best_eval, device, logger, loaders,
-                      profile_dir)
+                      profile_dir, mesh)
     finally:
         for loader in loaders:
             if hasattr(loader, "close"):
@@ -195,7 +326,7 @@ def train(model, train_ds, eval_ds, cfg: TrainConfig, output: str,
 
 def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
            tfidf_loaded, print_interval, use_native_loader, best_eval,
-           device, logger, loaders, profile_dir) -> TrainState:
+           device, logger, loaders, profile_dir, mesh) -> TrainState:
     logger.write(f"config: {cfg}")
     if state is None:
         state = make_train_state(model, seed=cfg.seed,
@@ -210,11 +341,17 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
         % (cfg.lr, cfg.lr_decay_step, cfg.lr_decay_rate, cfg.clip_norm)
     )
     mc = task == "mc"
-    step_fn = make_train_step(model, cfg, tfidf_loaded, mc_scoring=mc)
+    if mesh is not None:
+        put_on_mesh(state, mesh, cfg, logger)
+    primary = mesh is None or mesh.primary
+    split_rows = mesh is not None and mesh.dp > 1
+    step_fn = make_train_step(model, cfg, tfidf_loaded, mc_scoring=mc,
+                              mesh=mesh)
     dev = next(model.parameters()).device
     # decided after the state is on the device: the auto budget sees the
     # memory the model and the optimizer leave free
-    dev_store = _make_device_store(train_ds, cfg, logger, dev, task=task)
+    dev_store = _make_device_store(train_ds, cfg, logger, dev, task=task,
+                                   mesh=mesh)
     loader = _make_loader(train_ds, cfg, use_native_loader, logger=logger,
                           dev_store=dev_store, task=task)
     loaders.append(loader)
@@ -222,7 +359,7 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
     # the eval's store, built at most once, where the training set's is
     eval_store = _UNSET if dev_store is not None else None
     upload = PinnedUploader(dev)
-    gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+    gen = torch.Generator(device=dev).manual_seed(_dropout_seed(cfg, mesh))
 
     wall_start = time.time()
     for epoch in range(start_epoch, cfg.epochs):
@@ -249,6 +386,9 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
         for i, batch in enumerate(loader):
             if mc:  # candidate rows, and their ds_idx for the store
                 batch = expand_mc_batch(batch)
+            if split_rows:  # this rank's rows of the global batch
+                batch = shard_batch({k: batch[k] for k in _FFOE_KEYS + (
+                    "ds_idx",) if k in batch}, mesh)
             db = upload(wire_cast({k: batch[k] for k in _FFOE_KEYS
                                    if k in batch}, cfg.transfer_dtype))
             if dev_store is not None:
@@ -290,7 +430,7 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
                 else:
                     for k in _SUM_KEYS:
                         metric_sums[k] += metrics[k]
-            if did_update and num_updates % print_every == 0:
+            if primary and did_update and num_updates % print_every == 0:
                 running = float(metric_sums["loss"])
                 # / (num_updates + 1): the reference's own in-loop print
                 # (FFOE/train.py:89-90); the epoch line divides by
@@ -316,8 +456,8 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
             # the reference evaluates with a 2x batch (FFOE/main.py:146)
             if eval_loader is None:
                 if eval_store is _UNSET:
-                    eval_store = _make_device_store(eval_ds, cfg, logger, dev,
-                                                    what="eval ", task=task)
+                    eval_store = _make_eval_device_store(
+                        eval_ds, cfg, logger, dev, task, mesh)
                 eval_loader = make_eval_loader(
                     eval_ds, cfg.batch_size * 2, use_native=use_native_loader,
                     quantize=(cfg.transfer_dtype == "int8"),
@@ -326,7 +466,8 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
             evaluate = evaluate_mc if mc else evaluate_ffoe
             eval_score, bound = evaluate(
                 model, eval_loader, compute_dtype=cfg.compute_dtype,
-                transfer_dtype=cfg.transfer_dtype, dev_store=eval_store)
+                transfer_dtype=cfg.transfer_dtype, dev_store=eval_store,
+                mesh=mesh)
 
         logger.write("epoch %d, time: %.2f" % (epoch, time.time() - t0))
         logger.write("\ttrain_loss: %.2f, norm: %.4f, score: %.2f"
@@ -343,13 +484,18 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
             if new_best:
                 best_eval = eval_score
             extra = {"model": model.cfg.model, "best_eval": best_eval}
-            _save_ckpt(output, f"model_epoch{epoch}", state, epoch, extra)
+            _save_ckpt(output, f"model_epoch{epoch}", state, epoch, extra,
+                       mesh)
             if new_best:
-                _save_ckpt(output, "model_epoch_best", state, epoch, extra)
+                _save_ckpt(output, "model_epoch_best", state, epoch, extra,
+                           mesh)
     return state
 
 
 def _save_ckpt(output: str, name: str, state: TrainState, epoch: int,
-               extra: dict) -> None:
-    save_checkpoint(os.path.join(output, name + ".ckpt"), state, epoch,
-                    extra=extra)
+               extra: dict, mesh=None) -> None:
+    """Rank 0 writes; under ``tp`` every rank takes part in the gather."""
+    primary = mesh is None or mesh.primary
+    if primary or mesh.tp > 1:
+        save_checkpoint(os.path.join(output, name + ".ckpt"), state, epoch,
+                        extra=extra, mesh=mesh, write=primary)

@@ -7,7 +7,8 @@ flat-gradient global-norm clip and the reference's epoch LR schedule.
   ops so that ``state_dtype=torch.bfloat16`` can store m and u rounded to
   nearest even while the math runs in float32 (``optim.py:37-41, 63-65``).
 - ``clip_flat_grads`` scales every gradient by ``min(max_norm / (norm +
-  1e-6), 1)`` of the concatenated gradient's norm (``utils.py:323-328``).
+  1e-6), 1)`` of the concatenated gradient's norm (``utils.py:323-328``),
+  under tensor parallelism the norm of the whole, unsplit gradient.
 - ``lr_for_epoch``: warmup factors on the first epochs, then a decay every
   ``lr_decay_step`` epochs (``FFOE/train.py:26-31, 62-69``).
 """
@@ -68,16 +69,31 @@ class Adamax:
                 dst.copy_(src)  # round to nearest even
 
 
-def global_grad_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The L2 norm of all gradients concatenated, a 0-d tensor."""
-    return torch.sqrt(sum(g.square().sum() for g in grads))
+def global_grad_norm(grads: Sequence[torch.Tensor],
+                     split: Optional[Sequence[bool]] = None,
+                     group=None) -> torch.Tensor:
+    """The L2 norm of all gradients concatenated, a 0-d tensor.  Under
+    tensor parallelism ``split`` marks the gradients that are this rank's
+    slice of a leaf split over the model ``group``
+    (:class:`~vqatpu_torch.parallel.collectives.Group`): their squares are
+    summed over the group, and a replicated leaf counts once."""
+    if split is None or group is None or not any(split):
+        return torch.sqrt(sum(g.square().sum() for g in grads))
+    zero = torch.zeros((), dtype=grads[0].dtype, device=grads[0].device)
+    sq_split = sum((g.square().sum() for g, s in zip(grads, split) if s),
+                   zero)
+    sq_rep = sum((g.square().sum() for g, s in zip(grads, split) if not s),
+                 zero)
+    return torch.sqrt(group.all_reduce(sq_split) + sq_rep)
 
 
-def clip_flat_grads(grads: Sequence[torch.Tensor], max_norm: float
+def clip_flat_grads(grads: Sequence[torch.Tensor], max_norm: float,
+                    split: Optional[Sequence[bool]] = None, group=None
                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """-> (the gradients scaled by ``min(max_norm / (norm + 1e-6), 1)``,
-    the pre-clip norm)."""
-    norm = global_grad_norm(grads)
+    the pre-clip norm; ``split`` and ``group`` as in
+    :func:`global_grad_norm`)."""
+    norm = global_grad_norm(grads, split, group)
     coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return torch._foreach_mul(list(grads), coef), norm
 

@@ -59,6 +59,7 @@ from vqatpu_torch.data.native import quantize_rows
 from vqatpu_torch.numerics import check_f32_math, require_f32_math
 from vqatpu_torch.ops.losses import bce_with_logits_sum, distillation_loss
 from vqatpu_torch.ops.module import Ctx
+from vqatpu_torch.parallel.sharding import split_flags
 from vqatpu_torch.train.optim import Adamax, clip_flat_grads
 from vqatpu_torch.weights import load_jax_params, numpy_params
 
@@ -214,15 +215,38 @@ def make_train_state(model: nn.Module, seed: Optional[int] = None,
         params, state_dtype=_STATE_DTYPES[optim_state_dtype]))
 
 
+def reduce_grads(grads: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """The gradients summed over ``group`` (a data axis), as one flat
+    all-reduce."""
+    if group is None or group.size == 1:
+        return grads
+    flat = group.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    return [t.view_as(g) for t, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def make_train_step(model: nn.Module, cfg: TrainConfig,
                     tfidf_loaded: bool = False, mc_scoring: bool = False,
-                    ctx_factory: Optional[Callable[[], Ctx]] = None):
+                    ctx_factory: Optional[Callable[[], Ctx]] = None,
+                    mesh=None):
     """Build the train step for ``model``, after :func:`make_train_state`
     has frozen its parameters with the same ``tfidf_loaded`` and built its
     optimizer with ``cfg.optim_state_dtype`` (see the module docstring; the
     step raises on a state with other Adamax storage).  ``ctx_factory``
     (zero-argument -> :class:`Ctx`) replaces the step's own context: the
-    mask-injection hook of the parity tests."""
+    mask-injection hook of the parity tests.
+
+    ``mesh`` (:class:`vqatpu_torch.parallel.sharding.Mesh`): several
+    processes.  Each takes its data index's rows of the global batch, and
+    its loss is divided by ``dp`` as well, so that the gradients summed
+    over the data axis are those of JAX's loss over the global batch,
+    ``bce_with_logits_sum / B``.  The sum is one flat all-reduce at each
+    update, after the local accumulation.  Under tensor parallelism
+    (:func:`~vqatpu_torch.parallel.sharding.shard_model`) the clip's norm
+    adds the squares of split gradients over the model axis and counts
+    replicated ones once.  The metrics are the global batch's: the loss and
+    the batch score are summed over the data axis, and ``skip_nonfinite``
+    tests the global loss."""
     half = _check_compute_dtype(cfg.compute_dtype)
     if cfg.transfer_dtype not in WIRES:
         raise ValueError(f"unknown transfer_dtype {cfg.transfer_dtype!r}; "
@@ -245,11 +269,17 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
     score_fn = compute_score_mc if mc_scoring else compute_score_with_logits
     # JAX distils BAN and SAN only (steps.py:208)
     distill = cfg.distillation and mcfg.model in ("ban", "san")
+    dp = 1 if mesh is None else mesh.dp
+    data = None if mesh is None else mesh.data
+    model_group = None if mesh is None else mesh.model
 
     def apply_update(state: TrainState, grads, lr, count: int) -> torch.Tensor:
+        grads = reduce_grads(grads, data)
         if count > 1:
             grads = torch._foreach_div(grads, float(count))
-        grads, norm = clip_flat_grads(grads, cfg.clip_norm)
+        grads, norm = clip_flat_grads(
+            grads, cfg.clip_norm, split_flags(state.optimizer.params),
+            model_group)
         state.optimizer.step(grads, lr)
         state.step += 1
         return norm
@@ -285,8 +315,12 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
                                      cfg.T, cfg.alpha)
         else:
             loss = bce_with_logits_sum(logits, target) / logits.shape[0]
+        if dp > 1:
+            loss = loss / dp  # this rank's share of the global batch's loss
         grads = list(torch.autograd.grad(loss, params))
         loss = loss.detach()
+        if data is not None:
+            loss = data.all_reduce(loss.clone())
         finite = torch.isfinite(loss)
         if cfg.skip_nonfinite:
             zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -308,10 +342,13 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
             else:
                 grad_norm = torch.zeros((), dtype=torch.float32, device=dev)
         updated = int(force_update or count >= cfg.update_freq)
+        score = score_fn(logits.detach(), target)
+        if data is not None:
+            score = data.all_reduce(score.clone())
         return {
             "loss": loss,
             "grad_norm": grad_norm,
-            "batch_score": score_fn(logits.detach(), target),
+            "batch_score": score,
             "updated": torch.full((), updated, dtype=torch.int32, device=dev),
             "skipped": ((~finite) & cfg.skip_nonfinite).to(torch.int32),
         }

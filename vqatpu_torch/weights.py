@@ -13,6 +13,8 @@
   a ``vqatpu`` param tree with numpy leaves.
 - :func:`load_jax_params` loads such a tree strictly: a leaf left unused, a
   parameter left unset or a shape that differs raises.
+- :func:`shard_state` and :func:`gather_state`: a rank's slice of a full
+  state under tensor parallelism, and back.
 - :func:`load_params_file` reads a ``model_epoch{N}.ckpt`` or a
   ``save_params`` file without importing JAX; :func:`load_pickle` reads a
   whole checkpoint, its optimizer state's NamedTuples as stand-ins.
@@ -92,6 +94,26 @@ def jax_params_from_torch(state_dict: Dict[str, torch.Tensor]) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = value.detach().cpu().numpy().astype(np.float32)
     return tree
+
+
+def shard_state(full_state: Dict[str, torch.Tensor], mesh
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's slice of a full port state under the mesh's
+    tensor-parallel layout (:func:`vqatpu_torch.parallel.sharding.
+    param_shardings` of the full state)."""
+    from vqatpu_torch.parallel.sharding import shard_params
+
+    return shard_params(full_state, mesh)
+
+
+def gather_state(local_state: Dict[str, torch.Tensor], mesh,
+                 specs: Dict[str, Optional[int]]
+                 ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_state`: every model rank's slices of the
+    split keys (``specs``, the full state's layout) concatenated; a
+    collective over the model group, which every rank of it calls."""
+    return {k: v if specs.get(k) is None else mesh.model.all_gather(v, specs[k])
+            for k, v in local_state.items()}
 
 
 def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
