@@ -212,6 +212,17 @@ at ``compute_dtype="bfloat16"``).  Then:
     row-sharded store at 2 ranks, its gathers bit-equal to the replicated
     store's.  Two processes on one card check correctness, not scaling.
 
+K2's backward kernel (``csrc/tri_pool_backward.cu``, PR 13) adds to the
+phases: 3c holds it to ``trilinear_pool_grads`` (the four ``torch.bmm`` it
+replaces) at the training batch's inputs, ragged V=293, one box, V=2048,
+D=512 and 1016, B=0, Q*A=72 and 256, with a sample whose ``w`` is all zero,
+in float32 and in both bf16 instances (3b), two calls giving the same
+bits; 4c times it alone (float32, bf16 at both glimpses) and beside the
+forward+backward rows puts the forward kernel followed by the four
+``torch.bmm`` (``bmm_ms``); 12b does both at Visual7W's shapes and 14 at
+tp's D=512 (rows of the JSON line); every training path checks its
+launches, one a glimpse a step (BAN and SAN none).
+
 Each path (serving at each wire and compute dtype, the logits path in
 float32 and bf16, by-id serving, training in float32 and bf16, each entry
 point call of phases 9 to 14 and each rank's steps of 14c-d) is driven with the launch counts set
@@ -463,6 +474,7 @@ def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> dict:
     assert counts["fused_rank_softmax"] == n_fwd, counts
     assert counts["trilinear_pool"] == cfg.gamma * n_fwd, counts
     assert counts["softmax_vqa_backward"] == epochs * steps, counts
+    assert counts["trilinear_pool_backward"] == cfg.gamma * epochs * steps
     assert counts["masked_softmax_vqa"] == 0, counts
     # where an epoch's time goes: epoch 0 pays the first calls' set-up
     rest = record[1:]
@@ -501,6 +513,7 @@ def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> dict:
     assert best["epoch"] == (epochs if ck10["extra"]["best_eval"] >
                              best9["best_eval"] else 9), best["epoch"]
     assert counts["fused_rank_softmax"] == steps + evals, counts
+    assert counts["trilinear_pool_backward"] == cfg.gamma * steps, counts
 
     results = os.path.join(tmp.name, "results")
     K.reset_launches()
@@ -548,7 +561,9 @@ def phase9(cfg, path_counts, wire_step_ms, card_step_ms) -> dict:
     assert counts["fused_rank_softmax_bf16"] == 2 * (steps + evals), counts
     assert counts["trilinear_pool_bf16"] == 2 * cfg.gamma * (steps + evals)
     assert counts["softmax_vqa_backward"] == 2 * steps, counts
+    assert counts["trilinear_pool_backward_bf16"] == 2 * cfg.gamma * steps
     assert counts["fused_rank_softmax"] == counts["trilinear_pool"] == 0, counts
+    assert counts["trilinear_pool_backward"] == 0, counts
     return {"tmp": tmp, "root": root, "args": args, "out": out,
             "n_train": n_train, "n_val": n_val, "labels": labels}
 
@@ -883,6 +898,7 @@ def phase10_store(cfg, dev, train_throughput, path_counts, card_step_ms,
         path_counts[f"training from the store ({wire})"] = counts
         assert counts["fused_rank_softmax"] == n_steps, counts
         assert counts["softmax_vqa_backward"] == n_steps, counts
+        assert counts["trilinear_pool_backward"] == cfg.gamma * n_steps, counts
         print(f"phase 10e {label}: {TRAIN_B / step_ms * 1e3:.1f} samples/s at "
               f"the median step, against phase 8b's {TRAIN_B / card_step_ms * 1e3:.1f} "
               f"with the batch on the card and 8c's "
@@ -928,6 +944,7 @@ def three_loaders(tag, path_counts, args, out_root, n_train, n_val,
               f"in step calls {step_s:.3f} s ({step_s / train_s:.1%}); "
               f"{wall:.1f} s in all; log: {decided}; launches {counts}")
         assert counts["fused_rank_softmax"] == epochs * (steps + evals)
+        assert counts["trilinear_pool_backward"] == CFG["gamma"] * epochs * steps
         assert len(losses[label]) == epochs * steps
         if label.startswith("(i)"):
             assert any(ln.startswith("device feature store: ")
@@ -1531,14 +1548,16 @@ def mc_rows(mcfg, n, seed, grid=False):
 def mc_launches(label, path_counts, forwards, dtype, backwards=0):
     """The launch counts of a TanModel path: K1 once and K2 once per
     glimpse a forward (float32 or bf16 instances), the softmax backward
-    once a backward, and never K3's forward."""
+    once and K2's backward once per glimpse a backward, and never K3's
+    forward."""
     from vqatpu_torch.kernels import trilinear as K
     torch.cuda.synchronize()
     path_counts[label] = counts = dict(K.launches)
     sfx = "_bf16" if dtype == "bfloat16" else ""
     want = {f"fused_rank_softmax{sfx}": forwards,
             f"trilinear_pool{sfx}": CFG["gamma"] * forwards,
-            "softmax_vqa_backward": backwards}
+            "softmax_vqa_backward": backwards,
+            f"trilinear_pool_backward{sfx}": CFG["gamma"] * backwards}
     assert {k: v for k, v in counts.items() if v} == {
         k: v for k, v in want.items() if v}, (label, counts, want)
     return counts
@@ -1879,6 +1898,8 @@ def phase12_training(models, path_counts, train_throughput) -> None:
         assert counts["fused_rank_softmax" + sfx] == n_steps, counts
         assert counts["trilinear_pool" + sfx] == CFG["gamma"] * n_steps, counts
         assert counts["softmax_vqa_backward"] == n_steps, counts
+        assert (counts["trilinear_pool_backward" + sfx]
+                == CFG["gamma"] * n_steps), counts
         assert counts["masked_softmax_vqa"] == 0, counts
         print(f"phase 12d TanModel {compute}: {MC_BATCH / step_ms * 1e3:.1f} "
               f"questions/s ({TRAIN_B / step_ms * 1e3:.1f} candidate rows/s) "
@@ -1955,6 +1976,8 @@ def phase12_cli(path_counts) -> None:
                   f"{scores}; launches {counts}")
             assert counts["fused_rank_softmax"] == MC_EPOCHS * (steps + evals)
             assert counts["softmax_vqa_backward"] == MC_EPOCHS * steps
+            assert (counts["trilinear_pool_backward"]
+                    == CFG["gamma"] * MC_EPOCHS * steps), counts
             assert len(losses[label]) == MC_EPOCHS * steps
             assert all(np.isfinite(losses[label]))
             assert ("device feature store: " in text) == label.startswith("(i)")
@@ -1991,6 +2014,7 @@ def phase12_cli(path_counts) -> None:
               f"in {wall:.1f} s, training {record[0]['train']:.3f} s; loss "
               f"{log_losses}, eval {scores}; {decided}; launches {counts}")
         assert counts["fused_rank_softmax"] == steps + evals, counts
+        assert counts["trilinear_pool_backward"] == CFG["gamma"] * steps, counts
         assert np.isfinite(log_losses).all()
     finally:
         tmp.cleanup()
@@ -2070,7 +2094,8 @@ def phase13_large_v(cfg, params, path_counts, smi) -> dict:
     def kernels(sfx="", remat=False):
         return {"fused_rank_softmax" + sfx: 1,
                 "trilinear_pool" + sfx: (2 if remat else 1) * cfg.gamma,
-                "softmax_vqa_backward": 1}
+                "softmax_vqa_backward": 1,
+                "trilinear_pool_backward" + sfx: cfg.gamma}
 
     per_step = {"standard": kernels(), "blockwise": {},
                 "remat": kernels(remat=True), "fused": kernels(),
@@ -2187,8 +2212,9 @@ def phase13_knobs_vs_cpu(cfg, params, path_counts) -> None:
             else:
                 source.assert_exhausted()
                 torch.cuda.synchronize()
-                path_counts[f"phase 13c {knob} step vs the CPU"] = dict(
+                path_counts[f"phase 13c {knob} step vs the CPU"] = c = dict(
                     K.launches)
+                assert c["trilinear_pool_backward"] == cfg.gamma, (knob, c)
             del state, model
         err = max(abs(c - w) / abs(w) for c, w in zip(got["cuda"], got["cpu"]))
         print(f"phase 13c {knob} step (B=4, V={V}, {len(recorded)} injected "
@@ -2366,7 +2392,8 @@ def phase13_profile(path_counts, p9) -> None:
           f"{counts}")
     assert len(steps) == 3 and on_card
     assert any("rank_softmax" in k for k in kernels)
-    assert any("tri_pool" in k for k in kernels)
+    assert any("tri_pool_kernel" in k for k in kernels)
+    assert any("tri_pool_backward_kernel" in k for k in kernels)
 
 
 # -- 14. the preprocessing tools and several processes -----------------------
@@ -2475,6 +2502,7 @@ def phase14_tools(path_counts) -> dict:
     assert len(step_losses) == P14_EPOCHS * steps
     assert counts["fused_rank_softmax"] >= P14_EPOCHS * steps
     assert counts["trilinear_pool"] >= 2 * P14_EPOCHS * steps
+    assert counts["trilinear_pool_backward"] == 2 * P14_EPOCHS * steps, counts
     return {"tmp": tmp, "args": args}
 
 
@@ -2500,6 +2528,7 @@ def phase14_nccl(p14, path_counts) -> None:
         assert not dist.is_initialized()  # the CLI ended its group
         print(f"phase 14b ffoe_train {label}: {wall:.1f} s, per-step losses "
               f"{losses[label].tolist()}; launches {counts}")
+        assert counts["trilinear_pool_backward"] == 2 * len(losses[label])
     a, b = losses.values()
     err = float(np.max(np.abs(a - b) / np.abs(a)))
     print(f"phase 14b per-step losses, NCCL world size 1 vs one process: "
@@ -2813,7 +2842,8 @@ def phase14_parallel(path_counts) -> dict:
                   f"{p14_params_line(got['params'])}; launches K1 "
                   f"{c['fused_rank_softmax']}, K2 "
                   f"{c['trilinear_pool']}, K3 {c['masked_softmax_vqa']}, "
-                  f"softmax backward {c['softmax_vqa_backward']}")
+                  f"softmax backward {c['softmax_vqa_backward']}, K2 "
+                  f"backward {c['trilinear_pool_backward']}")
             assert max(loss_err, norm_err) <= P14_TOL, got
             if label == "ddp":
                 # DDP sums each step's two halves as the control does
@@ -2828,14 +2858,15 @@ def phase14_parallel(path_counts) -> dict:
             if label == "ddp":
                 assert got["local_rows"] == TRAIN_B // 2 and not got["split"]
                 assert (c["fused_rank_softmax"], c["trilinear_pool"],
-                        c["masked_softmax_vqa"]) == (P14_STEPS,
-                                                     2 * P14_STEPS, 0), c
+                        c["masked_softmax_vqa"],
+                        c["trilinear_pool_backward"]) == (
+                    P14_STEPS, 2 * P14_STEPS, 0, 2 * P14_STEPS), c
             else:
                 assert got["local_rows"] == TRAIN_B
                 assert (c["fused_rank_softmax"], c["trilinear_pool"],
-                        c["masked_softmax_vqa"],
-                        c["softmax_vqa_backward"]) == (
-                    0, 2 * P14_STEPS, P14_STEPS, P14_STEPS), c
+                        c["masked_softmax_vqa"], c["softmax_vqa_backward"],
+                        c["trilinear_pool_backward"]) == (
+                    0, 2 * P14_STEPS, P14_STEPS, P14_STEPS, 2 * P14_STEPS), c
     split = results[0]["tp"]["split"]
     replicated_by_fits = [k for k in ("classifier.l2.v", "classifier.l2.b")
                           if k not in split]
@@ -2951,7 +2982,8 @@ def main() -> int:
                 fn = m.group(1)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                               line)
-            if spill and fn and "mma_kernel" in fn and spill.groups() != ("0", "0"):
+            if (spill and fn and ("mma_kernel" in fn or "tri_pool_backward" in fn)
+                    and spill.groups() != ("0", "0")):
                 raise SystemExit(f"{fn} spills: {line.strip()}")
     # the bf16 instances run on the tensor cores (HMMA), the float32 ones
     # never do
@@ -3187,6 +3219,68 @@ def main() -> int:
                 d["att"], 0, d["logits"], d["mask"])
     grad_checks("ragged V=2048 (K1, K3) / V=293 (K2)", *k1_big, *k2_big[:3],
                 att_big, 1, *k3_big)
+
+    # -- 3c. K2's backward kernel against its plain version ---------------
+    def check_k2_backward(label, args, rel=GRAD_REL_TOL):
+        """K2's backward kernel (``_tri_pool_backward_kernel``) on ``args`` =
+        (g, vt, qt, at, w) against ``trilinear_pool_grads``, the four
+        ``torch.bmm`` of PR 2-12: within ``rel`` of each plain cotangent's
+        largest magnitude, in its primal's dtype, finite, the same bits
+        from a second call, and, where sample 1's ``w`` is all zero, its
+        gvt, gqt and gat exactly zero."""
+        got = K._tri_pool_backward_kernel(*args)
+        again = K._tri_pool_backward_kernel(*args)
+        want = K.trilinear_pool_grads(*args)
+        torch.cuda.synchronize()
+        parts, worst, ok = [], 0.0, True
+        for name, x, y, z, p in zip(("gvt", "gqt", "gat", "gw"), got, want,
+                                    again, args[1:]):
+            err = (x.float() - y).abs().max().item() if y.numel() else 0.0
+            tol = rel * y.abs().max().item() if y.numel() else 0.0
+            same = torch.equal(x, z)
+            ok &= (err <= tol and same and x.dtype == p.dtype
+                   and bool(x.isfinite().all()))
+            worst = max(worst, err)
+            parts.append(f"{name} {err:.3e} (tol {tol:.3e}, {x.dtype}"
+                         + ("" if same else ", NOT bit-equal") + ")")
+        w = args[4]
+        if w.shape[0] > 1 and not w[1].any():
+            zero = all(not x[1].any() for x in got[:3])
+            ok &= zero
+            parts.append(f"zero-w sample's gvt, gqt, gat all zero: {zero}")
+        print(f"K2 backward {label}: " + ", ".join(parts))
+        if not ok:
+            raise SystemExit(f"K2's backward disagrees with its plain version "
+                             f"or repeats other bits: {label}")
+        return worst
+
+    def bwd_inputs(b, v_len, seed, D=1024, q_=Q, a_=A, vt_dtype=torch.float32,
+                   qa_dtype=torch.float32):
+        """(g, vt, qt, at, w) of K2's backward: ``w`` one strided glimpse of
+        a [b, v_len, q_, a_, 2] attention whose sample 1 is all zero."""
+        g = torch.Generator().manual_seed(seed)
+        vt, qt, at = (torch.randn(b, n, D, generator=g).to(dev, dt)
+                      for n, dt in ((v_len, vt_dtype), (q_, qa_dtype),
+                                    (a_, qa_dtype)))
+        att = torch.rand(b, v_len, q_, a_, 2, generator=g).to(dev)
+        if b > 1:
+            att[1] = 0
+        return torch.randn(b, D, generator=g).to(dev), vt, qt, at, att[..., 1]
+
+    # the training batch's inputs, ragged V=293, and the kernel's edges:
+    # one box, V=2048 (phase 13's), tp's D=512, D off the 256-d span, B=0,
+    # Q*A=72 (the <6, 6> instance, 2 passes) and 256 (<4, 8>, 8 passes)
+    check_k2_backward(f"B={TRAIN_B} V={V} (the model's inputs)", (
+        cotangent((TRAIN_B, d["vt"].shape[-1]), 7), d["vt"], d["qt"], d["at"],
+        d["att"][..., 0]))
+    check_k2_backward("ragged V=293", (cotangent((4, 1024), 8), *k2_big[:3],
+                                       att_big[..., 1]))
+    for n, v_len, D_, q_, a_ in ((1, 1, 1024, Q, A), (3, 2048, 1024, Q, A),
+                                 (3, V, 512, Q, A), (3, 65, 1016, Q, A),
+                                 (0, V, 1024, Q, A), (3, V, 1024, Q, 6),
+                                 (3, 293, 264, 32, 8), (3, 293, 264, 5, 2)):
+        check_k2_backward(f"edge B={n} V={v_len} D={D_} Q*A={q_ * a_}",
+                          bwd_inputs(n, v_len, 90 + n + v_len, D_, q_, a_))
     del d, k1_big, k2_big, k3_big, att_big
 
     # -- 3b. the bf16-operand instances of K1 and K2 ----------------------
@@ -3329,6 +3423,21 @@ def main() -> int:
                    args + (d["att"],), cotangent((TRAIN_B, d["vt"].shape[-1]), 12),
                    lambda want: K2_REL_TOL * want.abs().max().item(),
                    grad_rel=BF16_GRAD_REL_TOL)
+    for g_, args in ((0, (d["vt"], d["qt"], d["at"])),
+                     (1, (d["vt1"], d["qt1"], d["at1"]))):
+        check_k2_backward(f"bf16 B={TRAIN_B} V={V} glimpse {g_}",
+                          (cotangent((TRAIN_B, d["vt"].shape[-1]), 14 + g_),
+                           *args, d["att"][..., g_]), BF16_GRAD_REL_TOL)
+    for n, v_len, D_, q_, a_, qa_dtype in (
+            (1, 1, 1024, Q, A, torch.float32), (3, 2048, 1024, Q, A, bf16),
+            (3, 65, 1016, Q, A, torch.float32), (0, V, 1024, Q, A, bf16),
+            (3, V, 1024, Q, 6, bf16), (3, V, 1024, Q, 6, torch.float32),
+            (3, 293, 264, 32, 8, bf16)):
+        check_k2_backward(
+            f"bf16 edge B={n} V={v_len} D={D_} Q*A={q_ * a_} (qt, at "
+            f"{str(qa_dtype)[6:]})", bwd_inputs(n, v_len, 190 + n + v_len, D_,
+                                                q_, a_, bf16, qa_dtype),
+            BF16_GRAD_REL_TOL)
     del d, v_r, tqa, mask
 
     def clone_args(args):
@@ -3336,7 +3445,8 @@ def main() -> int:
                      for x in args)
 
     def timed(name, label, fns, args, nbytes, flops, row=None, peak_ops=None,
-              earlier=None):
+              earlier=None, earlier_key="cuda_core",
+              earlier_label="the CUDA-core design"):
         """Times of the kernel, its plain version and the library yardstick
         (``fns``, each called on ``args``) beside the card's bound: each as
         a single call, and the kernel and the yardstick back to back over
@@ -3345,7 +3455,8 @@ def main() -> int:
         JSON line.  ``peak_ops`` is the peak of the operations' type (f32
         CUDA cores by default).  ``earlier``, an earlier design of the
         kernel called on the same ``args``, is timed both ways too, beside
-        it (``cuda_core_ms``, ``cuda_core_b2b_ms``)."""
+        it (``{earlier_key}_ms``, ``{earlier_key}_b2b_ms``; by default the
+        bf16 instances' CUDA-core design)."""
         t_bytes = nbytes / peak_bw * 1e3
         t_flops = flops / (peak_ops or peak_f32) * 1e3
         (ms, host), (plain_ms, plain_host), (lib_ms, lib_host) = (
@@ -3365,7 +3476,8 @@ def main() -> int:
              "bound_by": "bytes" if t_bytes >= t_flops else "operations",
              "library_ms": lib_ms, "b2b_ms": b2b, "library_b2b_ms": lib_b2b}
         if earlier is not None:
-            r.update(cuda_core_ms=cuda_core_ms, cuda_core_b2b_ms=cuda_core_b2b)
+            r.update({f"{earlier_key}_ms": cuda_core_ms,
+                      f"{earlier_key}_b2b_ms": cuda_core_b2b})
         print(f"{name} {label}: {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} "
               f"us, library {lib_ms * 1e3:.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}: "
@@ -3374,7 +3486,7 @@ def main() -> int:
               f"{lib_host * 1e3:.1f} us; b2b {b2b * 1e3:.2f} us, library b2b "
               f"{lib_b2b * 1e3:.2f} us ({n_copies} input copies)"
               + ("" if earlier is None else
-                 f"; the CUDA-core design {cuda_core_ms * 1e3:.1f} us, b2b "
+                 f"; {earlier_label} {cuda_core_ms * 1e3:.1f} us, b2b "
                  f"{cuda_core_b2b * 1e3:.2f} us"))
         if row is None:
             return r
@@ -3584,6 +3696,37 @@ def main() -> int:
         return lambda vt, qt, at, a, g: torch.autograd.grad(
             fn(vt, qt, at, a[..., 0]), (vt, qt, at, a), g)
 
+    def k2_fb_bmm(vt, qt, at, a, g):
+        """K2's forward kernel, then its cotangents as PR 2-12 computed
+        them: the four ``torch.bmm`` of ``trilinear_pool_grads``."""
+        args = (vt.detach(), qt.detach(), at.detach(), a.detach()[..., 0])
+        return K._tri_pool_kernel(*args), K.trilinear_pool_grads(g, *args)
+
+    def k2_bwd_cost(g, vt, qt, at, w):
+        """Bytes (g, vt, qt, at and w read once; gvt, gqt and gat in their
+        primals' dtypes and gw in float32 written once) and FLOP (the three
+        V x Q*A x D products a sample) of K2's backward."""
+        B_, V_, D_ = vt.shape
+        QA_ = qt.shape[1] * at.shape[1]
+        return (nbytes_of(g) + 2 * (nbytes_of(vt, qt, at) + B_ * V_ * QA_ * f32),
+                3 * 2 * B_ * V_ * QA_ * D_)
+
+    def time_k2_backward(label, args, rel=GRAD_REL_TOL, peak_ops=None):
+        """The JSON row of K2's backward on ``args`` = (g, vt, qt, at, w),
+        held to its plain version on them first (``rel``): the kernel beside
+        its plain version and PR 2-12's route, both ``trilinear_pool_grads``
+        (the four ``torch.bmm``, which the port no longer calls), and its
+        bound."""
+        err = check_k2_backward(f"{label} (the timed inputs)", args, rel)
+        with torch.no_grad():
+            return timed(
+                "trilinear_pool_backward" + ("_bf16" if args[1].dtype == bf16
+                                             else ""), label,
+                (K._tri_pool_backward_kernel, K.trilinear_pool_grads,
+                 K.trilinear_pool_grads), args, *k2_bwd_cost(*args),
+                row=("tri_pool_backward.cu", "vqatpu/kernels/trilinear.py:415",
+                     err), peak_ops=peak_ops)
+
     # inputs read once and outputs written once: K1 (v_r, tqa, mask, g) ->
     # (att, dv, dtqa); K2 (vt, qt, at, w, g) -> (out, gvt, gqt, gat, gw)
     k1_fb_bytes = 2 * (v_r.numel() + tqa.numel() + n_el) * f32 + mask.numel()
@@ -3602,8 +3745,18 @@ def main() -> int:
             "trilinear_pool forward+backward", f"B={B} (one glimpse)",
             (k2_fb(K.trilinear_pool), k2_fb(K.trilinear_pool_ref),
              k2_fb(K.trilinear_pool_ref)), (vt, qt, at, att, g2),
-            k2_fb_bytes, k2_fb_flops)}
-    del flush, d, logits, mask, att, cot, v_r, tqa, vt, qt, at, g1, g2
+            k2_fb_bytes, k2_fb_flops, earlier=k2_fb_bmm, earlier_key="bmm",
+            earlier_label="the forward kernel and the four torch.bmm of "
+            "PR 2-12")}
+    # K2's backward alone: float32, and bf16 at both glimpses
+    rows.append(time_k2_backward(f"B={B} (one glimpse)", (
+        g2, vt.detach(), qt.detach(), at.detach(), att.detach()[..., 0])))
+    d16 = path_inputs_bf16(TRAIN_B, seed=286, pad_row=True)
+    for g_, args in ((0, k2_of(d16)), (1, k2_glimpse1(d16))):
+        rows.append(time_k2_backward(
+            f"B={B} glimpse {g_}" + (" (qt, at f32)" if g_ else ""),
+            (g2, *args), BF16_GRAD_REL_TOL, peak_ops=peak_bf16))
+    del flush, d, d16, logits, mask, att, cot, v_r, tqa, vt, qt, at, g1, g2
 
     # -- 5. the main path: HTTP serving at full width ---------------------
     labels = [f"ans{i}" for i in range(cfg.num_ans_candidates)]
@@ -4172,7 +4325,8 @@ def main() -> int:
         # K1's and K2's float32 kernels, or their tensor-core bf16 ones
         kernels = {"rank_softmax": ("rank_softmax_kernel", "rank_softmax_mma_kernel"),
                    "tri_pool": ("tri_pool_kernel", "tri_pool_mma_kernel"),
-                   "softmax_backward": ("softmax_backward_kernel",)}
+                   "softmax_backward": ("softmax_backward_kernel",),
+                   "tri_pool_backward": ("tri_pool_backward",)}
         own = {label: sum(e.self_device_time_total for e in on_card
                           if any(n in e.key for n in names)) / 1e3 / prof_steps
                for label, names in kernels.items()}
@@ -4194,6 +4348,7 @@ def main() -> int:
     assert counts["fused_rank_softmax"] == n_steps, counts
     assert counts["softmax_vqa_backward"] == n_steps, counts
     assert counts["trilinear_pool"] == cfg.gamma * n_steps, counts
+    assert counts["trilinear_pool_backward"] == cfg.gamma * n_steps, counts
     assert counts["masked_softmax_vqa"] == 0, counts
     k_ms = (fwd_bwd["fused_rank_softmax"]["ms"]
             + cfg.gamma * fwd_bwd["trilinear_pool"]["ms"])
@@ -4210,7 +4365,9 @@ def main() -> int:
     assert counts["fused_rank_softmax_bf16"] == n_steps, counts
     assert counts["trilinear_pool_bf16"] == cfg.gamma * n_steps, counts
     assert counts["softmax_vqa_backward"] == n_steps, counts
+    assert counts["trilinear_pool_backward_bf16"] == cfg.gamma * n_steps, counts
     assert counts["fused_rank_softmax"] == counts["trilinear_pool"] == 0, counts
+    assert counts["trilinear_pool_backward"] == 0, counts
     host8 = wire_cast(batch, "int8")  # quantized once, as a loader would
     wire_step_ms = {}
     for label, host_batch, wire in (("float32", batch, "float32"),
@@ -4221,6 +4378,7 @@ def main() -> int:
         for k, v in counts.items():
             path_counts["training"][k] += v
         assert counts["fused_rank_softmax"] == n_steps, counts
+        assert counts["trilinear_pool_backward"] == cfg.gamma * n_steps, counts
     del db, batch, host8
 
     # -- 9. the entry points on the card: ffoe_train, resume, ffoe_test ---
@@ -4294,6 +4452,11 @@ def main() -> int:
                             d["mask"])
             grad_checks(shape, *k1_of(d), d["vt"], d["qt"], d["at"], d["att"],
                         0, d["logits"], d["mask"])
+            g_mc = cotangent((TRAIN_B, d["vt"].shape[-1]), 26)
+            if grid:  # V=50's is held to it as it is timed, below
+                check_k2_backward(
+                    f"{shape} (the <6, 6> instance, 2 passes over Q)",
+                    (g_mc, d["vt"], d["qt"], d["at"], d["att"][..., 0]))
             keep = d["mask"].repeat_interleave(qa, 1)[..., None]
             k1_args = k1_of(d) + (keep,)
             att = d["att"]
@@ -4357,7 +4520,12 @@ def main() -> int:
                       2 * (vt.numel() + qt.numel() + at.numel() + TRAIN_B * V_ * qa
                            + TRAIN_B * D_) * f32,
                       k2_cost(vt, qt, at, w[..., 0])[1] + 3 * 2 * TRAIN_B * V_ * qa
-                      * D_ + 6 * TRAIN_B * qa * D_)
+                      * D_ + 6 * TRAIN_B * qa * D_, earlier=k2_fb_bmm,
+                      earlier_key="bmm", earlier_label="the forward kernel and "
+                      "the four torch.bmm of PR 2-12")
+                row(time_k2_backward(f"{shape} (one glimpse)", (
+                    g_mc, vt.detach(), qt.detach(), at.detach(),
+                    w.detach()[..., 0])), shape)
             del d, att, cot, k1_args, keep
 
             d16 = mc_inputs(tan16, grid, bf16)
@@ -4372,6 +4540,10 @@ def main() -> int:
                        lambda x, y: K.fused_rank_softmax_ref(x, y, mask),
                        (v_r, tqa), cotangent(d16["att"].shape, 24),
                        lambda want: K1_TOL, grad_rel=BF16_GRAD_REL_TOL)
+            if grid:  # V=50's are held to it as they are timed, below
+                for g_, args in ((0, k2_of(d16)), (1, k2_glimpse1(d16))):
+                    check_k2_backward(f"bf16 {shape} glimpse {g_}",
+                                      (g_mc, *args), BF16_GRAD_REL_TOL)
             for g_, args in ((0, (d16["vt"], d16["qt"], d16["at"])),
                              (1, (d16["vt1"], d16["qt1"], d16["at1"]))):
                 grad_check(f"K2 bf16 {shape} glimpse {g_}",
@@ -4401,7 +4573,13 @@ def main() -> int:
                             row=("tri_pool.cu",
                                  "vqatpu/kernels/trilinear.py:369", e2),
                             peak_ops=peak_bf16), f"{shape} glimpse {g_}")
-            del d16, k1_args, keep
+            if not grid:
+                for g_, args in ((0, k2_of(d16)), (1, k2_glimpse1(d16))):
+                    row(time_k2_backward(f"{shape} glimpse {g_}",
+                                         (g_mc, *args), BF16_GRAD_REL_TOL,
+                                         peak_ops=peak_bf16),
+                        f"{shape} glimpse {g_}")
+            del d16, k1_args, keep, g_mc
         del tan16
         return out_rows
 
@@ -4437,7 +4615,10 @@ def main() -> int:
             args, *k2_cost(*args),
             row=("tri_pool.cu", "vqatpu/kernels/trilinear.py:369",
                  k2["err"])), shape=shape))
-    del flush, k2, args
+    bwd_args = (cotangent(args[0].shape[:1] + args[0].shape[2:], 27), *args)
+    rows.append(dict(time_k2_backward(f"{shape} (the tp path's inputs)",
+                                      bwd_args), shape=shape))
+    del flush, k2, args, bwd_args
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

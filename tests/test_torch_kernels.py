@@ -17,7 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from vqatpu.kernels.blockwise import precontract_qa as jax_precontract_qa
 from vqatpu.kernels.trilinear import (_masked_softmax_pallas_vjp, _softmax_bwd,
-                                      attention_logits_xla,
+                                      _tri_pool_bwd, attention_logits_xla,
                                       fused_rank_softmax as jax_rank_softmax,
                                       masked_softmax_vqa_pallas,
                                       masked_softmax_vqa_xla,
@@ -183,11 +183,19 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing(rng):
     torch.testing.assert_close(K.softmax_vqa_backward(att, logits),
                                K.softmax_vqa_backward_ref(att, logits),
                                rtol=0, atol=0)
+    g = torch.from_numpy(rng.randn(B, D).astype(np.float32))
+    grads = [torch.autograd.grad(f(*xs), xs, g) for f, xs in (
+        (K.trilinear_pool, [x.clone().requires_grad_() for x in arrays]),
+        (K.trilinear_pool_ref, [x.clone().requires_grad_() for x in arrays]))]
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert K.launches == {"fused_rank_softmax": 0, "trilinear_pool": 0,
                           "masked_softmax_vqa": 0, "softmax_vqa_backward": 0,
                           "fused_rank_softmax_bf16": 0,
                           "trilinear_pool_bf16": 0,
-                          "masked_softmax_vqa_bf16": 0}
+                          "masked_softmax_vqa_bf16": 0,
+                          "trilinear_pool_backward": 0,
+                          "trilinear_pool_backward_bf16": 0}
 
 
 # -- gradients ----------------------------------------------------------------
@@ -223,21 +231,65 @@ def test_fused_rank_softmax_grads_match_jax_custom_vjp(rng, V, n_real):
     np.testing.assert_array_equal(got[0][-1], 0.0)  # fully masked sample
 
 
-@pytest.mark.parametrize("V", [10, 293])
-def test_trilinear_pool_grads_match_jax_custom_vjp(rng, V):
-    """K2's four cotangents against ``jax.vjp`` of the Pallas
-    ``custom_vjp``, with ``w`` one strided glimpse as the model passes it."""
-    vt, qt, at, _ = pool_inputs(rng, V)
-    att = rng.rand(B, V, Q, A, G).astype(np.float32)
-    g = rng.randn(B, D).astype(np.float32)
-    want = vjp_jax(lambda a, b, c, w: trilinear_pool_pallas(a, b, c, w[..., 1]),
-                   (vt, qt, at, att), g)
-    got = grads_torch(lambda a, b, c, w: K.trilinear_pool(a, b, c, w[..., 1]),
-                      (vt, qt, at, att), g)
+# The shapes csrc/tri_pool_backward.cu takes: (Q, A) of its <12, 3>, <6, 6>
+# (two passes at Q=12) and <4, 8> (eight at Q=32) instances and one that
+# fills none; V of one box, inside one 8-row ring stage and over many; D
+# ragged against its 256-d span (36, 264); bf16 vt with bf16 qt/at (glimpse
+# 0) and float32 ones (glimpse 1).  Cases "10" and "293" are the model's.
+K2_BWD_CASES = [
+    pytest.param(12, 3, 10, D, "float32", "float32", id="10"),
+    pytest.param(12, 3, 293, D, "float32", "float32", id="293"),
+    pytest.param(12, 3, 1, 264, "float32", "float32", id="Q12A3-V1-D264"),
+    pytest.param(12, 6, 10, 36, "float32", "float32", id="Q12A6-V10-D36"),
+    pytest.param(12, 6, 293, D, "float32", "float32", id="Q12A6-V293"),
+    pytest.param(32, 8, 10, D, "float32", "float32", id="Q32A8-V10"),
+    pytest.param(5, 2, 10, 264, "float32", "float32", id="Q5A2-V10-D264"),
+    pytest.param(5, 2, 1, D, "float32", "float32", id="Q5A2-V1"),
+    pytest.param(12, 3, 10, D, "bfloat16", "bfloat16", id="bf16-glimpse0"),
+    pytest.param(12, 3, 293, 264, "bfloat16", "float32",
+                 id="bf16-glimpse1-V293-D264"),
+    pytest.param(12, 6, 10, D, "bfloat16", "bfloat16", id="bf16-Q12A6-glimpse0"),
+    pytest.param(12, 6, 1, D, "bfloat16", "float32", id="bf16-Q12A6-glimpse1-V1"),
+    pytest.param(32, 8, 10, D, "bfloat16", "bfloat16", id="bf16-Q32A8-glimpse0"),
+    pytest.param(5, 2, 10, 264, "bfloat16", "float32", id="bf16-Q5A2-glimpse1")]
+
+
+def operand_pair(x, dtype):
+    """The same values, in ``dtype``, for JAX and torch."""
+    if dtype == "bfloat16":
+        return bf16_pair(x)
+    return jnp.asarray(x), torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("q,a,V,d,vt_dtype,qa_dtype", K2_BWD_CASES)
+def test_trilinear_pool_grads_match_jax_custom_vjp(rng, q, a, V, d, vt_dtype,
+                                                   qa_dtype):
+    """K2's four cotangents: the plain version (``trilinear_pool_grads``,
+    float32) against JAX's ``_tri_pool_bwd``, the Pallas ``custom_vjp``'s
+    backward, on the same operands, with ``w`` one strided glimpse as the
+    model passes it; and, in float32, autograd through ``trilinear_pool``
+    on the CPU gives JAX's (zero on the other glimpse)."""
+    vt, qt, at = (rng.randn(B, n, d).astype(np.float32) for n in (V, q, a))
+    att = rng.rand(B, V, q, a, G).astype(np.float32)
+    g = rng.randn(B, d).astype(np.float32)
+    (jvt, tvt), (jqt, tqt), (jat, tat) = (
+        operand_pair(x, dt) for x, dt in ((vt, vt_dtype), (qt, qa_dtype),
+                                          (at, qa_dtype)))
+    want = [np.asarray(x) for x in jax.jit(_tri_pool_bwd)(
+        (jvt, jqt, jat, jnp.asarray(att)[..., 1]), jnp.asarray(g))]
+    tg, tw = torch.from_numpy(g), torch.from_numpy(att)[..., 1]
+    got = K.trilinear_pool_grads(tg, tvt, tqt, tat, tw)
     for x, y in zip(got, want):
+        assert x.dtype == torch.float32 and x.shape == y.shape
         scale = np.abs(y).max()
-        np.testing.assert_allclose(x, y, rtol=2e-4, atol=2e-4 * scale)
-    np.testing.assert_array_equal(got[3][..., 0], 0.0)
+        np.testing.assert_allclose(x.numpy(), y, rtol=2e-4, atol=2e-4 * scale)
+    if vt_dtype == "float32":
+        auto = grads_torch(lambda a_, b_, c_, w_: K.trilinear_pool(
+            a_, b_, c_, w_[..., 1]), (vt, qt, at, att), g)
+        for x, y in zip(auto[:3] + [auto[3][..., 1]], want):
+            scale = np.abs(y).max()
+            np.testing.assert_allclose(x, y, rtol=2e-4, atol=2e-4 * scale)
+        np.testing.assert_array_equal(auto[3][..., 0], 0.0)
 
 
 @pytest.mark.parametrize("V,n_real,b,q,a,g", [
@@ -346,8 +398,13 @@ def test_softmax_vqa_backward_matches_autograd_at_edges(rng, V, n_real, b, q,
         np.testing.assert_array_equal(got[-1], 0.0)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "mask_dtype", "device"])
+@pytest.mark.parametrize("bad", [
+    "dtype", "shape", "mask_dtype", "device", "bwd_g_dtype", "bwd_g_shape",
+    "bwd_w_shape", "bwd_qt_dtype", "bwd_q_limit", "bwd_a_limit",
+    "bwd_d_unit", "bwd_device"])
 def test_wrappers_check_their_inputs(rng, bad):
+    if bad.startswith("bwd_"):
+        return check_backward_refuses(rng, bad[4:])
     v_r, q_r, a_r, T, mask = attention_inputs(rng, 10, 8)
     v_r, mask = t(v_r, mask)
     tqa = K.precontract_qa(*t(q_r, a_r, T))
@@ -361,6 +418,43 @@ def test_wrappers_check_their_inputs(rng, bad):
         v_r, tqa, mask = (x.to("meta") for x in (v_r, tqa, mask))
     with pytest.raises((TypeError, ValueError)):
         K.fused_rank_softmax(v_r, tqa, mask)
+
+
+def check_backward_refuses(rng, bad):
+    """K2's backward wrapper refuses, before anything needs the card, what
+    no kernel instance takes (CPU and meta tensors): ``g`` not float32
+    [B, D], ``w`` of another shape, float32 ``vt`` with bf16 ``qt``, Q >
+    32, A > 8, a bf16 D that is not a multiple of 8 and a device that is
+    not CUDA."""
+    vt, qt, at, w = t(*pool_inputs(rng, 10))
+    g = torch.from_numpy(rng.randn(B, D).astype(np.float32))
+    bf = torch.bfloat16
+    with pytest.raises((TypeError, ValueError)) as err:
+        if bad == "g_dtype":
+            K._tri_pool_backward_kernel(g.double(), vt, qt, at, w)
+        elif bad == "g_shape":
+            K._tri_pool_backward_kernel(g[:, :-4], vt, qt, at, w)
+        elif bad == "w_shape":
+            K._tri_pool_backward_kernel(g, vt, qt, at, w[:, :-1])
+        elif bad == "qt_dtype":
+            K._tri_pool_backward_kernel(g, vt, qt.to(bf), at.to(bf), w)
+        elif bad == "q_limit":
+            q33 = torch.zeros(B, K.TRI_POOL_MAX_Q + 1, D, device="meta")
+            K._tri_pool_backward_kernel(g.to("meta"), vt.to("meta"), q33,
+                                        at.to("meta"), w.to("meta"))
+        elif bad == "a_limit":
+            a9 = torch.zeros(B, K.TRI_POOL_MAX_A + 1, D, device="meta")
+            K._tri_pool_backward_kernel(g.to("meta"), vt.to("meta"),
+                                        qt.to("meta"), a9, w.to("meta"))
+        elif bad == "d_unit":
+            x = [y[..., :12].to("meta", bf) for y in (vt, qt, at)]
+            K._tri_pool_backward_kernel(g[:, :12].to("meta"), *x, w.to("meta"))
+        else:
+            K._tri_pool_backward_kernel(g, vt, qt, at, w)
+    if bad == "d_unit":
+        assert "multiple of 8" in str(err.value)
+    elif bad == "device":
+        assert "no kernel for device" in str(err.value)
 
 
 # -- on the card ------------------------------------------------------------
@@ -404,6 +498,48 @@ def test_cuda_tri_pool_matches_plain(rng, cuda, V, b, d):
     want = K.trilinear_pool_ref(vt, qt, at, w[..., 1])
     torch.testing.assert_close(got, want, rtol=2e-4,
                                atol=2e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("float32", "float32"),
+                                    ("bfloat16", "bfloat16"),
+                                    ("bfloat16", "float32")],
+                         ids=["f32", "bf16-glimpse0", "bf16-glimpse1"])
+@pytest.mark.parametrize("q,a,V,b,d", [
+    pytest.param(12, 3, 50, 256, 1024, id="free-form-B256"),
+    pytest.param(12, 6, 50, 3, 1024, id="mc-QA72"),
+    pytest.param(32, 8, 293, 3, 512, id="QA256-V293-D512"),
+    pytest.param(12, 3, 1, 1, 1016, id="V1-B1-D1016"),
+    pytest.param(12, 3, 2048, 3, 1024, id="V2048"),
+    pytest.param(5, 2, 293, 3, 264, id="Q5A2-D264"),
+    pytest.param(12, 3, 50, 0, 1024, id="B0")])
+def test_cuda_tri_pool_backward_matches_plain(rng, cuda, q, a, V, b, d, dtypes):
+    """K2's backward kernel against ``trilinear_pool_grads`` on the card:
+    ``w`` one strided glimpse, sample 1 with all-zero ``w`` (its gvt, gqt
+    and gat exactly zero); 1e-4 of the largest plain magnitude in float32
+    (chip_smoke's GRAD_REL_TOL), 2^-7 with bf16 cotangents; two calls give
+    the same bits; one launch a call (none at B=0)."""
+    vt_dtype, qa_dtype = (getattr(torch, x) for x in dtypes)
+    vt, qt, at = (torch.from_numpy(rng.randn(b, n, d).astype(np.float32)).to(cuda, dt)
+                  for n, dt in ((V, vt_dtype), (q, qa_dtype), (a, qa_dtype)))
+    att = torch.from_numpy(rng.rand(b, V, q, a, G).astype(np.float32)).to(cuda)
+    if b > 1:
+        att[1] = 0
+    g = torch.from_numpy(rng.randn(b, d).astype(np.float32)).to(cuda)
+    args = (g, vt, qt, at, att[..., 1])
+    K.reset_launches()
+    got = K._tri_pool_backward_kernel(*args)
+    again = K._tri_pool_backward_kernel(*args)
+    sfx = "_bf16" if vt_dtype == torch.bfloat16 else ""
+    assert K.launches["trilinear_pool_backward" + sfx] == (2 if b else 0)
+    rel = 1e-4 if vt_dtype == torch.float32 else 2.0 ** -7
+    for x, y, z, p in zip(got, K.trilinear_pool_grads(*args), again, args[1:]):
+        assert x.dtype == p.dtype and torch.equal(x, z)
+        if y.numel():
+            torch.testing.assert_close(x.float(), y, rtol=0,
+                                       atol=rel * y.abs().max().item())
+    if b > 1:
+        assert all((x[1] == 0).all() for x in got[:3])
 
 
 def test_kernel_inputs_must_be_16_byte_aligned():

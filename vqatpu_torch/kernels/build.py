@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("rank_softmax", "tri_pool", "softmax_vqa")
+SOURCES = ("rank_softmax", "tri_pool", "softmax_vqa", "tri_pool_backward")
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each library's entry points and their argument types; all return a
 # cudaError_t as an int
@@ -38,6 +38,19 @@ ENTRY_POINTS = {
         # a flag: qt and at bfloat16 (1) or float32 (0)
         "tri_pool_forward": [_PTR] * 4 + [_I64] * 4 + [_PTR] + [_INT] * 6 + [_PTR],
         "tri_pool_forward_bf16": [_PTR] * 4 + [_I64] * 4 + [_PTR] + [_INT] * 7 + [_PTR],
+    },
+    "tri_pool_backward": {
+        # B, V, Q, A, D, vt bfloat16 (1) or float32 (0), out: the floats of
+        # scratch the two entry points below need
+        "tri_pool_backward_scratch": [_INT] * 6 + [_PTR],
+        # g, vt, qt, at, w, w's 4 strides, gvt, gqt, gat, gw, scratch, the
+        # scratch's floats, B, V, Q, A, D, device, stream; the _bf16 entry
+        # point takes vt and gvt bfloat16 and, before the device, a flag:
+        # qt, at, gqt and gat bfloat16 (1) or float32 (0)
+        "tri_pool_backward": [_PTR] * 5 + [_I64] * 4 + [_PTR] * 5 + [_I64]
+        + [_INT] * 6 + [_PTR],
+        "tri_pool_backward_bf16": [_PTR] * 5 + [_I64] * 4 + [_PTR] * 5 + [_I64]
+        + [_INT] * 7 + [_PTR],
     },
     "softmax_vqa": {
         # in, mask or cotangent, out, B, V, QA, G, device, stream; the

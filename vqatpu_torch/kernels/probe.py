@@ -27,6 +27,13 @@ vqatpu_torch.kernels.probe``.  Prints its findings; it is not part of
    ``zero_``), timed the same way, and timed back to back (many launches
    between two events, :func:`~vqatpu_torch.kernels.timing.time_back_to_back_ms`),
    which leaves out the single call's event overhead.
+4. K2's backward (``csrc/tri_pool_backward.cu``): the shipped kernel and
+   copies with one line changed (rows a stage, ring depth, blocks an SM,
+   the row loop's order), each held to ``trilinear_pool_grads`` and timed
+   as in 2 at B=256 free-form and Visual7W shapes, float32 and bf16; the
+   instruction mix of the float32 instance's row loop (``cuobjdump
+   -sass``: the loop with the most FFMA); and the SM clock and power that
+   ``nvidia-smi`` reads while the kernel runs for 2 s.
 
 The copies are made by replacing lines of the sources; a source edited
 so that a line is gone makes this script stop with that line's text.
@@ -34,9 +41,13 @@ so that a line is gone makes this script stop with that line's text.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import re
+import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -258,6 +269,41 @@ K2_VARIANTS = {
         ("__launch_bounds__(THREADS, 4)", "__launch_bounds__(THREADS, 2)")],
 }
 
+# K2's backward: one line of csrc/tri_pool_backward.cu changed
+ROW_LOOP = """#pragma unroll
+        for (int q = 0; q < PPL; ++q) {
+          sw[q] = 0.f;
+#pragma unroll
+          for (int k = 0; k < ND; ++k) {
+            u[q][k] = fmaf(wr[q], v[k], u[q][k]);
+            sv_[k] = fmaf(wr[q], gp[q][k], sv_[k]);
+            sw[q] = fmaf(v[k], gp[q][k], sw[q]);
+          }
+        }"""
+ROW_LOOP_D_OUTER = """#pragma unroll
+        for (int q = 0; q < PPL; ++q) sw[q] = 0.f;
+#pragma unroll
+        for (int k = 0; k < ND; ++k) {
+#pragma unroll
+          for (int q = 0; q < PPL; ++q) {
+            u[q][k] = fmaf(wr[q], v[k], u[q][k]);
+            sv_[k] = fmaf(wr[q], gp[q][k], sv_[k]);
+            sw[q] = fmaf(v[k], gp[q][k], sw[q]);
+          }
+        }"""
+KB_VARIANTS = {
+    "4 box rows a stage": [("constexpr int VR = 8; ", "constexpr int VR = 4; ")],
+    "ring of 3 stages": [("constexpr int STAGES = 4; ", "constexpr int STAGES = 3; ")],
+    "one block an SM": [("__launch_bounds__(THREADS, 2)",
+                         "__launch_bounds__(THREADS, 1)")],
+    "d outer in the row loop": [(ROW_LOOP, ROW_LOOP_D_OUTER)],
+}
+# (label, B, Q, A, vt dtype, qt/at dtype) of K2's backward in section 4
+KB_SHAPES = (("B=256", 256, Q, A, "f32", "f32"),
+             ("B=256 bf16 glimpse 0", 256, Q, A, "bf16", "bf16"),
+             ("MC 256 rows, Q*A=72", 256, Q, 6, "f32", "f32"),
+             ("MC 256 rows, Q*A=72, bf16 glimpse 0", 256, Q, 6, "bf16", "bf16"))
+
 
 def edited(source: str, edits) -> str:
     for old, new in edits:
@@ -291,7 +337,7 @@ def build_all(sources):
             print(f"{name}: spills {spills}")
         lib = ctypes.CDLL(str(PROBE_DIR / f"lib{name}.so"))
         kernel = {"k1": "rank_softmax", "k2": "tri_pool",
-                  "k3": "softmax_vqa"}[name[:2]]
+                  "k3": "softmax_vqa", "kb": "tri_pool_backward"}[name[:2]]
         for fn, argtypes in build.ENTRY_POINTS[kernel].items():
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = argtypes
@@ -381,6 +427,76 @@ def softmax_calls(lib, b: int, dev: torch.device):
     return fwd, bwd, first
 
 
+def backward_call(lib, label, b, q, a, vt_dtype, qa_dtype, dev):
+    """The bare launch of library ``lib``'s K2 backward on seeded inputs
+    of shape ``label`` (one strided glimpse of ``w``), its outputs, and
+    the plain version's to hold them to."""
+    g = torch.Generator(device=dev).manual_seed(b + q * a)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    vt, qt, at = (torch.randn(b, n, D, device=dev, generator=g).to(dt[x])
+                  for n, x in ((V, vt_dtype), (q, qa_dtype), (a, qa_dtype)))
+    w = torch.rand(b, V, q, a, G, device=dev, generator=g)[..., 0]
+    cot = torch.randn(b, D, device=dev, generator=g)
+    outs = [torch.empty_like(x) for x in (vt, qt, at)] + [
+        torch.empty(b, V, q, a, device=dev)]
+    floats = ctypes.c_longlong()
+    assert lib.tri_pool_backward_scratch(b, V, q, a, D, int(vt_dtype == "bf16"),
+                                         ctypes.addressof(floats)) == 0
+    scratch = torch.empty(floats.value, device=dev)
+    args = [cot.data_ptr(), vt.data_ptr(), qt.data_ptr(), at.data_ptr(),
+            w.data_ptr(), *w.stride(), *(x.data_ptr() for x in outs),
+            scratch.data_ptr(), scratch.numel(), b, V, q, a, D]
+    fn = lib.tri_pool_backward
+    if vt_dtype == "bf16":
+        fn, args = lib.tri_pool_backward_bf16, args + [int(qa_dtype == "bf16")]
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return (outs, K.trilinear_pool_grads(cot, vt, qt, at, w),
+            lambda: fn(*args, 0, stream))
+
+
+def row_loop_mix(lib_path) -> str:
+    """The instruction mix of the float32 <12, 3> backward's row loop:
+    the backward branch's span with the largest share of FFMA."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    body = next(f for f in sass.split("Function : ")
+                if f.startswith("_ZN") and "kernelIffLi12ELi3E" in f.split()[0])
+    ins = re.findall(r"/\*([0-9a-f]{4})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)"
+                     r"([^;]*);", body)
+    at = {int(x, 16): i for i, (x, _, _) in enumerate(ins)}
+    best = None
+    for i, (x, op, rest) in enumerate(ins):
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if target and int(target.group(1), 16) < int(x, 16):
+            start = at[int(target.group(1), 16)]
+            ops = collections.Counter(o for _, o, _ in ins[start:i + 1])
+            share = ops["FFMA"] / sum(ops.values())
+            if best is None or share > best[0]:
+                best = share, ops
+    ops = best[1]
+    rest = {o: n for o, n in ops.most_common(12) if o != "FFMA"}
+    return (f"{sum(ops.values())} instructions a row, {ops['FFMA']} FFMA; "
+            f"the rest {rest}")
+
+
+def clocks_while(launch, seconds: float = 2.0) -> str:
+    """``nvidia-smi``'s SM clock and power samples (every 200 ms) while
+    ``launch`` runs back to back for ``seconds``."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader", "-lms", "200"],
+        stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            launch()
+        torch.cuda.synchronize()
+    smi.terminate()
+    samples = smi.communicate()[0].strip().splitlines()
+    return "; ".join(samples[2:-1])
+
+
 def timeline(lib, kind, k1, k2, inst, last, flush):
     """Run the stamped kernel of ``lib`` once, cold L2, after 3 warm runs;
     its stamps in µs from the first and the SM's cycles per µs (from
@@ -449,6 +565,10 @@ def main() -> int:
     sources["k3 shipped, 8 floats a thread"] = (k3_src, ())
     sources.update({f"k3 {n}": (edited(k3_src, e), ())
                     for n, e in K3_VARIANTS.items()})
+    kb_src = (build.CSRC / "tri_pool_backward.cu").read_text()
+    sources["kb shipped"] = (kb_src, ())
+    sources.update({f"kb {n}": (edited(kb_src, e), ())
+                    for n, e in KB_VARIANTS.items()})
     libs = build_all({n.replace(" ", "_").replace(",", "").replace("(", "")
                       .replace(")", ""): src for n, (src, _) in sources.items()})
     names = dict(zip(libs, sources))
@@ -536,6 +656,27 @@ def main() -> int:
                     times.append(f"{ms * 1e3:.1f} / {b2b * 1e3:.2f}")
                 print(f"B={b} {names[key]}, µs single call / back to back: "
                       f"K3 {times[0]}, softmax backward {times[1]}")
+        for label, *shape in KB_SHAPES:
+            row = []
+            for key, lib in libs.items():
+                if not key.startswith("kb"):
+                    continue
+                outs, want, launch = backward_call(lib, label, *shape, dev)
+                assert launch() == 0
+                torch.cuda.synchronize()
+                rel = 1e-4 if shape[3] == "f32" else 2.0 ** -7
+                err = max(((x.float() - y).abs().max() / y.abs().max()).item()
+                          for x, y in zip(outs, want))
+                if err > rel:
+                    raise SystemExit(f"probe: {names[key]} is off by {err:.2e}")
+                ms, _ = time_ms(launch, flush, cycles_per_ms)
+                row.append(f"{names[key]} {ms * 1e3:.1f}")
+            print(f"K2 backward {label}, µs, cold L2: " + "; ".join(row))
+        print(f"K2 backward, float32 <12, 3> row loop: "
+              f"{row_loop_mix(PROBE_DIR / 'libkb_shipped.so')}")
+        _, _, launch = backward_call(libs["kb_shipped"], *KB_SHAPES[0], dev)
+        print(f"K2 backward at B=256 back to back, nvidia-smi clocks.sm, "
+              f"clocks.max.sm, power.draw: {clocks_while(launch)}")
     return 0
 
 

@@ -7,7 +7,9 @@ their wrappers (``vqatpu/kernels/trilinear.py``).
   source ``csrc/rank_softmax.cu``.
 - :func:`trilinear_pool` (K2) replaces ``trilinear_pool_pallas``
   (``vqatpu/kernels/trilinear.py:369-429``): the weighted trilinear pool.
-  CUDA source ``csrc/tri_pool.cu``.
+  CUDA source ``csrc/tri_pool.cu``; its backward, the four cotangents of
+  ``_tri_pool_bwd`` (``:415-426``, which JAX leaves to XLA), CUDA source
+  ``csrc/tri_pool_backward.cu``.
 - :func:`masked_softmax_vqa` (K3) replaces ``masked_softmax_vqa_pallas``
   (``vqatpu/kernels/trilinear.py:207-243``): the masked softmax of given
   logits, float32 or bf16, into float32.  CUDA source
@@ -31,11 +33,13 @@ A wrapper runs the plain version for CPU tensors, and autograd
 differentiates it there.  For CUDA tensors it launches its kernel, or
 raises: nothing falls back.  The CUDA path goes through a
 ``torch.autograd.Function`` whose backward follows the JAX ``custom_vjp``:
-the softmax backward kernel, then the gradient products that JAX leaves to
-XLA (:func:`rank_contraction_grads`, :func:`trilinear_pool_grads`) as
-``torch.bmm``.  Under ``no_grad`` or ``inference_mode`` it runs the same
-kernel and records no graph.  ``launches`` counts the kernel launches of
-each wrapper.
+K1's runs the softmax backward kernel, then the two gradient products that
+JAX leaves to XLA (:func:`rank_contraction_grads`) as ``torch.bmm``; K2's
+runs its backward kernel alone (float32 and bf16 instances, each
+cotangent in its primal's dtype), which the tests and ``chip_smoke.py``
+hold to its plain version :func:`trilinear_pool_grads`.  Under
+``no_grad`` or ``inference_mode`` it runs the same kernel and records no
+graph.  ``launches`` counts the kernel launches of each wrapper.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ SOFTMAX_VQA_MAX_SLICE = 2**31 - 1  # elements of one sample, V*Q*A*G
 launches = {"fused_rank_softmax": 0, "trilinear_pool": 0,
             "masked_softmax_vqa": 0, "softmax_vqa_backward": 0,
             "fused_rank_softmax_bf16": 0, "trilinear_pool_bf16": 0,
-            "masked_softmax_vqa_bf16": 0}
+            "masked_softmax_vqa_bf16": 0, "trilinear_pool_backward": 0,
+            "trilinear_pool_backward_bf16": 0}
 _launch_lock = threading.Lock()
 
 
@@ -175,11 +180,12 @@ def rank_contraction_grads(dl: torch.Tensor, v_r: torch.Tensor,
 
 def trilinear_pool_grads(g: torch.Tensor, vt: torch.Tensor, qt: torch.Tensor,
                          at: torch.Tensor, w: torch.Tensor):
-    """The four cotangents of the pool (``vqatpu/kernels/trilinear.py:
-    415-426``) for ``g`` [B, D].  With ``P[b,(j,l),d] = qt[b,j,d]·at[b,l,d]``
-    and ``wv = wᵀ vt`` [B, QA, D], each product is one ``torch.bmm``: no
-    [B, V, Q, D] intermediate is formed.  bf16 operands are promoted
-    against the float32 ``g``, as jnp does; the products are float32."""
+    """Plain version of :func:`_tri_pool_backward_kernel`: the four
+    cotangents of the pool (``vqatpu/kernels/trilinear.py:415-426``) for
+    ``g`` [B, D].  With ``P[b,(j,l),d] = qt[b,j,d]·at[b,l,d]`` and ``wv =
+    wᵀ vt`` [B, QA, D], each product is one ``torch.bmm``: no [B, V, Q, D]
+    intermediate is formed.  bf16 operands are promoted against the float32
+    ``g``, as jnp does; the products are float32."""
     vt, qt, at = vt.float(), qt.float(), at.float()
     B, V, D = vt.shape
     Q, A = qt.shape[1], at.shape[1]
@@ -304,6 +310,48 @@ def _tri_pool_kernel(vt, qt, at, w) -> torch.Tensor:
     return out
 
 
+def _tri_pool_backward_kernel(g, vt, qt, at, w):
+    """(gvt, gqt, gat, gw), the cotangents of :func:`trilinear_pool` for
+    ``g`` [B, D] float32 (contiguous, 16-byte aligned), each in its
+    primal's dtype (``gw`` float32 [B,V,Q,A], contiguous): the backward of
+    its ``autograd.Function``, on the card.  ``trilinear_pool_grads`` is
+    its plain version."""
+    _check_pool(vt, qt, at, w)
+    B, V, D = vt.shape
+    Q, A = qt.shape[1], at.shape[1]
+    dev = vt.device
+    if Q > TRI_POOL_MAX_Q or A > TRI_POOL_MAX_A:
+        raise ValueError(f"Q={Q}, A={A} exceed the kernel's "
+                         f"{TRI_POOL_MAX_Q}, {TRI_POOL_MAX_A}")
+    if D % _unit(vt):
+        raise ValueError(f"D = {D} must be a multiple of {_unit(vt)} for "
+                         f"{vt.dtype} (the kernel's 16-byte copies)")
+    _check(g, "g", (B, D), torch.float32, dev)
+    _check_cuda(dev, g=g, vt=vt, qt=qt, at=at)
+    _check_aligned(g=g, vt=vt, qt=qt, at=at)
+    gvt, gqt, gat = (torch.empty_like(x) for x in (vt, qt, at))
+    gw = torch.empty((B, V, Q, A), dtype=torch.float32, device=dev)
+    if B == 0 or D == 0:
+        return gvt, gqt, gat, gw.zero_()
+    lib = build.load("tri_pool_backward")
+    floats = ctypes.c_longlong()
+    _raise_on(lib.tri_pool_backward_scratch(
+        B, V, Q, A, D, int(vt.dtype == torch.bfloat16),
+        ctypes.addressof(floats)), "tri_pool_backward_scratch")
+    scratch = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    args = (g.data_ptr(), vt.data_ptr(), qt.data_ptr(), at.data_ptr(),
+            w.data_ptr(), *w.stride(), gvt.data_ptr(), gqt.data_ptr(),
+            gat.data_ptr(), gw.data_ptr(), scratch.data_ptr(), scratch.numel(),
+            B, V, Q, A, D)
+    sfx = _bf16_suffix(vt)
+    if sfx:
+        args += (int(qt.dtype == torch.bfloat16),)
+    fn = "tri_pool_backward" + sfx
+    _raise_on(getattr(lib, fn)(*args, dev.index or 0, _stream(dev)), fn)
+    _count("trilinear_pool_backward" + sfx)
+    return gvt, gqt, gat, gw
+
+
 def _softmax_vqa_call(fn_name: str, counter: str, names, a: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """Launch one of ``csrc/softmax_vqa.cu``'s kernels: ``a`` [B,V,Q,A,G]
@@ -371,9 +419,7 @@ class _TrilinearPool(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
-        return tuple(x.to(p.dtype) for x, p in
-                     zip(trilinear_pool_grads(g, *saved), saved))
+        return _tri_pool_backward_kernel(g.contiguous(), *ctx.saved_tensors)
 
 
 class _MaskedSoftmaxVQA(torch.autograd.Function):
@@ -420,6 +466,21 @@ def fused_rank_softmax(v_r: torch.Tensor, tqa: torch.Tensor,
     return _FusedRankSoftmax.apply(v_r, tqa, v_mask)
 
 
+def _check_pool(vt, qt, at, w) -> None:
+    """The operands :func:`trilinear_pool` and its backward kernel take."""
+    B, V, D = vt.shape
+    Q, A = qt.shape[1], at.shape[1]
+    dev = vt.device
+    _check_operand(vt, "vt")
+    _check_operand(qt, "qt")
+    if vt.dtype == torch.float32 and qt.dtype != torch.float32:
+        raise TypeError(f"qt: dtype {qt.dtype} with vt {vt.dtype}: no kernel "
+                        "instance takes it")
+    _check(qt, "qt", (B, Q, D), qt.dtype, dev)
+    _check(at, "at", (B, A, D), qt.dtype, dev)
+    _check(w, "w", (B, V, Q, A), torch.float32, dev)
+
+
 def trilinear_pool(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
     """out [B,D] = sum_{i,j,l} vt[b,i,d] w[b,i,j,l] qt[b,j,d] at[b,l,d].
@@ -432,19 +493,8 @@ def trilinear_pool(vt: torch.Tensor, qt: torch.Tensor, at: torch.Tensor,
     ``w`` may have any strides: the kernel reads one glimpse of the
     [B,V,Q,A,G] attention (``att[..., g]``, stride G) in place, and the
     backward's ``gw`` flows back into the attention's gradient."""
-    B, V, D = vt.shape
-    Q, A = qt.shape[1], at.shape[1]
-    dev = vt.device
-    _check_operand(vt, "vt")
-    _check_operand(qt, "qt")
-    if vt.dtype == torch.float32 and qt.dtype != torch.float32:
-        raise TypeError(f"qt: dtype {qt.dtype} with vt {vt.dtype}: no kernel "
-                        "instance takes it")
-    _check(qt, "qt", (B, Q, D), qt.dtype, dev)
-    _check(at, "at", (B, A, D), qt.dtype, dev)
-    _check(w, "w", (B, V, Q, A), torch.float32, dev)
-    _check(vt, "vt", (B, V, D), vt.dtype, dev)
-    if dev.type == "cpu":
+    _check_pool(vt, qt, at, w)
+    if vt.device.type == "cpu":
         return trilinear_pool_ref(vt, qt, at, w)
     return _TrilinearPool.apply(vt, qt, at, w)
 
