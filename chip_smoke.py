@@ -10,7 +10,8 @@ them caught, so any failure exits non-zero:
    5 design (f32 FMAs on the CUDA cores; for phase 4d), all at once; check
    that ``ptxas`` spills nothing in the tensor-core kernels and that
    ``cuobjdump -sass`` finds HMMA (tensor-core) instructions in every bf16
-   instance of K1 and K2 and none in their float32 instances;
+   instance of K1 and K2, none in their float32 instances, and some in
+   every instance of K2's backward;
 3. hold each kernel against its plain PyTorch version on the card, at the
    inputs the full-width CTI model gives it at batch 1 and 128 (V=50, 44
    real boxes, the last row fully masked), on ragged large-V inputs, and
@@ -212,12 +213,16 @@ at ``compute_dtype="bfloat16"``).  Then:
     row-sharded store at 2 ranks, its gathers bit-equal to the replicated
     store's.  Two processes on one card check correctness, not scaling.
 
-K2's backward kernel (``csrc/tri_pool_backward.cu``, PR 13) adds to the
-phases: 3c holds it to ``trilinear_pool_grads`` (the four ``torch.bmm`` it
-replaces) at the training batch's inputs, ragged V=293, one box, V=2048,
-D=512 and 1016, B=0, Q*A=72 and 256, with a sample whose ``w`` is all zero,
-in float32 and in both bf16 instances (3b), two calls giving the same
-bits; 4c times it alone (float32, bf16 at both glimpses) and beside the
+K2's backward kernel (``csrc/tri_pool_backward.cu``, on the tensor cores)
+adds to the phases: 3c holds it to
+``trilinear_pool_grads`` (the four ``torch.bmm`` it replaces) at the
+training batch's inputs, ragged V=293, one box, V=2048, D=512 and 1016,
+B=0, Q*A=72 and 256, with a sample whose ``w`` is all zero, in float32 and
+in both bf16 instances (3b), two calls giving the same bits and a
+sample's cotangents the same bits at B=3 as at B=256; at the model's
+inputs and wherever it is timed, each float32 cotangent's error against a
+float64 ``trilinear_pool_grads`` must be no more than twice the float32
+plain version's (cuBLAS in full float32); 4c times it alone (float32, bf16 at both glimpses) and beside the
 forward+backward rows puts the forward kernel followed by the four
 ``torch.bmm`` (``bmm_ms``); 12b does both at Visual7W's shapes and 14 at
 tp's D=512 (rows of the JSON line); every training path checks its
@@ -2393,7 +2398,7 @@ def phase13_profile(path_counts, p9) -> None:
     assert len(steps) == 3 and on_card
     assert any("rank_softmax" in k for k in kernels)
     assert any("tri_pool_kernel" in k for k in kernels)
-    assert any("tri_pool_backward_kernel" in k for k in kernels)
+    assert any("tri_pool_backward_mma_kernel" in k for k in kernels)
 
 
 # -- 14. the preprocessing tools and several processes -----------------------
@@ -2985,16 +2990,16 @@ def main() -> int:
             if (spill and fn and ("mma_kernel" in fn or "tri_pool_backward" in fn)
                     and spill.groups() != ("0", "0")):
                 raise SystemExit(f"{fn} spills: {line.strip()}")
-    # the bf16 instances run on the tensor cores (HMMA), the float32 ones
-    # never do
-    for name in ("rank_softmax", "tri_pool"):
+    # the tensor-core kernels (K1's and K2's bf16 instances, every
+    # instance of K2's backward) run HMMA, the others never do
+    for name in ("rank_softmax", "tri_pool", "tri_pool_backward"):
         for fn, n_hmma in sass_hmma(build.library_path(name)).items():
             on_tc = "mma_kernel" in fn
             print(f"  {name}: {n_hmma} HMMA in {fn}")
             if on_tc != (n_hmma > 0):
-                raise SystemExit(f"{fn}: {n_hmma} HMMA instructions; the bf16 "
-                                 "instances need them, the float32 ones must "
-                                 "have none")
+                raise SystemExit(f"{fn}: {n_hmma} HMMA instructions; the "
+                                 "tensor-core kernels need them, the others "
+                                 "must have none")
 
     # -- 3. kernels against their plain versions --------------------------
     cfg = ModelConfig(**CFG)
@@ -3221,28 +3226,41 @@ def main() -> int:
                 att_big, 1, *k3_big)
 
     # -- 3c. K2's backward kernel against its plain version ---------------
-    def check_k2_backward(label, args, rel=GRAD_REL_TOL):
+    def check_k2_backward(label, args, rel=GRAD_REL_TOL, f64=False):
         """K2's backward kernel (``_tri_pool_backward_kernel``) on ``args`` =
         (g, vt, qt, at, w) against ``trilinear_pool_grads``, the four
         ``torch.bmm`` of PR 2-12: within ``rel`` of each plain cotangent's
         largest magnitude, in its primal's dtype, finite, the same bits
         from a second call, and, where sample 1's ``w`` is all zero, its
-        gvt, gqt and gat exactly zero."""
+        gvt, gqt and gat exactly zero.  With ``f64``, each cotangent's
+        largest error against a float64 ``trilinear_pool_grads`` is
+        printed beside the float32 plain version's, and must be no more
+        than twice it for every cotangent of a float32 ``vt`` and for gw."""
         got = K._tri_pool_backward_kernel(*args)
         again = K._tri_pool_backward_kernel(*args)
         want = K.trilinear_pool_grads(*args)
+        ref = (K.trilinear_pool_grads(*args, dtype=torch.float64) if f64
+               else (None,) * 4)
         torch.cuda.synchronize()
         parts, worst, ok = [], 0.0, True
-        for name, x, y, z, p in zip(("gvt", "gqt", "gat", "gw"), got, want,
-                                    again, args[1:]):
+        for name, x, y, z, p, r in zip(("gvt", "gqt", "gat", "gw"), got, want,
+                                       again, args[1:], ref):
             err = (x.float() - y).abs().max().item() if y.numel() else 0.0
             tol = rel * y.abs().max().item() if y.numel() else 0.0
             same = torch.equal(x, z)
             ok &= (err <= tol and same and x.dtype == p.dtype
                    and bool(x.isfinite().all()))
             worst = max(worst, err)
+            vs64 = ""
+            if r is not None and y.numel():
+                e64 = (x.double() - r).abs().max().item()
+                p64 = (y.double() - r).abs().max().item()
+                held = args[1].dtype == torch.float32 or name == "gw"
+                ok &= not held or e64 <= 2 * p64
+                vs64 = (f", float64 error {e64:.3e} against the plain "
+                        f"version's {p64:.3e}" + (" (at most 2x)" if held else ""))
             parts.append(f"{name} {err:.3e} (tol {tol:.3e}, {x.dtype}"
-                         + ("" if same else ", NOT bit-equal") + ")")
+                         + ("" if same else ", NOT bit-equal") + vs64 + ")")
         w = args[4]
         if w.shape[0] > 1 and not w[1].any():
             zero = all(not x[1].any() for x in got[:3])
@@ -3253,6 +3271,17 @@ def main() -> int:
             raise SystemExit(f"K2's backward disagrees with its plain version "
                              f"or repeats other bits: {label}")
         return worst
+
+    def check_k2_backward_bits(label, args, rows=slice(2, 5)):
+        """A sample's cotangents from K2's backward kernel are the same bits
+        in a batch of 3 (``rows`` of ``args``, copied) as in the whole."""
+        full = K._tri_pool_backward_kernel(*args)
+        part = K._tri_pool_backward_kernel(*(x[rows].contiguous() for x in args))
+        same = all(torch.equal(x[rows], y) for x, y in zip(full, part))
+        print(f"K2 backward {label}: samples {rows.start}-{rows.stop - 1} "
+              f"alone the same bits as in the batch: {same}")
+        if not same:
+            raise SystemExit(f"K2's backward depends on the batch: {label}")
 
     def bwd_inputs(b, v_len, seed, D=1024, q_=Q, a_=A, vt_dtype=torch.float32,
                    qa_dtype=torch.float32):
@@ -3270,9 +3299,12 @@ def main() -> int:
     # the training batch's inputs, ragged V=293, and the kernel's edges:
     # one box, V=2048 (phase 13's), tp's D=512, D off the 256-d span, B=0,
     # Q*A=72 (the <6, 6> instance, 2 passes) and 256 (<4, 8>, 8 passes)
-    check_k2_backward(f"B={TRAIN_B} V={V} (the model's inputs)", (
-        cotangent((TRAIN_B, d["vt"].shape[-1]), 7), d["vt"], d["qt"], d["at"],
-        d["att"][..., 0]))
+    k2_model_args = (cotangent((TRAIN_B, d["vt"].shape[-1]), 7), d["vt"],
+                     d["qt"], d["at"], d["att"][..., 0])
+    check_k2_backward(f"B={TRAIN_B} V={V} (the model's inputs)", k2_model_args,
+                      f64=True)
+    check_k2_backward_bits(f"B={TRAIN_B} V={V}", k2_model_args)
+    del k2_model_args
     check_k2_backward("ragged V=293", (cotangent((4, 1024), 8), *k2_big[:3],
                                        att_big[..., 1]))
     for n, v_len, D_, q_, a_ in ((1, 1, 1024, Q, A), (3, 2048, 1024, Q, A),
@@ -3425,9 +3457,12 @@ def main() -> int:
                    grad_rel=BF16_GRAD_REL_TOL)
     for g_, args in ((0, (d["vt"], d["qt"], d["at"])),
                      (1, (d["vt1"], d["qt1"], d["at1"]))):
-        check_k2_backward(f"bf16 B={TRAIN_B} V={V} glimpse {g_}",
-                          (cotangent((TRAIN_B, d["vt"].shape[-1]), 14 + g_),
-                           *args, d["att"][..., g_]), BF16_GRAD_REL_TOL)
+        k2_args = (cotangent((TRAIN_B, d["vt"].shape[-1]), 14 + g_), *args,
+                   d["att"][..., g_])
+        check_k2_backward(f"bf16 B={TRAIN_B} V={V} glimpse {g_}", k2_args,
+                          BF16_GRAD_REL_TOL, f64=True)
+        check_k2_backward_bits(f"bf16 B={TRAIN_B} V={V} glimpse {g_}", k2_args)
+        del k2_args
     for n, v_len, D_, q_, a_, qa_dtype in (
             (1, 1, 1024, Q, A, torch.float32), (3, 2048, 1024, Q, A, bf16),
             (3, 65, 1016, Q, A, torch.float32), (0, V, 1024, Q, A, bf16),
@@ -3717,7 +3752,8 @@ def main() -> int:
         its plain version and PR 2-12's route, both ``trilinear_pool_grads``
         (the four ``torch.bmm``, which the port no longer calls), and its
         bound."""
-        err = check_k2_backward(f"{label} (the timed inputs)", args, rel)
+        err = check_k2_backward(f"{label} (the timed inputs, w's strides "
+                                f"{args[4].stride()})", args, rel, f64=True)
         with torch.no_grad():
             return timed(
                 "trilinear_pool_backward" + ("_bf16" if args[1].dtype == bf16
@@ -4311,11 +4347,23 @@ def main() -> int:
               f"{ {k: v / n_steps for k, v in counts.items() if v} }")
         assert np.isfinite(loss), loss
         prof_steps = 3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(prof_steps):
-                m = step(state, next_batch(), 1e-3, gen)
-            torch.cuda.synchronize()
+        # the operands K2's backward kernel gets in the step: w's strides
+        # and whether vt is contiguous, set by set
+        seen, bwd_kernel = set(), K._tri_pool_backward_kernel
+
+        def seeing(g_, vt_, qt_, at_, w_):
+            seen.add((tuple(w_.shape), w_.stride(), vt_.is_contiguous()))
+            return bwd_kernel(g_, vt_, qt_, at_, w_)
+
+        K._tri_pool_backward_kernel = seeing
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(prof_steps):
+                    m = step(state, next_batch(), 1e-3, gen)
+                torch.cuda.synchronize()
+        finally:
+            K._tri_pool_backward_kernel = bwd_kernel
         averages = prof.key_averages()
         print(f"torch.profiler, {prof_steps} training steps, {label} (times "
               f"summed over them):")
@@ -4336,6 +4384,15 @@ def main() -> int:
               f"kernels per step (L2 warm): "
               + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in own.items()))
         assert all(v > 0 for v in own.values()), own
+        per_launch = {name: (sum(e.self_device_time_total for e in on_card if name in e.key),
+                             sum(e.count for e in on_card if name in e.key))
+                      for name in ("tri_pool_backward_mma_kernel",
+                                   "tri_pool_backward_gw_sum_kernel")}
+        print(f"profiled step, {label}: K2's backward in the step (L2 warm), "
+              + ", ".join(f"{name} {n} launches, {t / max(n, 1):.1f} us a launch"
+                          for name, (t, n) in per_launch.items())
+              + f"; w [shape, strides] and vt contiguous as the kernel got them: "
+              f"{sorted(seen)}")
         return counts, n_steps, step_ms
 
     batch = numpy_batch(cfg, TRAIN_B, seed=0, target=True)
@@ -4456,7 +4513,8 @@ def main() -> int:
             if grid:  # V=50's is held to it as it is timed, below
                 check_k2_backward(
                     f"{shape} (the <6, 6> instance, 2 passes over Q)",
-                    (g_mc, d["vt"], d["qt"], d["at"], d["att"][..., 0]))
+                    (g_mc, d["vt"], d["qt"], d["at"], d["att"][..., 0]),
+                    f64=True)
             keep = d["mask"].repeat_interleave(qa, 1)[..., None]
             k1_args = k1_of(d) + (keep,)
             att = d["att"]
@@ -4543,7 +4601,7 @@ def main() -> int:
             if grid:  # V=50's are held to it as they are timed, below
                 for g_, args in ((0, k2_of(d16)), (1, k2_glimpse1(d16))):
                     check_k2_backward(f"bf16 {shape} glimpse {g_}",
-                                      (g_mc, *args), BF16_GRAD_REL_TOL)
+                                      (g_mc, *args), BF16_GRAD_REL_TOL, f64=True)
             for g_, args in ((0, (d16["vt"], d16["qt"], d16["at"])),
                              (1, (d16["vt1"], d16["qt1"], d16["at1"]))):
                 grad_check(f"K2 bf16 {shape} glimpse {g_}",

@@ -790,6 +790,69 @@ def test_three_term_pool_matches_pallas(rng, V, b, d, qa_dtype):
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4 * scale)
 
 
+# The term pairs (a's term, b's term) csrc/tri_pool_backward.cu sums in a
+# product, smallest first: two float32 operands split in three, an exact
+# bf16 operand against a split one, and gvt at bf16 (two terms each).
+PAIRS_SPLIT = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+PAIRS_EXACT = ((0, 2), (0, 1), (0, 0))
+PAIRS_TWO = ((1, 0), (0, 1), (0, 0))
+
+
+def split_term_pool_grads(g, vt, qt, at, w):
+    """K2's four cotangents as its backward kernel computes them: ``w``,
+    ``gP = qt·at·g`` and a float32 ``vt`` as their :func:`split_bf16x3`
+    terms (a bf16 ``vt`` as it is), each product the sum of its term pairs'
+    products (each exact in float32), every sum float32; each cotangent
+    rounded once to its primal's dtype."""
+    B_, V_, D_ = vt.shape
+    Q_, A_ = qt.shape[1], at.shape[1]
+    gp = ((qt.float()[:, :, None] * at.float()[:, None]).reshape(B_, Q_ * A_, D_)
+          * g[:, None])
+    ws = [x.float() for x in K.split_bf16x3(w.reshape(B_, V_, Q_ * A_))]
+    gps = [x.float() for x in K.split_bf16x3(gp)]
+    f32 = vt.dtype == torch.float32
+    vts = [x.float() for x in K.split_bf16x3(vt)] if f32 else [vt.float()]
+    pairs = PAIRS_SPLIT if f32 else PAIRS_EXACT
+
+    def product(a_terms, b_terms, pairs, fn):
+        return sum(fn(a_terms[i], b_terms[k]) for i, k in pairs)
+
+    u = product(vts, ws, pairs, lambda v, w_: torch.bmm(w_.transpose(1, 2), v))
+    gvt = product(ws, gps, pairs if f32 else PAIRS_TWO, torch.bmm)
+    gw = product(vts, gps, pairs, lambda v, p: torch.bmm(v, p.transpose(1, 2)))
+    u = u.reshape(B_, Q_, A_, D_)
+    gqt = (u * at.float()[:, None]).sum(2) * g[:, None]
+    gat = (u * qt.float()[:, :, None]).sum(1) * g[:, None]
+    return (gvt.to(vt.dtype), gqt.to(qt.dtype), gat.to(at.dtype),
+            gw.reshape(B_, V_, Q_, A_))
+
+
+@pytest.mark.parametrize("q,a,V,d,vt_dtype,qa_dtype", K2_BWD_CASES)
+def test_split_term_pool_grads_match_jax_custom_vjp(rng, q, a, V, d, vt_dtype,
+                                                    qa_dtype):
+    """The tensor-core K2 backward's arithmetic (its bf16 terms and term
+    pairs, :func:`split_term_pool_grads`) against JAX's ``_tri_pool_bwd``
+    on the same operands, ``w`` one strided glimpse: within 1e-4 of each
+    float32 cotangent's largest magnitude and 2^-7 of each bf16 one's (as
+    chip_smoke.py holds the kernel to its plain version)."""
+    vt, qt, at = (rng.randn(B, n, d).astype(np.float32) for n in (V, q, a))
+    att = rng.rand(B, V, q, a, G).astype(np.float32)
+    g = rng.randn(B, d).astype(np.float32)
+    (jvt, tvt), (jqt, tqt), (jat, tat) = (
+        operand_pair(x, dt) for x, dt in ((vt, vt_dtype), (qt, qa_dtype),
+                                          (at, qa_dtype)))
+    want = jax.jit(_tri_pool_bwd)((jvt, jqt, jat, jnp.asarray(att)[..., 1]),
+                                  jnp.asarray(g))
+    got = split_term_pool_grads(torch.from_numpy(g), tvt, tqt, tat,
+                                torch.from_numpy(att)[..., 1])
+    for x, y, p in zip(got, want, (tvt, tqt, tat, torch.zeros(()))):
+        y = np.asarray(y, np.float32)
+        assert x.dtype == p.dtype and x.shape == y.shape
+        rel = 2.0 ** -7 if x.dtype == torch.bfloat16 else 1e-4
+        np.testing.assert_allclose(x.float().numpy(), y, rtol=0,
+                                   atol=rel * np.abs(y).max())
+
+
 def assert_bf16_close(got: torch.Tensor, want: np.ndarray):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=BF16_REL,
                                atol=BF16_REL * np.abs(want).max())

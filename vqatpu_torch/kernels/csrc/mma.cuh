@@ -1,7 +1,8 @@
 // bf16 tensor-core products with f32 accumulators (mma.sync, sm_80 and
 // later), shared by the bf16-operand instances of rank_softmax.cu and
-// tri_pool.cu: fragments loaded from shared memory by ldmatrix, one
-// m16n8k16 product a call.  Also the tensor-map copies (TMA, sm_90) that
+// tri_pool.cu and by tri_pool_backward.cu: fragments loaded from shared
+// memory by ldmatrix, one m16n8k16 product a call, and split_bf16x3, which
+// makes a float32 operand three bf16 ones.  Also the tensor-map copies (TMA, sm_90) that
 // feed rank_softmax.cu's ring: one thread asks for a whole box, and the
 // copy reports its bytes to an mbarrier in shared memory.
 //
@@ -20,22 +21,46 @@
 
 namespace {
 
+// w = w0 + w1 + w2, each bf16 rounded to nearest from what the terms
+// before it leave: every bf16 x bf16 product is exact in f32, so three
+// products give w * x to f32 accuracy
+__device__ __forceinline__ void split_bf16x3(float w, __nv_bfloat16& w0, __nv_bfloat16& w1,
+                                             __nv_bfloat16& w2) {
+  w0 = __float2bfloat16_rn(w);
+  const float r = w - __bfloat162float(w0);
+  w1 = __float2bfloat16_rn(r);
+  w2 = __float2bfloat16_rn(r - __bfloat162float(w1));
+}
+
+// A generic pointer into shared memory as the 32-bit address that
+// ldmatrix takes: a per-thread base plus constant offsets folds into the
+// instruction, where each generic address would hold a register.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
 // Four 8x8 b16 matrices; lanes 8m..8m+7 give the 16-byte rows of matrix m.
 // Lane l receives row l/4, elements 2*(l%4) and 2*(l%4)+1, of each.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned s) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
 }
 
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  ldmatrix_x4(r, smem_addr(p));
+}
+
 // The same, each matrix transposed: lane l receives column l/4, rows
 // 2*(l%4) and 2*(l%4)+1.  From [k][n] rows this gives B fragments.
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned s) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  ldmatrix_x4_trans(r, smem_addr(p));
 }
 
 // c += a * b over one 16 x 8 x 16 tile: bf16 operands, f32 accumulators.
@@ -46,6 +71,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a * b over one 16 x 8 x 16 tile (zero accumulators in).
+__device__ __forceinline__ void mma_bf16_zero(float (&c)[4], const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 // mbarrier with `count` arrivals a phase; then fence_barrier_init and a

@@ -345,15 +345,6 @@ struct MmaSmem {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
-// w = w0 + w1 + w2, each bf16 rounded to nearest: every bf16 x bf16
-// product is exact in f32, so three products give w * vt to f32 accuracy
-__device__ __forceinline__ void split_bf16x3(float w, bf16& w0, bf16& w1, bf16& w2) {
-  w0 = __float2bfloat16_rn(w);
-  const float r = w - __bfloat162float(w0);
-  w1 = __float2bfloat16_rn(r);
-  w2 = __float2bfloat16_rn(r - __bfloat162float(w1));
-}
-
 // Block (b, y) takes d spans [y * spans, y * spans + spans) of sample b in
 // turn; each span runs its passes of NQ question tokens (one where Q <=
 // NQ), each pass its steps of KV box rows (one where V <= KV).  The

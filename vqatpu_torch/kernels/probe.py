@@ -28,12 +28,17 @@ vqatpu_torch.kernels.probe``.  Prints its findings; it is not part of
    between two events, :func:`~vqatpu_torch.kernels.timing.time_back_to_back_ms`),
    which leaves out the single call's event overhead.
 4. K2's backward (``csrc/tri_pool_backward.cu``): the shipped kernel and
-   copies with one line changed (rows a stage, ring depth, blocks an SM,
-   the row loop's order), each held to ``trilinear_pool_grads`` and timed
-   as in 2 at B=256 free-form and Visual7W shapes, float32 and bf16; the
-   instruction mix of the float32 instance's row loop (``cuobjdump
-   -sass``: the loop with the most FFMA); and the SM clock and power that
-   ``nvidia-smi`` reads while the kernel runs for 2 s.
+   copies with a few lines changed (:data:`KB_VARIANTS`: where sums and
+   copies happen, tiles at once), each held to ``trilinear_pool_grads``
+   (at float32 also printing each cotangent's float64 error over the
+   plain version's) and timed as in 2 at B=256 free-form and Visual7W
+   shapes, float32 and bf16; a clock64 timeline of block 0's first unit
+   (:data:`KB_TIMELINE`); the
+   instruction mix of the float32 instance's stage loop (``cuobjdump
+   -sass``: the shortest loop that holds all its HMMA); each instance's
+   registers (``ptxas``), shared memory, and so blocks an SM and warps a
+   scheduler; and the SM clock and power that ``nvidia-smi`` reads while
+   the kernel runs for 2 s.
 
 The copies are made by replacing lines of the sources; a source edited
 so that a line is gone makes this script stop with that line's text.
@@ -270,34 +275,73 @@ K2_VARIANTS = {
 }
 
 # K2's backward: one line of csrc/tri_pool_backward.cu changed
-ROW_LOOP = """#pragma unroll
-        for (int q = 0; q < PPL; ++q) {
-          sw[q] = 0.f;
+# mma_tiles summing each tile's pairs and k16 steps in c itself
+MMA_FRESH = """        if (k == 0)
+          mma_bf16_zero(t[m][n], a[m][PR::a(k)], b0, b1);
+        else
+          mma_bf16(t[m][n], a[m][PR::a(k)], b0, b1);"""
+MMA_CHAINED = """        mma_bf16(c[m][n0 + n], a[m][PR::a(k)], b0, b1);"""
+MMA_ADD = """#pragma unroll
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-          for (int k = 0; k < ND; ++k) {
-            u[q][k] = fmaf(wr[q], v[k], u[q][k]);
-            sv_[k] = fmaf(wr[q], gp[q][k], sv_[k]);
-            sw[q] = fmaf(v[k], gp[q][k], sw[q]);
-          }
-        }"""
-ROW_LOOP_D_OUTER = """#pragma unroll
-        for (int q = 0; q < PPL; ++q) sw[q] = 0.f;
+    for (int n = 0; n < N2; ++n)
 #pragma unroll
-        for (int k = 0; k < ND; ++k) {
-#pragma unroll
-          for (int q = 0; q < PPL; ++q) {
-            u[q][k] = fmaf(wr[q], v[k], u[q][k]);
-            sv_[k] = fmaf(wr[q], gp[q][k], sv_[k]);
-            sw[q] = fmaf(v[k], gp[q][k], sw[q]);
-          }
-        }"""
+      for (int e = 0; e < 4; ++e) c[m][n0 + n][e] += t[m][n][e];
+"""
 KB_VARIANTS = {
-    "4 box rows a stage": [("constexpr int VR = 8; ", "constexpr int VR = 4; ")],
-    "ring of 3 stages": [("constexpr int STAGES = 4; ", "constexpr int STAGES = 3; ")],
-    "one block an SM": [("__launch_bounds__(THREADS, 2)",
-                         "__launch_bounds__(THREADS, 1)")],
-    "d outer in the row loop": [(ROW_LOOP, ROW_LOOP_D_OUTER)],
+    "sums in the tensor cores (no FADD)": [(MMA_FRESH, MMA_CHAINED), (MMA_ADD, "")],
+    "all n8 tiles of gw and gvt at once at float32": [
+        ("          if constexpr (F32) {\n#pragma unroll\n            for (int np = 0; np < NP; ++np) {",
+         "          if constexpr (false) {\n#pragma unroll\n            for (int np = 0; np < NP; ++np) {"),
+        ("constexpr int NH = F32 ? 2 : 1;", "constexpr int NH = 1;")],
+    "gw flushed before the barrier": [
+        ("        if (c > 0) flush(c - 1);\n", "\n"),
+        ("          __syncthreads();  // chunk c has landed; chunk c-1 is done everywhere\n        }\n",
+         "          __syncthreads();  // chunk c has landed; chunk c-1 is done everywhere\n"
+         "          flush(c - 1);\n        }\n")],
+    "next unit's operands at its last chunk": [
+        ("c == (n_chunks > 1 ? n_chunks - 2 : 0)", "c == n_chunks - 1")],
 }
+# K2's backward's stamps, block 0's first unit (item, pass): 0 the kernel's
+# start, 1 the unit's operands and first chunk landed, 2 gP's planes; for
+# chunk c < 8, 3+5c landed, 4+5c w split and a float32 vt split (the
+# warp's d), 5+5c U's products (and the next chunk asked for), 6+5c gw's
+# (and chunk c-1's gw parts flushed), 7+5c gvt's (stored); 45 the last gw
+# part
+# flushed, 46 U in shared memory, 48 the unit's end; 47 the kernel's end
+KB_FIRST = "if (it == blockIdx.x && pass == 0) "
+KB_TIMELINE = [
+    ("namespace {\n", STAMPS + "namespace {\n"),
+    ("  const int sv = (int)w_sv, sq = (int)w_sq, sa = (int)w_sa;\n",
+     "  const int sv = (int)w_sv, sq = (int)w_sq, sa = (int)w_sa;\n"
+     "  STAMP(0);\n  STAMP_NS(0);\n"),
+    ("      __syncthreads();  // this unit's operands and first chunk have landed\n",
+     "      __syncthreads();  // this unit's operands and first chunk have landed\n"
+     f"      {KB_FIRST}STAMP(1);\n"),
+    ("      float u[2][NT][4];", f"      {KB_FIRST}STAMP(2);\n      float u[2][NT][4];"),
+    ("          __syncthreads();  // chunk c has landed; chunk c-1 is done everywhere\n        }\n",
+     "          __syncthreads();  // chunk c has landed; chunk c-1 is done everywhere\n"
+     f"        }}\n        {KB_FIRST}if (c < 8) STAMP(3 + 5 * c);\n"),
+    ("        // the shared addresses of this lane's ldmatrix rows: w's planes and\n",
+     f"        {KB_FIRST}if (c < 8) STAMP(4 + 5 * c);\n"
+     "        // the shared addresses of this lane's ldmatrix rows: w's planes and\n"),
+    ("        // each product's fragments are loaded after the last one's MMAs:\n",
+     f"        {KB_FIRST}if (c < 8) STAMP(5 + 5 * c);\n"
+     "        // each product's fragments are loaded after the last one's MMAs:\n"),
+    ("        // gvt[i, d] = sum_p w[i, p] gP[p, d]: A w ([i][p]), B gP ([d][p]),",
+     f"        {KB_FIRST}if (c < 8) STAMP(6 + 5 * c);\n"
+     "        // gvt[i, d] = sum_p w[i, p] gP[p, d]: A w ([i][p]), B gP ([d][p]),"),
+    ("          __syncwarp();  // the buffer is free for the next stage\n        }\n",
+     "          __syncwarp();  // the buffer is free for the next stage\n        }\n"
+     f"        {KB_FIRST}if (c < 8) STAMP(7 + 5 * c);\n"),
+    ("      flush(n_chunks - 1);\n", f"      flush(n_chunks - 1);\n      {KB_FIRST}STAMP(45);\n"),
+    ("      __syncthreads();\n      const int d = d0 + tid;  // a d a thread\n",
+     f"      __syncthreads();\n      {KB_FIRST}STAMP(46);\n      const int d = d0 + tid;  // a d a thread\n"),
+    ("            gat[((size_t)b * A + l) * D + d] = from_f32<TQ>(m[l] * ge);\n        }\n      }\n",
+     "            gat[((size_t)b * A + l) * D + d] = from_f32<TQ>(m[l] * ge);\n"
+     f"        }}\n      }}\n      {KB_FIRST}STAMP(48);\n"),
+]
+KB_END = "\n// gw[b, e] = sum over the spans s, in order, of part[b, s, e]"
 # (label, B, Q, A, vt dtype, qt/at dtype) of K2's backward in section 4
 KB_SHAPES = (("B=256", 256, Q, A, "f32", "f32"),
              ("B=256 bf16 glimpse 0", 256, Q, A, "bf16", "bf16"),
@@ -311,6 +355,9 @@ def edited(source: str, edits) -> str:
             raise SystemExit(f"probe: the source no longer has {old!r}")
         source = source.replace(old, new, 1)
     return source
+
+
+REGISTERS = {}  # K2 backward library: {kernel: registers a thread}
 
 
 def build_all(sources):
@@ -335,6 +382,14 @@ def build_all(sources):
                          if "spill" in line and " 0 bytes spill stores" not in line})
         if spills:
             print(f"{name}: spills {spills}")
+        if name.startswith("kb"):
+            fn, REGISTERS[name] = None, {}
+            for line in out.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                fn = m.group(1) if m else fn
+                m = re.search(r"Used (\d+) registers", line)
+                if m and fn:
+                    REGISTERS[name][fn] = int(m.group(1))
         lib = ctypes.CDLL(str(PROBE_DIR / f"lib{name}.so"))
         kernel = {"k1": "rank_softmax", "k2": "tri_pool",
                   "k3": "softmax_vqa", "kb": "tri_pool_backward"}[name[:2]]
@@ -427,10 +482,11 @@ def softmax_calls(lib, b: int, dev: torch.device):
     return fwd, bwd, first
 
 
-def backward_call(lib, label, b, q, a, vt_dtype, qa_dtype, dev):
+def backward_call(lib, label, b, q, a, vt_dtype, qa_dtype, dev, f64=False):
     """The bare launch of library ``lib``'s K2 backward on seeded inputs
     of shape ``label`` (one strided glimpse of ``w``), its outputs, and
-    the plain version's to hold them to."""
+    the plain version's to hold them to (with ``f64``, and the plain
+    version's in float64 last)."""
     g = torch.Generator(device=dev).manual_seed(b + q * a)
     dt = {"f32": torch.float32, "bf16": torch.bfloat16}
     vt, qt, at = (torch.randn(b, n, D, device=dev, generator=g).to(dt[x])
@@ -450,13 +506,18 @@ def backward_call(lib, label, b, q, a, vt_dtype, qa_dtype, dev):
     if vt_dtype == "bf16":
         fn, args = lib.tri_pool_backward_bf16, args + [int(qa_dtype == "bf16")]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    return (outs, K.trilinear_pool_grads(cot, vt, qt, at, w),
-            lambda: fn(*args, 0, stream))
+    # the launch holds its tensors: it passes only their addresses
+    held = (cot, vt, qt, at, w, outs, scratch)
+    call = (outs, K.trilinear_pool_grads(cot, vt, qt, at, w),
+            lambda held=held: fn(*args, 0, stream))
+    if f64:
+        call += (K.trilinear_pool_grads(cot, vt, qt, at, w, dtype=torch.float64),)
+    return call
 
 
-def row_loop_mix(lib_path) -> str:
-    """The instruction mix of the float32 <12, 3> backward's row loop:
-    the backward branch's span with the largest share of FFMA."""
+def stage_loop_mix(lib_path) -> str:
+    """The instruction mix of the float32 <12, 3> backward's stage loop:
+    the shortest backward branch's span that holds all its HMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], check=True,
                           capture_output=True, text=True).stdout
@@ -469,15 +530,33 @@ def row_loop_mix(lib_path) -> str:
     for i, (x, op, rest) in enumerate(ins):
         target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
         if target and int(target.group(1), 16) < int(x, 16):
-            start = at[int(target.group(1), 16)]
-            ops = collections.Counter(o for _, o, _ in ins[start:i + 1])
-            share = ops["FFMA"] / sum(ops.values())
-            if best is None or share > best[0]:
-                best = share, ops
-    ops = best[1]
-    rest = {o: n for o, n in ops.most_common(12) if o != "FFMA"}
-    return (f"{sum(ops.values())} instructions a row, {ops['FFMA']} FFMA; "
-            f"the rest {rest}")
+            ops = collections.Counter(o for _, o, _ in ins[at[int(target.group(1), 16)]:i + 1])
+            if best is None or (ops["HMMA"], -sum(ops.values())) > (
+                    best["HMMA"], -sum(best.values())):
+                best = ops
+    rest = {o: n for o, n in best.most_common(12) if o not in ("HMMA", "FFMA")}
+    return (f"{sum(best.values())} instructions a stage, {best['HMMA']} HMMA, "
+            f"{best['FFMA']} FFMA; the rest {rest}")
+
+
+def kb_residency(source: str, regs: int, f32: bool, nq: int, na: int,
+                 qt_bytes: int) -> str:
+    """Blocks and warps a scheduler that K2's backward (``source``'s WARPS
+    and STAGES; Smem's layout) keeps on an H100 SM at ``regs`` registers a
+    thread for the instance <nq, na> with vt float32 (``f32``) or bf16 and
+    qt of ``qt_bytes``: 64K registers and 228 KB of shared memory (1 KB of
+    it a block's own) an SM, 4 schedulers."""
+    warps, stages = (int(re.search(rf"constexpr int {k} = (\d+);", source).group(1))
+                     for k in ("WARPS", "STAGES"))
+    span, vr, pairs = 32 * warps, 16, nq * na
+    prow = -(-pairs // 16) * 16 + 8
+    smem = (stages * vr * ((span * 4 if f32 else (span + 8) * 2) + pairs * 4)
+            + (3 * vr * (span + 8) * 2 if f32 else 0) + 3 * vr * prow * 2
+            + 3 * span * prow * 2 + (2 if f32 else 3) * warps * vr * 40 * 4
+            + na * span * 4 + 2 * ((nq + na) * span * qt_bytes + span * 4))
+    blocks = min(65536 // (-(-regs // 8) * 8 * 32 * warps), 233472 // (smem + 1024))
+    return (f"{regs} registers, {smem} bytes of shared memory: {blocks} blocks, "
+            f"{blocks * warps / 4:g} warps a scheduler")
 
 
 def clocks_while(launch, seconds: float = 2.0) -> str:
@@ -514,6 +593,32 @@ def timeline(lib, kind, k1, k2, inst, last, flush):
     assert lib.probe_read(clk.ctypes.data, ns.ctypes.data) == 0
     per_us = (clk[last] - clk[0]) / ((int(ns[1]) - int(ns[0])) / 1e3)
     return (clk - clk[0]) / per_us, per_us
+
+
+def kb_timeline(lib, shape, flush, dev) -> str:
+    """K2's backward's stamps (:data:`KB_TIMELINE`) for block 0's first
+    unit of one cold-L2 launch at ``shape`` (a :data:`KB_SHAPES` entry), in
+    µs from the kernel's start, after 3 warm runs."""
+    lib.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    _, _, launch = backward_call(lib, *shape, dev)
+    for _ in range(3):
+        launch()
+    flush.zero_()
+    torch.cuda._sleep(1_000_000)
+    launch()
+    torch.cuda.synchronize()
+    clk = np.zeros(64, np.int64)
+    ns = np.zeros(2, np.uint64)
+    assert lib.probe_read(clk.ctypes.data, ns.ctypes.data) == 0
+    us = (clk - clk[0]) / ((clk[47] - clk[0]) / ((int(ns[1]) - int(ns[0])) / 1e3))
+    n_chunks = -(-V // 16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks = "; ".join("/".join(f"{us[3 + 5 * c + k]:.2f}" for k in range(5))
+                       for c in range(n_chunks))
+    return (f"operands and first chunk landed {us[1]:.2f}, gP's planes {us[2]:.2f}; "
+            f"chunk landed/split/U/gw/gvt {chunks}; last gw flushed {us[45]:.2f}; "
+            f"U stored {us[46]:.2f}; unit done {us[48]:.2f}; the block's "
+            f"{-(-shape[1] * (D // 256) // sms)} items done {us[47]:.2f}")
 
 
 def stamped(source, edits, kernel_end, last):
@@ -567,6 +672,7 @@ def main() -> int:
                     for n, e in K3_VARIANTS.items()})
     kb_src = (build.CSRC / "tri_pool_backward.cu").read_text()
     sources["kb shipped"] = (kb_src, ())
+    sources["kb_timeline"] = (stamped(kb_src, KB_TIMELINE, KB_END, 47), ())
     sources.update({f"kb {n}": (edited(kb_src, e), ())
                     for n, e in KB_VARIANTS.items()})
     libs = build_all({n.replace(" ", "_").replace(",", "").replace("(", "")
@@ -659,21 +765,42 @@ def main() -> int:
         for label, *shape in KB_SHAPES:
             row = []
             for key, lib in libs.items():
-                if not key.startswith("kb"):
+                if not key.startswith("kb") or key == "kb_timeline":
                     continue
-                outs, want, launch = backward_call(lib, label, *shape, dev)
+                f32 = shape[3] == "f32"
+                outs, want, launch, *ref = backward_call(lib, label, *shape, dev, f32)
                 assert launch() == 0
                 torch.cuda.synchronize()
-                rel = 1e-4 if shape[3] == "f32" else 2.0 ** -7
+                rel = 1e-4 if f32 else 2.0 ** -7
                 err = max(((x.float() - y).abs().max() / y.abs().max()).item()
                           for x, y in zip(outs, want))
                 if err > rel:
                     raise SystemExit(f"probe: {names[key]} is off by {err:.2e}")
+                # each cotangent's float64 error over the plain version's
+                vs64 = "" if not f32 else " (float64 error / the plain version's " + " ".join(
+                    f"{(x.double() - r).abs().max().item() / (y.double() - r).abs().max().item():.2f}"
+                    for x, y, r in zip(outs, want, ref[0])) + ")"
                 ms, _ = time_ms(launch, flush, cycles_per_ms)
-                row.append(f"{names[key]} {ms * 1e3:.1f}")
+                row.append(f"{names[key]} {ms * 1e3:.1f}{vs64}")
             print(f"K2 backward {label}, µs, cold L2: " + "; ".join(row))
-        print(f"K2 backward, float32 <12, 3> row loop: "
-              f"{row_loop_mix(PROBE_DIR / 'libkb_shipped.so')}")
+        print(f"K2 backward, float32 <12, 3> stage loop: "
+              f"{stage_loop_mix(PROBE_DIR / 'libkb_shipped.so')}")
+        for key in libs:
+            if not key.startswith("kb") or key == "kb_timeline":
+                continue
+            for fn, regs in REGISTERS[key].items():
+                m = re.search(r"mma_kernelI(\w+?)Li(\d+)ELi(\d+)E", fn)
+                if m:
+                    print(f"K2 backward {names[key]} <{m.group(2)}, {m.group(3)}> "
+                          f"{'float32' if m.group(1) == 'ff' else 'bf16 vt'}"
+                          f"{', qt bf16' if 'S1_' in m.group(1) else ''}: "
+                          + kb_residency(sources[names[key]][0], regs,
+                                         m.group(1) == "ff", int(m.group(2)),
+                                         int(m.group(3)),
+                                         2 if "S1_" in m.group(1) else 4))
+        for shape in KB_SHAPES:
+            print(f"K2 backward {shape[0]} timeline, block 0 (µs from its start): "
+                  + kb_timeline(libs["kb_timeline"], shape, flush, dev))
         _, _, launch = backward_call(libs["kb_shipped"], *KB_SHAPES[0], dev)
         print(f"K2 backward at B=256 back to back, nvidia-smi clocks.sm, "
               f"clocks.max.sm, power.draw: {clocks_while(launch)}")

@@ -179,14 +179,16 @@ def rank_contraction_grads(dl: torch.Tensor, v_r: torch.Tensor,
 
 
 def trilinear_pool_grads(g: torch.Tensor, vt: torch.Tensor, qt: torch.Tensor,
-                         at: torch.Tensor, w: torch.Tensor):
+                         at: torch.Tensor, w: torch.Tensor,
+                         dtype: torch.dtype = torch.float32):
     """Plain version of :func:`_tri_pool_backward_kernel`: the four
     cotangents of the pool (``vqatpu/kernels/trilinear.py:415-426``) for
     ``g`` [B, D].  With ``P[b,(j,l),d] = qt[b,j,d]·at[b,l,d]`` and ``wv =
     wᵀ vt`` [B, QA, D], each product is one ``torch.bmm``: no [B, V, Q, D]
     intermediate is formed.  bf16 operands are promoted against the float32
-    ``g``, as jnp does; the products are float32."""
-    vt, qt, at = vt.float(), qt.float(), at.float()
+    ``g``, as jnp does; the products are in ``dtype`` (float32; float64 for
+    ``chip_smoke.py``'s reference)."""
+    g, vt, qt, at, w = (x.to(dtype) for x in (g, vt, qt, at, w))
     B, V, D = vt.shape
     Q, A = qt.shape[1], at.shape[1]
     w2 = w.reshape(B, V, Q * A)
