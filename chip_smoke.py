@@ -179,12 +179,15 @@ at ``compute_dtype="bfloat16"``).  Then:
     the standard branch (K1 and K2 at V=2048), within 1e-4; (b) a training
     step at B=64, V=2048, dropout on, in four configurations (standard,
     blockwise, ``remat_glimpse``, ``fused_v_tucker``), and standard and
-    ``remat_glimpse`` at bf16 compute: the peak memory allocated, the
-    median step on CUDA events and the launches a step (0 for blockwise; K2
-    twice a glimpse under remat, its recompute), each remat step's first
-    loss equal to its dtype's standard one's and the blockwise one's within
-    1e-4; (c) one fused and one remat step at V=50, B=4 on the card
-    against the CPU with the same injected masks (1e-4); (d) seeded CTI and
+    ``remat_glimpse`` at bf16 compute, and the standard model with
+    ``mask_replay`` (dropout masks drawn again in the backward, none kept)
+    at float32 and bf16: the peak memory allocated, the median step on
+    CUDA events and the launches a step (0 for blockwise; K2 twice a
+    glimpse under remat, its recompute; replay as standard), each remat
+    and replay step's first loss equal to its dtype's standard one's (grad
+    norm within 1e-5) and the blockwise one's within 1e-4; (c) one fused
+    and one remat step at V=50, B=4 on the card against the CPU with the
+    same injected masks (1e-4); (d) seeded CTI and
     BAN weights written by the port's exporter to ``model_epoch0.pth``
     and served (CTI in-process through the CLI's parser, BAN by ``python -m
     vqatpu_torch.cli.serve`` with no ``--model``), their logits equal to
@@ -209,7 +212,11 @@ at ``compute_dtype="bfloat16"``).  Then:
     norm and params within 1e-5), launches per rank, under tp the leaves
     split and those ``fits`` leaves replicated, K2, K3 and the softmax
     backward on the tp path's own inputs against their plain versions, and
-    K2 at ``d / 2`` timed (a row of the JSON line with a ``shape``); (e) the
+    K2 at ``d / 2`` timed (a row of the JSON line with a ``shape``); the
+    relative loss and grad-norm differences of 14c-d printed at each step;
+    tp=2 on CTI's blockwise path (``v_block_size`` 16, the rank-split
+    operands gathered whole, no kernel launched) against one process's
+    blockwise steps (1e-5) and its standard ones (1e-4); (e) the
     row-sharded store at 2 ranks, its gathers bit-equal to the replicated
     store's.  Two processes on one card check correctness, not scaling.
 
@@ -230,7 +237,8 @@ launches, one a glimpse a step (BAN and SAN none).
 
 Each path (serving at each wire and compute dtype, the logits path in
 float32 and bf16, by-id serving, training in float32 and bf16, each entry
-point call of phases 9 to 14 and each rank's steps of 14c-d) is driven with the launch counts set
+point call of phases 9 to 14 and each rank's steps of 14c-d, the
+blockwise tp steps too) is driven with the launch counts set
 to 0 just before it and read just after; the kernels' ``launches`` in the
 JSON line are their sums.
 
@@ -2053,16 +2061,20 @@ def big_v_batch(cfg, n, seed):
 def phase13_large_v(cfg, params, path_counts, smi) -> dict:
     """(a) logits at B=8 and V=2048: the blockwise branch (block 256) against
     the standard one (K1 and K2 at V=2048); (b) a training step at B=64 in
-    the four configurations, and standard and remat at bf16 compute,
-    dropout on, the generator seeded alike: peak memory
-    (``max_memory_allocated`` after ``reset_peak_memory_stats``), step time
-    on CUDA events, launches a step; each remat step's first loss and grad
-    norm equal to its dtype's standard step's (the recompute replays the
-    masks, and at bf16 runs on the forward's bf16 weights), the blockwise
-    step's within 1e-4."""
+    the four configurations, standard and remat at bf16 compute, and the
+    standard model with ``mask_replay`` at float32 and bf16, dropout on, the
+    generator seeded alike: peak memory (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``), step time on CUDA events, launches a
+    step; each remat and replay step's first loss equal to its dtype's
+    standard step's and its grad norm within 1e-5 (the recompute and the
+    replay draw the same masks, and the remat recompute at bf16 runs on the
+    forward's bf16 weights), the blockwise step's within 1e-4; the bytes
+    autograd keeps for the backward of a float32 forward, with and without
+    ``mask_replay``."""
     from vqatpu_torch.config import TrainConfig
     from vqatpu_torch.kernels import trilinear as K
     from vqatpu_torch.models import build_model
+    from vqatpu_torch.ops.module import Ctx
     from vqatpu_torch.train import make_train_state, make_train_step
     from vqatpu_torch.weights import load_jax_params
 
@@ -2105,13 +2117,16 @@ def phase13_large_v(cfg, params, path_counts, smi) -> dict:
     per_step = {"standard": kernels(), "blockwise": {},
                 "remat": kernels(remat=True), "fused": kernels(),
                 "standard bf16": kernels("_bf16"),
-                "remat bf16": kernels("_bf16", remat=True)}
+                "remat bf16": kernels("_bf16", remat=True),
+                "replay": kernels(), "replay bf16": kernels("_bf16")}
     out = {}
     for run in per_step:
         knob, _, half = run.partition(" ")
-        state = make_train_state(model_of(knob), device="cuda")
+        replay = knob == "replay"
+        state = make_train_state(model_of("standard" if replay else knob),
+                                 device="cuda")
         step = make_train_step(state.model, TrainConfig(
-            update_freq=1, batch_size=BIG_TRAIN_B,
+            update_freq=1, batch_size=BIG_TRAIN_B, mask_replay=replay,
             compute_dtype="bfloat16" if half else "float32"))
         gen = torch.Generator(device="cuda").manual_seed(7)
         torch.cuda.synchronize()
@@ -2150,14 +2165,19 @@ def phase13_large_v(cfg, params, path_counts, smi) -> dict:
         torch.cuda.empty_cache()
     for run, base_run in (("blockwise", "standard"), ("remat", "standard"),
                           ("fused", "standard"),
-                          ("remat bf16", "standard bf16")):
+                          ("remat bf16", "standard bf16"),
+                          ("replay", "standard"),
+                          ("replay bf16", "standard bf16")):
         d_peak = (out[run]["peak"] - out[base_run]["peak"]) / 2**20
         print(f"phase 13b {run} vs {base_run}: peak {d_peak:+.1f} MiB, step "
               f"{out[run]['ms'] - out[base_run]['ms']:+.3f} ms")
-    # the same masks in the same order: remat equal (at bf16 too, where the
-    # recompute runs on the forward's bf16 weights), blockwise to its sums
+    # the same masks in the same order: remat and replay equal (at bf16 too,
+    # where the remat recompute runs on the forward's bf16 weights),
+    # blockwise to its sums
     for run, base_run in (("remat", "standard"),
-                          ("remat bf16", "standard bf16")):
+                          ("remat bf16", "standard bf16"),
+                          ("replay", "standard"),
+                          ("replay bf16", "standard bf16")):
         got, want = out[run], out[base_run]
         assert got["loss"] == want["loss"], (run, got, want)
         assert (abs(got["grad_norm"] - want["grad_norm"])
@@ -2165,6 +2185,39 @@ def phase13_large_v(cfg, params, path_counts, smi) -> dict:
     std = out["standard"]
     for k in ("loss", "grad_norm"):
         assert abs(out["blockwise"][k] - std[k]) <= TRAIN_TOL * abs(std[k]), k
+    # what autograd keeps for the backward of one float32 forward, with and
+    # without mask_replay: a dropout on a tensor that needs no gradient (the
+    # v-tucker inputs: ``v`` is data) keeps no mask either way
+    model = model_of("standard").train()
+    kept = {}
+    for replay in (False, True):
+        storages = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = (st.nbytes(), t.dtype)
+            return t
+
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            logits, _ = model(batch["v"], batch["q"], batch["a"],
+                              ctx=Ctx(train=True, generator=gen,
+                                      mask_replay=replay))
+        del logits
+        kept[replay] = (sum(n for n, _ in storages.values()),
+                        sum(n for n, d in storages.values()
+                            if d == torch.bool))
+        del storages
+        torch.cuda.empty_cache()
+    print(f"phase 13b autograd keeps for the backward of a float32 forward "
+          f"(B={BIG_TRAIN_B}, V={BIG_V}, dropout on; weights included): "
+          f"{kept[False][0] / 2**30:.3f} GiB, {kept[False][1] / 2**20:.1f} "
+          f"MiB of it bool masks; with mask_replay "
+          f"{kept[True][0] / 2**30:.3f} GiB, {kept[True][1] / 2**20:.1f} "
+          f"MiB bool")
+    assert kept[True][0] < kept[False][0] and kept[True][1] < kept[False][1]
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2408,6 +2461,7 @@ P14_TRAIN, P14_VAL, P14_EPOCHS = 1024, 256, 2
 NCCL_TOL = 1e-6        # 14b: per-step losses, NCCL at world size 1 vs none
 P14_STEPS = 3          # 14c-d: deterministic steps at B=256
 P14_TOL = 1e-5         # 14c-d: loss, pre-clip grad norm, params vs one process
+P14_BLOCK = 16         # 14d: CTI's blockwise path at tp=2, 4 blocks of V=50
 P14_STORE_IMAGES, P14_GATHERS = 2000, 10  # 14e
 P14_TIMEOUT = 900      # seconds for the two worker processes
 
@@ -2614,7 +2668,9 @@ def p14_state(cfg):
 def phase14_worker(rank, world, port, out_dir):
     """One of 14c-e's two processes on the one card, joined by gloo over
     CUDA tensors (NCCL refuses two ranks on one device): writes
-    ``rank{rank}.json`` (and rank 0 the K2 inputs of the tp path)."""
+    ``rank{rank}.json`` (and rank 0 the K2 inputs of the tp path).  It runs
+    DDP, tp=2 and tp=2 on CTI's blockwise path (``v_block_size``
+    P14_BLOCK)."""
     import torch.distributed as dist
 
     from vqatpu_torch.config import ModelConfig, TrainConfig
@@ -2653,8 +2709,10 @@ def phase14_worker(rank, world, port, out_dir):
             return wrapped
 
         for label, make in (("ddp", make_mesh),
-                            ("tp", lambda: make_mesh_2d(1, 2))):
-            state = p14_state(cfg)
+                            ("tp", lambda: make_mesh_2d(1, 2)),
+                            ("tp_blockwise", lambda: make_mesh_2d(1, 2))):
+            state = p14_state(dataclasses.replace(cfg, v_block_size=P14_BLOCK)
+                              if label == "tp_blockwise" else cfg)
             mesh = make()
             specs = put_on_mesh(state, mesh, TrainConfig())
             if label == "tp":
@@ -2767,9 +2825,12 @@ def phase14_parallel(path_counts) -> dict:
     difference is printed.  K1, K2, K3 launches per rank; under tp K1 none, K2 at ``d / 2`` and K3 with the softmax
     backward held to their plain versions on the path's own inputs, and the
     leaves split and left replicated by ``fits``; the sharded store's
-    gathers bit-equal to the replicated one's.  -> the tp path's K2
-    inputs."""
+    gathers bit-equal to the replicated one's.  (d) also runs tp=2 on
+    CTI's blockwise path: loss and pre-clip grad norm within P14_TOL of
+    one process's blockwise steps and TRAIN_TOL of its standard ones, no
+    kernel launched.  -> the tp path's K2 inputs."""
     from vqatpu_torch.config import ModelConfig
+    from vqatpu_torch.kernels import trilinear as K
 
     cfg = ModelConfig(**CFG)
     tmp = tempfile.TemporaryDirectory()
@@ -2779,6 +2840,15 @@ def phase14_parallel(path_counts) -> dict:
     one_s = time.perf_counter() - t
     ref = {n: p.detach().cpu() for n, p in state.model.named_parameters()}
     torch.save(ref, os.path.join(tmp.name, "ref.pt"))
+    del state
+    # CTI's blockwise path in one process, what 14d's tp=2 blockwise step
+    # is held to
+    state = p14_state(dataclasses.replace(cfg, v_block_size=P14_BLOCK))
+    K.reset_launches()
+    t = time.perf_counter()
+    want_bw = p14_run(state, None, p14_batches(cfg))
+    one_bw_s = time.perf_counter() - t
+    assert sum(K.launches.values()) == 0, dict(K.launches)
     del state
     # the control: one process, each batch as two microbatches of 128 rows
     # (update_freq 2), the gradients summed in another order as DDP's are
@@ -2802,7 +2872,9 @@ def phase14_parallel(path_counts) -> dict:
     print(f"phase 14c-d one process: {P14_STEPS} steps of B={TRAIN_B} in "
           f"{one_s:.2f} s, (loss, grad norm) {want}; the control (each batch "
           f"as two microbatches of {TRAIN_B // 2}, one process) against it: "
-          f"{p14_params_line(control)}")
+          f"{p14_params_line(control)}; blockwise (v_block_size "
+          f"{P14_BLOCK}, no kernel launched) in {one_bw_s:.2f} s, (loss, grad "
+          f"norm) {want_bw}")
     ctx = torch.multiprocessing.get_context("spawn")
     port = free_port()
     t = time.perf_counter()
@@ -2833,15 +2905,19 @@ def phase14_parallel(path_counts) -> dict:
     for label, tag in (("ddp", "14c DDP, 2 ranks"), ("tp", "14d tp=2")):
         for r, res in enumerate(results):
             got = res[label]
-            loss_err = max(abs(g[0] - w[0]) / abs(w[0])
-                           for g, w in zip(got["metrics"], want))
-            norm_err = max(abs(g[1] - w[1]) / abs(w[1])
-                           for g, w in zip(got["metrics"], want))
+            loss_errs = [abs(g[0] - w[0]) / abs(w[0])
+                         for g, w in zip(got["metrics"], want)]
+            norm_errs = [abs(g[1] - w[1]) / abs(w[1])
+                         for g, w in zip(got["metrics"], want)]
+            loss_err, norm_err = max(loss_errs), max(norm_errs)
             c = got["launches"]
             path_counts[f"phase {tag} rank {r}"] = c
             print(f"phase {tag} rank {r}: {got['local_rows']} rows a step, "
-                  f"{P14_STEPS} steps in {got['seconds']:.2f} s; largest "
-                  f"relative difference from one process: loss {loss_err:.3e}, "
+                  f"{P14_STEPS} steps in {got['seconds']:.2f} s; relative "
+                  f"difference from one process at each step: loss "
+                  f"{[f'{e:.3e}' for e in loss_errs]}, pre-clip grad norm "
+                  f"{[f'{e:.3e}' for e in norm_errs]}; largest: loss "
+                  f"{loss_err:.3e}, "
                   f"pre-clip grad norm {norm_err:.3e} (tol {P14_TOL:.0e}); "
                   f"after {P14_STEPS} updates the "
                   f"{p14_params_line(got['params'])}; launches K1 "
@@ -2872,6 +2948,32 @@ def phase14_parallel(path_counts) -> dict:
                         c["masked_softmax_vqa"], c["softmax_vqa_backward"],
                         c["trilinear_pool_backward"]) == (
                     0, 2 * P14_STEPS, P14_STEPS, P14_STEPS, 2 * P14_STEPS), c
+    for r, res in enumerate(results):
+        got = res["tp_blockwise"]
+        c = got["launches"]
+        path_counts[f"phase 14d tp=2 blockwise rank {r}"] = c
+        errs = {}
+        for ref_label, ref_run in (("blockwise", want_bw),
+                                   ("standard", want)):
+            errs[ref_label] = [
+                max(abs(g[i] - w[i]) / abs(w[i]) for g, w in
+                    zip(got["metrics"], ref_run)) for i in (0, 1)]
+        print(f"phase 14d tp=2 blockwise (v_block_size {P14_BLOCK}) rank {r}: "
+              f"{got['local_rows']} rows a step, {P14_STEPS} steps in "
+              f"{got['seconds']:.2f} s (gloo over the host); (loss, grad "
+              f"norm) {got['metrics']}; largest relative difference (loss, "
+              f"pre-clip grad norm) from one process's blockwise steps "
+              f"{[f'{e:.3e}' for e in errs['blockwise']]} (tol "
+              f"{P14_TOL:.0e}), from its standard steps "
+              f"{[f'{e:.3e}' for e in errs['standard']]} (tol "
+              f"{TRAIN_TOL:.0e}); after {P14_STEPS} updates, against the "
+              f"standard run's, the {p14_params_line(got['params'])}; "
+              f"launches {c}")
+        assert max(errs["blockwise"]) <= P14_TOL, (got, want_bw)
+        assert max(errs["standard"]) <= TRAIN_TOL, (got, want)
+        assert sum(c.values()) == 0, c
+        assert got["local_rows"] == TRAIN_B
+        assert got["split"] == results[0]["tp"]["split"]
     split = results[0]["tp"]["split"]
     replicated_by_fits = [k for k in ("classifier.l2.v", "classifier.l2.b")
                           if k not in split]

@@ -282,12 +282,14 @@ def test_remat_step_equals_the_plain_step(compute_dtype):
     for remat in (False, True):
         model = port_cti(dict(SMALL, remat_glimpse=remat), params)
         state = make_train_state(model, device="cpu")
-        step = make_train_step(model, TrainConfig(compute_dtype=compute_dtype))
+        step = make_train_step(model, TrainConfig(
+            update_freq=1, compute_dtype=compute_dtype))
         gen = torch.Generator().manual_seed(9)
         ms = [step(state, batch, 1e-3, generator=gen) for _ in range(2)]
         out.append(([(float(m["loss"]), float(m["grad_norm"])) for m in ms],
                     [p.detach().clone() for p in model.parameters()]))
     assert out[1][0] == out[0][0]
+    assert all(norm > 0 for _, norm in out[0][0])  # both steps updated
     for a, b in zip(out[1][1], out[0][1]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 

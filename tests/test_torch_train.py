@@ -195,13 +195,6 @@ def test_train_config_is_a_copy_of_jax():
     assert mine == theirs
 
 
-@pytest.mark.parametrize("field,value", [("mask_replay", True)])
-def test_unported_train_options_raise(field, value):
-    model = build_model(ModelConfig(**SMALL))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, TrainConfig(**{field: value}))
-
-
 class _CountingSource(MaskSource):
     """Ones for every mask asked for, counted by shape."""
 

@@ -6,7 +6,7 @@ with ``--device`` (default ``cuda``) for the device to run on.
 Every flag of the JAX CLI is accepted.  A flag that only a JAX backend
 gives meaning to (``--rng_impl``, ``--kernel_backend``,
 ``--compilation_cache_dir``) says so in its help and selects nothing here;
-``--ckpt_backend orbax`` (JAX's format) and ``--mask_replay`` are refused.
+``--ckpt_backend orbax`` (JAX's format) is refused.
 Several devices run one process each: ``--coordinator host:port
 --num_processes N --process_id i`` join them
 (:func:`maybe_init_distributed`; NCCL, or gloo with ``--device cpu``),
@@ -182,8 +182,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "bits)")
     parser.add_argument("--mask_replay", action="store_true", default=False,
                         help="regenerate dropout masks in the backward "
-                             "instead of saving them (not ported: autograd "
-                             "keeps the masks; raises)")
+                             "from the generator's saved state instead of "
+                             "saving them (bit-equal either way)")
     parser.add_argument("--fused_v_tucker", action="store_true", default=False,
                         help="one GEMM for CTI's v-side tucker projections "
                              "(one dropout mask on v for all of them; "

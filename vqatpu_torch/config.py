@@ -80,9 +80,9 @@ class TrainConfig:
     ``ckpt_backend="orbax"`` (JAX's format) raises.  ``compute_dtype`` (float32 or bfloat16) and
     ``transfer_dtype`` (float32, float16, bfloat16 or int8) are ported.  ``distillation``
     applies to BAN and SAN only (``vqatpu/train/steps.py:208``), so the CTI
-    step ignores it, as JAX's does.  ``mask_replay`` (not ported: autograd
-    keeps the mask) makes :func:`vqatpu_torch.train.make_train_step` raise
-    ``NotImplementedError``.
+    step ignores it, as JAX's does.  ``mask_replay`` keeps no dropout mask
+    for the backward: it draws each again from the generator's saved state
+    (:func:`vqatpu_torch.ops.module.dropout`), bit-equal to keeping it.
     """
 
     epochs: int = 13

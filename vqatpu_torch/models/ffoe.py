@@ -52,6 +52,7 @@ from vqatpu_torch.kernels.blockwise import (attention_pool_blockwise,
 from vqatpu_torch.ops.module import Ctx, checkpoint_with_dropout
 from vqatpu_torch.ops.rnn import QuestionEmbedding
 from vqatpu_torch.ops.trilinear import TCNet, fused_tucker_projection
+from vqatpu_torch.parallel.collectives import copy_to, gather_from
 
 
 class BanModel(nn.Module):
@@ -261,11 +262,22 @@ class TrilinearModel(nn.Module):
         return self._head(q_state, a_state, ctx), att
 
     def _forward_blockwise(self, v, q_state, a_state, v_mask, ctx):
-        """The same math with O(v_block_size) memory in V; no attention."""
+        """The same math with O(v_block_size) memory in V; no attention.
+
+        With the rank split over a model group (``tc.tp``), ``v_r`` and
+        ``tqa`` hold this rank's share of the ranks: they are gathered whole
+        once, so that the checkpointed block bodies run no collective, and
+        enter by ``copy_to``.  Each rank then pools its ``d / tp`` columns,
+        and its cotangent of the whole operands is a partial sum, which
+        ``copy_to`` sums over the group before the gather's backward takes
+        this rank's slice (as ``w`` enters K2 on the standard path)."""
         block = self.cfg.v_block_size
-        v_r, q_r, a_r, T = getattr(self, self.att_name).tc.rank_projections(
-            v, q_state, a_state, ctx)
+        tc = getattr(self, self.att_name).tc
+        v_r, q_r, a_r, T = tc.rank_projections(v, q_state, a_state, ctx)
         tqa = precontract_qa(q_r, a_r, T)
+        if tc.tp is not None:
+            v_r = copy_to(gather_from(v_r, tc.tp, 2), tc.tp)
+            tqa = copy_to(gather_from(tqa, tc.tp, 3), tc.tp)
         m, den = softmax_stats(v_r, tqa, v_mask, block)
         for g in range(self.cfg.gamma):
             vt, qt, at = getattr(self, f"t_net{g}").tucker_projections(

@@ -5,7 +5,9 @@ context that drives it (``vqatpu/ops/module.py:32-167``).
   the model's device, ``mask_bits`` and an optional :class:`MaskSource`.
   No dropout draws from torch's global generator.
 - :func:`dropout` is the identity when ``ctx`` is None or not training:
-  that is the serving path.
+  that is the serving path.  With ``ctx.mask_replay`` it keeps no mask for
+  the backward: it keeps the generator's state and draws the mask again
+  there (JAX's ``_dropout_replay``, ``vqatpu/ops/module.py:123-140``).
 - :class:`MaskSource` replays injected 0/1 masks, so that a test can feed
   the port and the JAX package the same masks (their generators never
   agree).
@@ -63,18 +65,77 @@ class _Recorder(MaskSource):
 class Ctx:
     """Per-step context.  ``mask_bits=16`` thresholds 16-bit draws instead
     of float32 uniforms, with the inverted scale taken from the exact
-    realized keep probability (``vqatpu/ops/module.py:114-118``)."""
+    realized keep probability (``vqatpu/ops/module.py:114-118``).
+    ``mask_replay`` draws each mask again in the backward instead of
+    keeping it (:class:`_ReplayDropout`)."""
 
     def __init__(self, train: bool = False,
                  generator: Optional[torch.Generator] = None,
                  mask_bits: int = 32,
-                 mask_source: Optional[MaskSource] = None):
+                 mask_source: Optional[MaskSource] = None,
+                 mask_replay: bool = False):
         if mask_bits not in (16, 32):
             raise ValueError(f"mask_bits must be 16 or 32, not {mask_bits}")
         self.train = train
         self.generator = generator
         self.mask_bits = mask_bits
         self.mask_source = mask_source
+        self.mask_replay = mask_replay
+
+
+def _whole_shape(x: torch.Tensor, shard: Optional[Tuple[int, int]]):
+    """The shape of the unsplit tensor that ``x`` is a ``shard`` of."""
+    shape = tuple(x.shape)
+    return shape if shard is None else shape[:-1] + (shape[-1] * shard[0],)
+
+
+def _local(m: torch.Tensor, x: torch.Tensor,
+           shard: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """This rank's slice of the whole's mask ``m``."""
+    if shard is None:
+        return m
+    return m.narrow(-1, shard[1] * x.shape[-1], x.shape[-1])
+
+
+def _masked_apply(x: torch.Tensor, keep: float, mask_bits: int,
+                  generator: torch.Generator,
+                  shard: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """Draw the mask of the whole (``shard``: the unsplit last dim) from
+    ``generator`` and apply this slice of it to ``x`` with the inverted
+    scale.  The same generator state and shape give the same mask, which
+    :class:`_ReplayDropout` relies on."""
+    shape = _whole_shape(x, shard)
+    if mask_bits == 16:
+        thresh = max(round(keep * 65536.0), 1)
+        bits = torch.randint(0, 65536, shape, generator=generator,
+                             device=x.device, dtype=torch.int32)
+        return torch.where(_local(bits, x, shard) < thresh,
+                           x * (65536.0 / thresh), torch.zeros_like(x))
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(_local(mask, x, shard), x / keep, torch.zeros_like(x))
+
+
+class _ReplayDropout(torch.autograd.Function):
+    """:func:`_masked_apply` that keeps the generator's state taken before
+    the draw, and no mask, for the backward.  The backward sets a fresh
+    generator to that state, draws the same mask and applies it to the
+    cotangent as the plain path's autograd does (``where(mask, g, 0)``,
+    then the scale), so both directions are bit-equal to it.  A CUDA
+    generator's state is its seed and offset on the host: no sync."""
+
+    @staticmethod
+    def forward(fctx, x, keep, mask_bits, generator, shard):
+        fctx.state = generator.get_state()
+        fctx.draw = (keep, mask_bits, generator.device, shard)
+        return _masked_apply(x, keep, mask_bits, generator, shard)
+
+    @staticmethod
+    def backward(fctx, g):
+        keep, mask_bits, device, shard = fctx.draw
+        gen = torch.Generator(device=device)
+        gen.set_state(fctx.state)
+        return (_masked_apply(g, keep, mask_bits, gen, shard),
+                None, None, None, None)
 
 
 def dropout(x: torch.Tensor, rate: float, ctx: Optional[Ctx],
@@ -87,29 +148,17 @@ def dropout(x: torch.Tensor, rate: float, ctx: Optional[Ctx],
     if rate <= 0.0 or ctx is None or not ctx.train:
         return x
     keep = 1.0 - rate
-    shape = tuple(x.shape)
-    if shard is not None:
-        shape = shape[:-1] + (shape[-1] * shard[0],)
-
-    def local(m: torch.Tensor) -> torch.Tensor:
-        if shard is None:
-            return m
-        return m.narrow(-1, shard[1] * x.shape[-1], x.shape[-1])
-
     if ctx.mask_source is not None:
-        mask = torch.as_tensor(ctx.mask_source.next_mask(shape),
-                               dtype=x.dtype, device=x.device)
-        return x * local(mask) / keep
+        mask = torch.as_tensor(
+            ctx.mask_source.next_mask(_whole_shape(x, shard)),
+            dtype=x.dtype, device=x.device)
+        return x * _local(mask, x, shard) / keep
     if ctx.generator is None:
         raise ValueError("Ctx needs a torch.Generator for dropout in training")
-    if ctx.mask_bits == 16:
-        thresh = max(round(keep * 65536.0), 1)
-        bits = torch.randint(0, 65536, shape, generator=ctx.generator,
-                             device=x.device, dtype=torch.int32)
-        return torch.where(local(bits) < thresh, x * (65536.0 / thresh),
-                           torch.zeros_like(x))
-    mask = torch.rand(shape, generator=ctx.generator, device=x.device) < keep
-    return torch.where(local(mask), x / keep, torch.zeros_like(x))
+    if ctx.mask_replay:
+        return _ReplayDropout.apply(x, keep, ctx.mask_bits, ctx.generator,
+                                    shard)
+    return _masked_apply(x, keep, ctx.mask_bits, ctx.generator, shard)
 
 
 def checkpoint_with_dropout(fn: Callable, ctx: Optional[Ctx], *args):
@@ -136,11 +185,13 @@ def checkpoint_with_dropout(fn: Callable, ctx: Optional[Ctx], *args):
         if inject:
             source = (MaskSource(runs[0].mask_source.popped) if runs
                       else _Recorder(ctx.mask_source))
-            sub = Ctx(train=True, mask_bits=ctx.mask_bits, mask_source=source)
+            sub = Ctx(train=True, mask_bits=ctx.mask_bits, mask_source=source,
+                      mask_replay=ctx.mask_replay)
         else:
             gen = torch.Generator(device=ctx.generator.device)
             gen.set_state(state)
-            sub = Ctx(train=True, generator=gen, mask_bits=ctx.mask_bits)
+            sub = Ctx(train=True, generator=gen, mask_bits=ctx.mask_bits,
+                      mask_replay=ctx.mask_replay)
         runs.append(sub)
         return fn(sub, *xs)
 

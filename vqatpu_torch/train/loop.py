@@ -53,7 +53,7 @@ set and takes its data index's rows of each batch; the step sums the
 gradients over the data axis (:func:`~vqatpu_torch.train.steps.
 make_train_step`).  ``tp > 1`` trains on a ``dp x tp`` mesh with the
 model split by :func:`~vqatpu_torch.parallel.sharding.shard_model`
-(``fused_v_tucker`` refused, as JAX refuses it; CTI's blockwise path too).
+(``fused_v_tucker`` refused, as JAX refuses it).
 Every process starts from rank 0's state (broadcast).  Only rank 0 writes
 ``log.txt`` and checkpoints; under ``tp`` the model group gathers the
 whole state first, so the file is the single-device one.  The eval is
@@ -212,9 +212,6 @@ def _make_mesh(model, use_mesh: bool, num_devices: Optional[int], tp: int):
             # d-split t_net tuckers (JAX's assert, loop.py:260-263)
             raise ValueError("fused_v_tucker is incompatible with a model "
                              "(tp) axis")
-        if getattr(model, "reads_v_knobs", False) and model.cfg.v_block_size:
-            raise ValueError("CTI's blockwise path (v_block_size) is not "
-                             "wired for a model (tp) axis")
         ndev = num_devices if num_devices is not None else world
         if ndev != world or ndev % tp:
             raise ValueError(f"tp={tp} on {ndev} devices: the port runs one "

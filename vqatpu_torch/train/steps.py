@@ -252,10 +252,6 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
         raise ValueError(f"unknown transfer_dtype {cfg.transfer_dtype!r}; "
                          f"expected one of {WIRES}")
     mcfg = model.cfg
-    if cfg.mask_replay:
-        raise NotImplementedError(
-            "mask_replay is not ported: autograd keeps the dropout mask "
-            "(ROADMAP queue A item 1)")
     if any(p.requires_grad != tfidf_loaded for n, p in model.named_parameters()
            if n.split(".")[-1] == "emb_"):
         raise ValueError(f"the GloVe copy emb_ is not frozen as tfidf_loaded="
@@ -307,7 +303,7 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
         batch = densify_target(batch, n_ans)
         ctx = (ctx_factory() if ctx_factory is not None else
                Ctx(train=not cfg.deterministic, generator=generator,
-                   mask_bits=cfg.mask_bits))
+                   mask_bits=cfg.mask_bits, mask_replay=cfg.mask_replay))
         logits = forward_in(model, half, batch, ctx)
         target = batch["target"].float()
         if distill:
