@@ -220,6 +220,16 @@ at ``compute_dtype="bfloat16"``).  Then:
     row-sharded store at 2 ranks, its gathers bit-equal to the replicated
     store's.  Two processes on one card check correctness, not scaling.
 
+15. JAX's ``.orbax`` checkpoints without JAX, orbax or tensorstore
+    (:func:`phase15_orbax`): the system's ``libzstd.so.1``; the JAX-written
+    goldens of ``tests/torch_orbax_goldens.py`` (a tiny CTI and TanModel,
+    orbax's OCDBT layout) served on the card through ``load_params_any``
+    and ``InferenceSession`` within 1e-3 (MC 1e-4) of JAX's logits, K1 and
+    K2 launched, and a two-process save's split weight bit for bit; two
+    full-width CTI steps at B=256, then ``save_checkpoint_orbax`` and
+    ``restore_train_state_orbax`` into a fresh state on the card, bit-equal,
+    with the bytes and the write and read seconds.
+
 K2's backward kernel (``csrc/tri_pool_backward.cu``, on the tensor cores)
 adds to the phases: 3c holds it to
 ``trilinear_pool_grads`` (the four ``torch.bmm`` it replaces) at the
@@ -3004,6 +3014,137 @@ def phase14_parallel(path_counts) -> dict:
     return {**k2, "err": max(r["tp_kernels"]["k2_err"] for r in results)}
 
 
+ORBAX_STEPS = 2  # full-width CTI steps before the .orbax round trip
+
+
+def phase15_orbax(path_counts, smi) -> None:
+    """JAX's ``.orbax`` checkpoints without JAX, orbax or tensorstore: (a)
+    the system's ``libzstd.so.1`` (``ldconfig -p``) loaded; (b) the goldens
+    of ``tests/torch_orbax_goldens.py`` (written by JAX on a CPU) read by
+    ``load_params_any`` and served on the card by ``InferenceSession``:
+    the tiny CTI and TanModel, their logits within 1e-3 (MC 1e-4) of JAX's,
+    K1 and K2 launched; the two-process save's split weight bit for bit;
+    (c) ``ORBAX_STEPS`` full-width CTI steps at B=256, then
+    ``save_checkpoint_orbax``, ``load_params_any`` and
+    ``restore_train_state_orbax`` into a fresh state on the card: every
+    parameter, Adamax moment and count bit-equal; the bytes and the write
+    and read seconds (host clock)."""
+    from vqatpu_torch.config import ModelConfig, TrainConfig
+    from vqatpu_torch.data.mc_dataset import expand_mc_batch
+    from vqatpu_torch.kernels import trilinear as K
+    from vqatpu_torch.models import build_model
+    from vqatpu_torch.serve import InferenceSession
+    from vqatpu_torch.train import make_train_state, make_train_step, zstd
+    from vqatpu_torch.train.checkpoints import (load_params_any,
+                                                restore_orbax,
+                                                restore_train_state_orbax,
+                                                save_checkpoint_orbax)
+    from vqatpu_torch.weights import load_jax_params, numpy_batch, numpy_params
+
+    # (a)
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    found = [line.strip() for line in subprocess.run(
+        [ldconfig, "-p"], capture_output=True, text=True).stdout.splitlines()
+        if "zstd" in line]
+    print(f"phase 15a ldconfig -p | grep zstd: {found}")
+    zstd._lib()  # raises where the library is missing
+    assert any(zstd.LIBRARY in line for line in found), found
+
+    # (b)
+    data = ROOT / "tests" / "data"
+    for name, tol in (("cti", SERVE_TOL), ("tan", MC_GOLDEN_TOL)):
+        z = np.load(data / f"torch_orbax_{name}.npz")
+        mcfg = ModelConfig(**json.loads(str(z["config"])))
+        epoch = int(z["epoch"])
+        model = build_model(mcfg)
+        t0 = time.perf_counter()
+        load_jax_params(model, load_params_any(
+            str(data / f"torch_orbax_{name}"), epoch, model))
+        t_read = time.perf_counter() - t0
+        b = numpy_batch(mcfg, int(z["n"]), seed=int(z["batch_seed"]),
+                        boxes=int(z["boxes"]), real_boxes=int(z["real_boxes"]))
+        if mcfg.task == "mc":
+            b = expand_mc_batch(b)
+        labels = (["match", "nonmatch"] if mcfg.task == "mc" else
+                  [f"a{i}" for i in range(mcfg.num_ans_candidates)])
+        K.reset_launches()
+        got = InferenceSession(model, labels, device="cuda").logits(
+            b["v"], b["b"], b["q"], b["a"])
+        torch.cuda.synchronize()
+        counts = path_counts[f"phase 15b {name} .orbax golden served"] = dict(
+            K.launches)
+        err = float(np.abs(got - z["logits"]).max())
+        print(f"phase 15b JAX's {name} golden model_epoch{epoch}.orbax read "
+              f"in {t_read:.3f} s, served on the card: {got.shape} logits, "
+              f"max_abs_err against JAX's {err:.3e} (tol {tol:.0e}); "
+              f"launches {counts}")
+        assert got.shape == z["logits"].shape and err <= tol, (name, err)
+        assert counts["fused_rank_softmax"] > 0, counts
+        assert counts["trilinear_pool"] > 0, counts
+    z = np.load(data / "torch_orbax_2proc.npz")
+    golden = data / "torch_orbax_2proc" / f"model_epoch{int(z['epoch'])}.orbax"
+    tree = restore_orbax(str(golden))
+    split = tree["params"]["classifier"]["l1"]["v"]
+    stores = sorted(p.name for p in golden.iterdir()
+                    if p.name.startswith("ocdbt."))
+    print(f"phase 15b the two-process golden ({stores}): "
+          f"split weight {split.shape} bit-equal: "
+          f"{bool(np.array_equal(split, z['v']))}, step {tree['step']}")
+    assert np.array_equal(split, z["v"])
+    assert int(tree["step"]) == int(z["step"])
+
+    # (c)
+    cfg = ModelConfig(**CFG)
+    state = make_train_state(build_model(cfg), seed=0, device="cuda")
+    step = make_train_step(state.model, TrainConfig(update_freq=1))
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    K.reset_launches()
+    for i in range(ORBAX_STEPS):
+        step(state, numpy_batch(cfg, TRAIN_B, seed=1500 + i, boxes=V,
+                                real_boxes=REAL_BOXES, target=True), 1e-3, gen)
+    torch.cuda.synchronize()
+    counts = path_counts["phase 15c full-width steps before the .orbax"] = \
+        dict(K.launches)
+    assert counts["fused_rank_softmax"] == ORBAX_STEPS, counts
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"model_epoch{ORBAX_STEPS - 1}.orbax")
+        t0 = time.perf_counter()
+        save_checkpoint_orbax(path, state, epoch=ORBAX_STEPS - 1)
+        t_write = time.perf_counter() - t0
+        files = [os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs]
+        n_bytes = sum(os.path.getsize(f) for f in files)
+        raw = sum(t.numel() * t.element_size() for t in
+                  [*state.model.parameters(), *state.optimizer.m,
+                   *state.optimizer.u])
+        t0 = time.perf_counter()
+        params = load_params_any(tmp, ORBAX_STEPS - 1, None)
+        t_params = time.perf_counter() - t0
+        fresh = make_train_state(build_model(cfg), seed=1, device="cuda")
+        t0 = time.perf_counter()
+        fresh, start = restore_train_state_orbax(path, fresh)
+        torch.cuda.synchronize()
+        t_state = time.perf_counter() - t0
+    mine, theirs = state.model.state_dict(), fresh.model.state_dict()
+    equal = all(torch.equal(mine[k], theirs[k]) for k in mine) and all(
+        torch.equal(a, b) for a, b in zip(
+            state.optimizer.m + state.optimizer.u,
+            fresh.optimizer.m + fresh.optimizer.u))
+    equal = equal and (fresh.optimizer.count, fresh.step, start) == (
+        state.optimizer.count, state.step, ORBAX_STEPS)
+    equal = equal and np.float32(fresh.optimizer.lr) == np.float32(
+        state.optimizer.lr)  # JAX keeps the learning rate as float32
+    n_leaves = len(files)
+    print(f"phase 15c full-width CTI TrainState after {ORBAX_STEPS} steps at "
+          f"B={TRAIN_B}: save_checkpoint_orbax {n_bytes} bytes in {n_leaves} "
+          f"files ({raw} bytes of params and Adamax moments) written in "
+          f"{t_write:.3f} s ({n_bytes / t_write / 1e6:.1f} MB/s); "
+          f"load_params_any (every leaf, as serving does) {t_params:.3f} s; "
+          f"restore_train_state_orbax onto the card {t_state:.3f} s "
+          f"({n_bytes / t_state / 1e6:.1f} MB/s); bit-equal: {equal}; "
+          f"{len(params)} param modules; host clock; {smi}")
+    assert equal
+
+
 def sass_hmma(lib: Path) -> dict:
     """Each kernel of the built library ``lib`` and its number of HMMA
     (tensor-core) instructions, from ``cuobjdump -sass``."""
@@ -4779,6 +4920,9 @@ def main() -> int:
     rows.append(dict(time_k2_backward(f"{shape} (the tp path's inputs)",
                                       bwd_args), shape=shape))
     del flush, k2, args, bwd_args
+
+    # -- 15. JAX's .orbax checkpoints, read and written on the card's host -
+    phase15_orbax(path_counts, smi)
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

@@ -1,6 +1,8 @@
-"""vqatpu_torch and chip_smoke.py import neither JAX nor vqatpu: the machine
-with the card has no JAX.  The run is checked in a subprocess, because this
-test process has imported JAX already (tests/conftest.py)."""
+"""vqatpu_torch and chip_smoke.py import neither JAX nor vqatpu, nor orbax,
+tensorstore or zstandard (the port reads and writes ``.orbax`` checkpoints
+itself): the machine with the card has none of them.  The run is checked
+in a subprocess, because this test process has imported JAX already
+(tests/conftest.py)."""
 
 import ast
 import json
@@ -17,7 +19,7 @@ from vqatpu.train.checkpoints import save_checkpoint
 from vqatpu.train.steps import make_train_state
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "vqatpu")
+FORBIDDEN = ("jax", "jaxlib", "vqatpu", "orbax", "tensorstore", "zstandard")
 CFG = dict(ntoken=30, v_dim=16, num_ans_candidates=7, model="cti",
            num_hid=16, h_mm=8, rank=2, gamma=2)
 
@@ -83,6 +85,15 @@ with tempfile.TemporaryDirectory() as d:
     export_checkpoint(d + "/model_epoch0.pth",
                       load_jax_params(build_model(cfg), numpy_params(cfg, 2)))
     assert load_params_any(d, 0, build_model(cfg))["t_att"]["tc"]["T_g"].shape
+# .orbax through the system's libzstd alone: a round trip, JAX's golden
+from vqatpu_torch.train.checkpoints import (restore_orbax,
+                                            restore_train_state_orbax,
+                                            save_checkpoint_orbax)
+with tempfile.TemporaryDirectory() as d:
+    save_checkpoint_orbax(d + "/model_epoch1.orbax", state, 1)
+    assert restore_train_state_orbax(d + "/model_epoch1.orbax", state)[1] == 2
+assert restore_orbax("tests/data/torch_orbax_2proc/model_epoch3.orbax"
+                     )["step"] == 7
 for knob in (dict(v_block_size=2), dict(fused_v_tucker=True),
              dict(remat_glimpse=True)):
     model = load_jax_params(build_model(dataclasses.replace(cfg, **knob)),

@@ -341,20 +341,15 @@ def test_out_of_memory_step_is_skipped_and_counted(roots, tmp_path,
     assert calls[:3] == [0, 1, 0] and state.step == 1 + 2
 
 
-@pytest.mark.parametrize("option", ["orbax", "tp", "num_devices", "shard"])
+@pytest.mark.parametrize("option", ["tp", "num_devices", "shard"])
 def test_unported_loop_options_raise(roots, tmp_path, option):
-    """orbax checkpoints stay refused (they are JAX's).  The several-device
-    options run where they can (tests/test_torch_parallel.py runs them
-    over several processes): in this one process ``tp=2`` and
-    ``num_devices=2`` raise, naming the one-process-a-device rule, and the
-    row-sharded store trains over this process's one-rank data axis to
-    the replicated store's params, bit for bit."""
-    if option == "orbax":
-        with pytest.raises(NotImplementedError, match="orbax checkpoints "
-                           "are JAX's"):
-            port_loop(roots, str(tmp_path / "x"), 1,
-                      cfg=dict(ckpt_backend="orbax"))
-    elif option in ("tp", "num_devices"):
+    """The several-device options run where they can
+    (tests/test_torch_parallel.py runs them over several processes): in
+    this one process ``tp=2`` and ``num_devices=2`` raise, naming the
+    one-process-a-device rule, and the row-sharded store trains over this
+    process's one-rank data axis to the replicated store's params, bit for
+    bit.  (``ckpt_backend="orbax"`` trains: tests/test_torch_orbax.py.)"""
+    if option in ("tp", "num_devices"):
         with pytest.raises(ValueError, match="process"):
             port_loop(roots, str(tmp_path / "x"), 1, **{option: 2})
     else:

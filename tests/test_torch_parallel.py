@@ -70,9 +70,11 @@ def _state(variant="cti"):
     return make_train_state(model, device="cpu")
 
 
-def _step_on(mesh, variant="cti") -> dict:
+def _step_on(mesh, variant="cti", save_to=None) -> dict:
     """One deterministic step of this rank's share; -> its metrics, the
-    logits of the forward before it and the whole params after it."""
+    logits of the forward before it and the whole params after it.  With
+    ``save_to`` every rank takes part in both savers' gathers and rank 0
+    writes ``m.ckpt`` and ``m.orbax`` there."""
     from vqatpu_torch.config import TrainConfig
     from vqatpu_torch.parallel import shard_batch
     from vqatpu_torch.train import make_train_step
@@ -90,6 +92,14 @@ def _step_on(mesh, variant="cti") -> dict:
     step = make_train_step(state.model, cfg, mesh=mesh,
                            mc_scoring=VARIANTS[variant].get("task") == "mc")
     m = step(state, local, LR, torch.Generator().manual_seed(0))
+    if save_to is not None:
+        from vqatpu_torch.train.checkpoints import (save_checkpoint,
+                                                    save_checkpoint_orbax)
+
+        save_checkpoint(os.path.join(save_to, "m.ckpt"), state, 0,
+                        mesh=mesh, write=mesh.primary)
+        save_checkpoint_orbax(os.path.join(save_to, "m.orbax"), state, 0,
+                              mesh=mesh, write=mesh.primary)
     params = gather_state({n: p.detach() for n, p in
                            state.model.named_parameters()}, mesh, specs)
     out = {"p." + k: v.numpy() for k, v in params.items()}
@@ -108,7 +118,7 @@ def _scenario_ddp(root):
 
 def _scenario_tp(root):
     from vqatpu_torch.parallel import make_mesh_2d
-    return _step_on(make_mesh_2d(1, 2))
+    return _step_on(make_mesh_2d(1, 2), save_to=root)
 
 
 def _scenario_dp_tp(root):
@@ -362,6 +372,16 @@ def test_ddp_two_ranks_matches_jax_single_device(tmp_path, want):
 
 
 def test_tp2_forward_and_step_match_jax(tmp_path, want):
+    """Also both savers under tp: rank 0's ``.ckpt`` and ``.orbax`` of the
+    gathered state restore in JAX to the same params and Adamax state, the
+    whole params of the step."""
+    import jax
+
+    from vqatpu.config import ModelConfig as JaxModelConfig
+    from vqatpu.models import build_model as jax_build_model
+    from vqatpu.train import checkpoints as jckpt
+    from vqatpu.train import steps as jsteps
+
     outs = run_group("tp", 2, tmp_path, tmp_path)
     for got in outs:
         np.testing.assert_allclose(got["logits"], want["logits"], rtol=TOL,
@@ -370,6 +390,16 @@ def test_tp2_forward_and_step_match_jax(tmp_path, want):
     split = set(outs[0]["split"])
     assert {"classifier.l2.v", "t_att.tc.T_g", "t_net0.v_tucker.l0.v",
             "q_prj1.l0.v"} <= split
+    jm = jax_build_model(JaxModelConfig(**CFG))
+    fresh = jsteps.make_train_state(jm, jax.random.PRNGKey(0))
+    orbax, _ = jckpt.restore_train_state_orbax(str(tmp_path / "m.orbax"),
+                                               fresh)
+    ckpt, _, _ = jckpt.restore_train_state(str(tmp_path / "m.ckpt"), fresh)
+    for a, b in zip(jax.tree.leaves((orbax.params, orbax.opt_state)),
+                    jax.tree.leaves((ckpt.params, ckpt.opt_state))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    flat = jax.tree_util.tree_flatten_with_path(orbax.params)[0]
+    assert len(flat) == len([k for k in outs[0] if k.startswith("p.")])
 
 
 def test_dp2_tp2_step_matches_jax(tmp_path, want):

@@ -6,7 +6,7 @@ with ``--device`` (default ``cuda``) for the device to run on.
 Every flag of the JAX CLI is accepted.  A flag that only a JAX backend
 gives meaning to (``--rng_impl``, ``--kernel_backend``,
 ``--compilation_cache_dir``) says so in its help and selects nothing here;
-``--ckpt_backend orbax`` (JAX's format) is refused.
+``--ckpt_backend orbax`` writes JAX's orbax directories.
 Several devices run one process each: ``--coordinator host:port
 --num_processes N --process_id i`` join them
 (:func:`maybe_init_distributed`; NCCL, or gloo with ``--device cpu``),
@@ -150,9 +150,9 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "its CUDA kernels (JAX's pallas backend)")
     parser.add_argument("--ckpt_backend", type=str, default="pickle",
                         choices=["pickle", "orbax"],
-                        help="checkpoint format (orbax is the JAX "
-                             "package's and is refused: rank 0 writes the "
-                             "whole state as .ckpt)")
+                        help="checkpoint format: .ckpt (pickle) or JAX's "
+                             ".orbax directories (orbax); rank 0 writes the "
+                             "whole state")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"])
     parser.add_argument("--skip_nonfinite", action="store_true", default=False,

@@ -1,5 +1,6 @@
 """FFOE inference and export CLI (``vqatpu/cli/ffoe_test.py``, reference
-``src/FFOE/test.py``): load ``{--input}/model_epoch{--epoch}.ckpt``, sweep
+``src/FFOE/test.py``): load ``{--input}/model_epoch{--epoch}.ckpt`` (else
+``.orbax``, else ``.pth``), sweep
 ``--split`` and write the EvalAI JSON, the CTI teacher-logit pkl for the
 distillation loop, and with ``--logits`` the raw logits (``.npz``).
 ``--device_features`` (auto by default) sweeps with the split's features on

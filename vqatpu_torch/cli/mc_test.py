@@ -1,5 +1,6 @@
 """Multiple-choice (Visual7W) evaluation CLI (``vqatpu/cli/mc_test.py``,
-reference ``src/MC/test.py``): load ``{--input}/model_epoch{--epoch}.ckpt``,
+reference ``src/MC/test.py``): load ``{--input}/model_epoch{--epoch}.ckpt``
+(else ``.orbax``, else ``.pth``),
 sweep ``--split`` (``test`` by default) with the ``x4`` candidate
 expansion and print ``{split} accuracy: ...``.  ``--device_features``
 (auto by default) sweeps with the split's features on the card where they

@@ -33,7 +33,8 @@ without ``--feature_split``.
 
 The flags are the train and test CLIs' (``--model`` defaults to ``ban``, as
 in JAX) with serving's own; the weights come from ``{--input}/model_epoch
-{--epoch}.ckpt`` or, failing that, the reference's ``.pth``.  CTI's
+{--epoch}.ckpt``, else ``.orbax`` (JAX's orbax directory), else the
+reference's ``.pth``.  CTI's
 ``--v_block_size``, ``--remat`` and ``--fused_v_tucker`` select its
 blockwise, rematerialized and fused forwards.
 

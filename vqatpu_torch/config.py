@@ -76,8 +76,9 @@ class TrainConfig:
     train`) reads the rest: ``device_features`` (``"auto"``, ``"on"``,
     ``"off"``) decides whether the features go to the card
     (:mod:`vqatpu_torch.data.device_store`, with ``sparse_targets``;
-    ``shard_feature_store`` row-shards it over the mesh's data axis), while
-    ``ckpt_backend="orbax"`` (JAX's format) raises.  ``compute_dtype`` (float32 or bfloat16) and
+    ``shard_feature_store`` row-shards it over the mesh's data axis), and
+    ``ckpt_backend`` (``"pickle"``, ``.ckpt``, or ``"orbax"``, JAX's orbax
+    directories) the checkpoint format.  ``compute_dtype`` (float32 or bfloat16) and
     ``transfer_dtype`` (float32, float16, bfloat16 or int8) are ported.  ``distillation``
     applies to BAN and SAN only (``vqatpu/train/steps.py:208``), so the CTI
     step ignores it, as JAX's does.  ``mask_replay`` keeps no dropout mask

@@ -32,23 +32,39 @@ frozen (``MaskedNode`` leaves there).
   would hand it their ``count`` method, a dict its item.  m and u are
   written float32 whatever the Adamax storage.
 
+JAX's ``--ckpt_backend orbax`` checkpoints (``vqatpu/train/checkpoints.py:
+171-206``), directories ``model_epoch{N}.orbax`` that orbax's
+``PyTreeCheckpointer`` writes, are read and written without JAX, orbax or
+tensorstore: ``_METADATA`` (JSON) lists the tree's leaves by key path,
+each array a zarr v2 array (:mod:`vqatpu_torch.train.zarr2`) whose keys
+lie in an OCDBT store (:mod:`vqatpu_torch.train.ocdbt`; orbax's default)
+or are files of the directory (the plain layout, which the port writes).
+The tree is ``{"epoch", "step", "params", "opt_state"}`` with optax's
+NamedTuples as dicts and its tuple as a list: ``{"count", "hyperparams":
+{"learning_rate"}, "hyperparams_states": {}, "inner_state": [adamax,
+None]}``, ``adamax`` ``{"count", "m", "u"}``, or ``{"inner_state": {"count",
+"m", "u"}}`` where ``emb_`` is frozen (``None`` at its m and u).
+
 :func:`load_params_any` also reads the reference's ``model_epoch{N}.pth``
-(:mod:`vqatpu_torch.tools.import_torch`); JAX's ``.orbax`` checkpoints
-are not read (orbax is JAX's; the port's processes write ``.ckpt``).
-Under tensor parallelism :func:`save_checkpoint` gathers the whole state
-first (``mesh``).
+(:mod:`vqatpu_torch.tools.import_torch`).  Under tensor parallelism the
+savers gather the whole state first (``mesh``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
-from typing import Any, Optional, Tuple
+import shutil
+import time
+from typing import Any, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from vqatpu_torch.train.ocdbt import OcdbtStore
 from vqatpu_torch.train.steps import TrainState
+from vqatpu_torch.train.zarr2 import BF16, DirStore, read_array, write_array
 from vqatpu_torch.weights import (_flatten, _jax_path, _torch_key,
                                   jax_params_from_torch, load_jax_params,
                                   load_pickle)
@@ -68,28 +84,29 @@ def _full(mesh):
     return full
 
 
-def _state_trees(state: TrainState, mesh=None):
-    """The Adamax m and u as ``vqatpu`` param trees (float32 numpy; None
-    at the frozen leaves)."""
-    opt = state.optimizer
-    slot = {id(p): i for i, p in enumerate(opt.params)}
-    full = _full(mesh)
-    trees = []
-    for moments in (opt.m, opt.u):
-        sd = {}
-        for name, p in state.model.named_parameters():
-            i = slot.get(id(p))
-            sd[name] = None if i is None else full(p, moments[i].float())
-        tree = jax_params_from_torch({k: v for k, v in sd.items()
-                                      if v is not None})
-        for name in (k for k, v in sd.items() if v is None):
-            *parents, leaf = _jax_path(name).split(".")
-            node = tree
+def _moment_trees(state: TrainState, leaf) -> Tuple[dict, dict]:
+    """The Adamax m and u as ``vqatpu`` param trees: ``leaf(k, i, p)`` at
+    parameter ``p`` of optimizer slot ``i`` (``k`` 0 for m, 1 for u),
+    ``None`` at the frozen leaves."""
+    slot = {id(p): i for i, p in enumerate(state.optimizer.params)}
+    trees = ({}, {})
+    for name, p in state.model.named_parameters():
+        *parents, key = _jax_path(name).split(".")
+        i = slot.get(id(p))
+        for k, node in enumerate(trees):
             for part in parents:
                 node = node.setdefault(part, {})
-            node[leaf] = None
-        trees.append(tree)
+            node[key] = None if i is None else leaf(k, i, p)
     return trees
+
+
+def _state_trees(state: TrainState, mesh=None) -> Tuple[dict, dict]:
+    """The Adamax m and u as ``vqatpu`` param trees (float32 numpy; None
+    at the frozen leaves)."""
+    full = _full(mesh)
+    moments = (state.optimizer.m, state.optimizer.u)
+    return _moment_trees(state, lambda k, i, p: full(
+        p, moments[k][i]).detach().cpu().float().numpy())
 
 
 def save_checkpoint(path: str, state: TrainState, epoch: int,
@@ -243,17 +260,15 @@ def save_params(path: str, params: Any) -> None:
 
 def load_params_any(input_dir: str, epoch, model) -> Any:
     """Eval params of ``model`` (a port module, for the ``.pth`` mapping)
-    as a ``vqatpu`` param tree, from ``{input_dir}/model_epoch{epoch}.ckpt``
-    or the reference's ``.pth`` (``FFOE/test.py:157-166``; ``vqatpu/train/
-    checkpoints.py:49-69``).  JAX's ``.orbax`` directories are not read."""
+    as a ``vqatpu`` param tree, from ``{input_dir}/model_epoch{epoch}``
+    ``.ckpt``, else ``.orbax``, else the reference's ``.pth``
+    (``FFOE/test.py:157-166``; ``vqatpu/train/checkpoints.py:49-69``)."""
     ckpt = os.path.join(input_dir, f"model_epoch{epoch}.ckpt")
     if os.path.exists(ckpt):
         return load_params(ckpt)
-    if os.path.isdir(os.path.join(input_dir, f"model_epoch{epoch}.orbax")):
-        raise NotImplementedError(
-            "orbax checkpoints are not read by the port: they are JAX's, "
-            "written by orbax, which the port does not use (ROADMAP: not "
-            "ported, on purpose)")
+    orbax_dir = os.path.join(input_dir, f"model_epoch{epoch}.orbax")
+    if os.path.isdir(orbax_dir):
+        return restore_orbax(orbax_dir)["params"]
     pth = os.path.join(input_dir, f"model_epoch{epoch}.pth")
     if os.path.exists(pth):
         from vqatpu_torch.tools.import_torch import import_checkpoint
@@ -261,3 +276,227 @@ def load_params_any(input_dir: str, epoch, model) -> Any:
         return import_checkpoint(pth, model)
     raise FileNotFoundError(
         f"no model_epoch{epoch}.{{ckpt,orbax,pth}} under {input_dir}")
+
+
+# -- .orbax: JAX's save_checkpoint_orbax / restore_train_state_orbax --------
+
+_SEQUENCE, _DICT = 1, 2  # orbax's key types
+# the value types of the leaves orbax skips, and what it restores them as
+_EMPTY = {"None": lambda: None, "Dict": dict, "List": list, "Tuple": tuple}
+_ARRAYS = ("np.ndarray", "jax.Array")
+_COUNT, _LR = object(), object()  # opt_state leaves restored by position
+
+
+def _entries(tree, path=()) -> Iterator[Tuple[tuple, Any]]:
+    """``(key path, leaf)`` in JAX's flattening order (dict keys sorted,
+    sequences in order), each key ``(name, key type)``; ``None`` and empty
+    containers are leaves, as orbax records them."""
+    if isinstance(tree, dict) and tree:
+        for k in sorted(tree):
+            yield from _entries(tree[k], path + ((k, _DICT),))
+    elif isinstance(tree, (list, tuple)) and tree:
+        for i, v in enumerate(tree):
+            yield from _entries(v, path + ((str(i), _SEQUENCE),))
+    else:
+        yield path, tree
+
+
+def _skipped(leaf) -> bool:
+    """A leaf with no data: ``None`` or an empty container."""
+    return leaf is None or isinstance(leaf, (dict, list, tuple))
+
+
+def restore_orbax(path: str) -> dict:
+    """The tree of the ``.orbax`` checkpoint ``path``, as orbax's
+    ``PyTreeCheckpointer().restore`` gives it: dicts, lists for sequences,
+    numpy arrays (``bfloat16`` ones as float32), Python scalars, and
+    ``None``, ``{}``, ``[]`` or ``()`` where orbax skipped a leaf.  Reads
+    the OCDBT store or the plain layout, as ``_METADATA``'s ``use_ocdbt``
+    says; older layouts (an aggregate msgpack ``checkpoint`` file, zarr3
+    arrays) raise, naming the file."""
+    meta_path = os.path.join(path, "_METADATA")
+    if not os.path.exists(meta_path):
+        aggregate = os.path.join(path, "checkpoint")
+        if os.path.exists(aggregate):
+            raise ValueError(f"{aggregate}: an aggregate (msgpack) orbax "
+                             "checkpoint, a layout that is not read")
+        raise FileNotFoundError(f"{meta_path}: no orbax checkpoint here")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    if meta.get("use_zarr3"):
+        raise ValueError(f"{meta_path}: zarr3 arrays (use_zarr3) are not "
+                         "read")
+    store = OcdbtStore(path) if meta.get("use_ocdbt") else DirStore(path)
+    root: dict = {}
+    sequences = set()  # the ids of the nodes whose keys are indices
+    for entry in meta["tree_metadata"].values():
+        keys = entry["key_metadata"]
+        node = root
+        for depth, k in enumerate(keys):
+            if k["key_type"] not in (_SEQUENCE, _DICT):
+                raise ValueError(f"{meta_path}: key type {k['key_type']}")
+            if k["key_type"] == _SEQUENCE:
+                sequences.add(id(node))
+            if depth < len(keys) - 1:
+                node = node.setdefault(k["key"], {})
+        node[keys[-1]["key"]] = _orbax_leaf(
+            store, ".".join(k["key"] for k in keys), entry["value_metadata"],
+            meta_path)
+
+    def finish(node):
+        if not isinstance(node, dict) or not node:
+            return node
+        if id(node) in sequences:
+            return [finish(node[str(i)]) for i in range(len(node))]
+        return {k: finish(v) for k, v in node.items()}
+
+    return finish(root)
+
+
+def _orbax_leaf(store, name: str, value: dict, where: str):
+    kind = value["value_type"]
+    if value.get("skip_deserialize"):
+        if kind not in _EMPTY:
+            raise ValueError(f"{where}: {name}: skipped value type {kind!r}")
+        return _EMPTY[kind]()
+    if kind in _ARRAYS:
+        return read_array(store, name)
+    if kind == "scalar":
+        return read_array(store, name).item()
+    raise ValueError(f"{where}: {name}: value type {kind!r} is not read")
+
+
+def _opt_state(state: TrainState, count, lr, moment) -> dict:
+    """JAX's ``opt_state`` (see the module docstring) for ``state``, with
+    ``count`` and ``lr`` at its counts and learning rate and
+    ``moment(k, i, p)`` at m (``k`` 0) and u (1) of trainable ``p``."""
+    m, u = _moment_trees(state, moment)
+    adamax = {"count": count, "m": m, "u": u}
+    opt = state.optimizer
+    if len(opt.params) < sum(1 for _ in state.model.parameters()):
+        adamax = {"inner_state": adamax}  # optax.masked
+    return {"count": count, "hyperparams": {"learning_rate": lr},
+            "hyperparams_states": {}, "inner_state": [adamax, None]}
+
+
+def _host(t: torch.Tensor):
+    """A moment or parameter on the host: numpy, or a CPU tensor at
+    bfloat16, which numpy lacks."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def save_checkpoint_orbax(path: str, state: TrainState, epoch: int,
+                          mesh=None, write: bool = True) -> None:
+    """Write ``state`` at the end of ``epoch`` as JAX's
+    ``save_checkpoint_orbax`` does (``vqatpu/train/checkpoints.py:171-183``):
+    ``epoch``, ``step``, ``params`` and ``opt_state`` with JAX's key paths
+    and dtypes (the Adamax moments in their storage dtype), a
+    ``_METADATA`` equal to the one JAX writes for the same state.  It is
+    orbax's plain layout (``"use_ocdbt": false``; orbax reads both), one
+    zstd (level 1) chunk an array, written into a temporary sibling
+    directory and renamed.  ``path`` must not exist (orbax's rule).
+
+    Under DDP or tensor parallelism (``mesh``) the ranks gather as
+    :func:`save_checkpoint` does and the ranks with ``write`` False stop
+    there; JAX's processes write their shards collectively instead, and
+    either directory restores to the same content."""
+    opt = state.optimizer
+    full = _full(mesh)
+    moments = (opt.m, opt.u)
+    tree = {
+        "epoch": np.asarray(epoch),
+        "step": np.asarray(int(state.step)),
+        "params": jax_params_from_torch({n: full(p, p.detach()) for n, p in
+                                         state.model.named_parameters()}),
+        "opt_state": _opt_state(
+            state, np.asarray(opt.count, np.int32),
+            np.asarray(float(opt.lr), np.float32),
+            lambda k, i, p: _host(full(p, moments[k][i]))),
+    }
+    if not write:
+        return
+    if os.path.exists(path):
+        raise FileExistsError(f"{path} exists; orbax checkpoints are not "
+                              "overwritten")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    start = time.time_ns()
+    tmp = f"{path}.orbax-checkpoint-tmp-{start}"  # orbax's name for it
+    os.makedirs(tmp)
+    try:
+        store = DirStore(tmp)
+        tree_metadata = {}
+        for keys, leaf in _entries(tree):
+            names = tuple(k for k, _ in keys)
+            if isinstance(leaf, torch.Tensor):  # bfloat16 bit patterns
+                write_array(store, ".".join(names),
+                            leaf.view(torch.int16).numpy().view(np.uint16),
+                            dtype=BF16)
+            elif not _skipped(leaf):
+                write_array(store, ".".join(names), leaf)
+            kind = ("None" if leaf is None else type(leaf).__name__.title()
+                    if _skipped(leaf) else "np.ndarray")
+            tree_metadata[repr(names)] = {
+                "key_metadata": [{"key": k, "key_type": t} for k, t in keys],
+                "value_metadata": {"value_type": kind,
+                                   "skip_deserialize": _skipped(leaf)}}
+        store.put("_METADATA", json.dumps({
+            "tree_metadata": tree_metadata, "use_ocdbt": False,
+            "use_zarr3": False, "store_array_data_equal_to_fill_value": True,
+            "custom_metadata": None}).encode())
+        store.put("_CHECKPOINT_METADATA", json.dumps({
+            "item_handlers": "orbax.checkpoint._src.handlers."
+                             "pytree_checkpoint_handler."
+                             "PyTreeCheckpointHandler",
+            "metrics": {}, "performance_metrics": {},
+            "init_timestamp_nsecs": start,
+            "commit_timestamp_nsecs": time.time_ns(),
+            "custom_metadata": {}}).encode())
+        os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def restore_train_state_orbax(path: str, state: TrainState
+                              ) -> Tuple[TrainState, int]:
+    """Load a ``.orbax`` checkpoint of either package into ``state`` (made
+    by ``make_train_state`` for the same model and ``tfidf_loaded``), in
+    place, as JAX's ``restore_train_state_orbax`` does
+    (``vqatpu/train/checkpoints.py:186-206``): the params by tree, the
+    optimizer state by leaf order against the fresh state's (JAX's
+    flattening order), the update count from the file; the accumulation
+    window starts empty.  Returns ``(state, epoch + 1)``.  A checkpoint of
+    another model or width raises ``ValueError``."""
+    payload = restore_orbax(path)
+    try:
+        load_jax_params(state.model, payload["params"])
+    except (RuntimeError, KeyError, NotImplementedError) as e:
+        raise ValueError(f"incompatible checkpoint {path}: {e}") from e
+    opt = state.optimizer
+    moments = (opt.m, opt.u)
+    targets = [leaf for _, leaf in _entries(_opt_state(
+        state, _COUNT, _LR, lambda k, i, p: moments[k][i]))
+        if not _skipped(leaf)]
+    values = [leaf for _, leaf in _entries(payload["opt_state"])
+              if not _skipped(leaf)]
+    if len(values) != len(targets):
+        raise ValueError(f"incompatible checkpoint {path}: its opt_state "
+                         f"has {len(values)} leaves, the optimizer's "
+                         f"{len(targets)}")
+    for dst, value in zip(targets, values):
+        value = np.asarray(value)
+        if dst is _COUNT:  # optax's count, then Adamax's (the same)
+            opt.count = int(value)
+        elif dst is _LR:
+            opt.lr = float(value)
+        elif tuple(value.shape) != tuple(dst.shape):
+            raise ValueError(f"incompatible checkpoint {path}: an optimizer "
+                             f"leaf of shape {tuple(value.shape)}, expected "
+                             f"{tuple(dst.shape)}")
+        else:
+            with torch.no_grad():
+                dst.copy_(torch.from_numpy(np.array(value, np.float32)))
+    state.grad_accum, state.accum_count = None, 0
+    state.step = int(payload["step"])
+    return state, int(payload["epoch"]) + 1

@@ -7,7 +7,8 @@ Adamax live in the step (:mod:`vqatpu_torch.train.steps`).  Each epoch ends
 with an eval on ``make_eval_loader(eval_ds, 2 * batch_size)`` and, from
 ``saving_epoch`` on, ``model_epoch{E}.ckpt`` plus ``model_epoch_best.ckpt``
 when the eval score beats ``best_eval``, which rides in the checkpoint's
-``extra`` so that a resumed run cannot overwrite a better best checkpoint.
+``extra`` so that a resumed run cannot overwrite a better best checkpoint
+(``ckpt_backend="orbax"``: ``.orbax`` directories, below).
 ``log.txt`` has JAX's lines.
 
 With ``task="mc"`` (Visual7W) each batch of questions, for training and
@@ -66,9 +67,11 @@ features on its card: the replicated store, or with
 ``shard_feature_store`` the row-sharded one, each rank owning a share of
 the rows (:class:`~vqatpu_torch.data.device_store.DeviceFeatureStore`).
 
-Refused rather than ignored: orbax checkpoints (``ckpt_backend="orbax"``):
-they are JAX's, written by orbax, which the machine with the card does
-not have; rank 0 writes the ``.ckpt`` format both packages read.  An
+``ckpt_backend="orbax"`` writes ``model_epoch{E}.orbax`` and
+``model_epoch_best.orbax`` in place of the ``.ckpt`` files, JAX's orbax
+directories (:func:`~vqatpu_torch.train.checkpoints.save_checkpoint_orbax`,
+no ``extra``, as in JAX), removing an existing best slot first, since
+orbax does not overwrite (``vqatpu/train/loop.py:462-493``).  An
 out-of-memory error of the card (``torch.cuda.OutOfMemoryError``) skips
 its batch, drops the accumulation window and is counted (the reference's
 policy, ``FFOE/trainer.py:206-219``); a step that fails that way may have
@@ -78,6 +81,7 @@ left its update half applied, where JAX's functional state is untouched.
 from __future__ import annotations
 
 import os
+import shutil
 import time
 from typing import Optional
 
@@ -99,7 +103,8 @@ from vqatpu_torch.parallel.distributed import process_count
 from vqatpu_torch.parallel.sharding import (make_mesh, make_mesh_2d,
                                             replicate, shard_batch,
                                             shard_leaf, shard_model)
-from vqatpu_torch.train.checkpoints import save_checkpoint
+from vqatpu_torch.train.checkpoints import (save_checkpoint,
+                                           save_checkpoint_orbax)
 from vqatpu_torch.train.logging import Logger, time_since
 from vqatpu_torch.train.optim import lr_for_epoch
 from vqatpu_torch.train.profiling import annotate, start_trace, stop_trace
@@ -189,12 +194,9 @@ def _make_eval_device_store(eval_ds, cfg: TrainConfig, logger, device,
 def _refuse_unported(cfg: TrainConfig, task: str) -> None:
     if task not in ("ffoe", "mc"):
         raise ValueError(f"unknown task {task!r}; expected ffoe or mc")
-    if cfg.ckpt_backend != "pickle":
-        raise NotImplementedError(
-            f"ckpt_backend={cfg.ckpt_backend!r}: orbax checkpoints are "
-            "JAX's, written by orbax, which the machine with the card does "
-            "not have; the port writes the .ckpt format that both packages "
-            "read (ROADMAP: not ported, on purpose)")
+    if cfg.ckpt_backend not in ("pickle", "orbax"):
+        raise ValueError(f"unknown ckpt_backend {cfg.ckpt_backend!r}; "
+                         "expected pickle or orbax")
     normalize_device_features(cfg.device_features)  # raises if unknown
 
 
@@ -482,17 +484,24 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
                 best_eval = eval_score
             extra = {"model": model.cfg.model, "best_eval": best_eval}
             _save_ckpt(output, f"model_epoch{epoch}", state, epoch, extra,
-                       mesh)
+                       cfg.ckpt_backend, mesh)
             if new_best:
                 _save_ckpt(output, "model_epoch_best", state, epoch, extra,
-                           mesh)
+                           cfg.ckpt_backend, mesh)
     return state
 
 
 def _save_ckpt(output: str, name: str, state: TrainState, epoch: int,
-               extra: dict, mesh=None) -> None:
+               extra: dict, backend: str, mesh=None) -> None:
     """Rank 0 writes; under ``tp`` every rank takes part in the gather."""
     primary = mesh is None or mesh.primary
-    if primary or mesh.tp > 1:
+    if not (primary or mesh.tp > 1):
+        return
+    if backend == "orbax":
+        path = os.path.join(output, name + ".orbax")
+        if primary and os.path.exists(path):  # the best slot
+            shutil.rmtree(path)
+        save_checkpoint_orbax(path, state, epoch, mesh=mesh, write=primary)
+    else:
         save_checkpoint(os.path.join(output, name + ".ckpt"), state, epoch,
                         extra=extra, mesh=mesh, write=primary)
