@@ -16,6 +16,8 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from vqatpu_torch.train.profiling import span
+
 
 def stack_samples(samples) -> Dict[str, np.ndarray]:
     keys = samples[0].keys()
@@ -149,7 +151,9 @@ class PrefetchLoader:
     compute, so an epoch costs about max(assembly, step) instead of their
     sum, where the step leaves the host idle.  Stacking is numpy, which
     releases the interpreter lock in its copies; the rest of the host's
-    Python work contends with the training step for the lock.
+    Python work contends with the training step for the lock.  The
+    consumer's wait on the queue is a ``feed.loader_wait`` span
+    (:mod:`vqatpu_torch.train.profiling`).
 
     Order and values are exactly the inner loader's: the worker runs the
     inner iterator one epoch at a time into a bounded queue (``depth``
@@ -198,7 +202,8 @@ class PrefetchLoader:
         threading.Thread(target=_worker, daemon=True,
                          name="vqatpu_torch-prefetch").start()
         while True:
-            b = q.get()
+            with span("feed.loader_wait"):
+                b = q.get()
             if b is end:
                 if failure:
                     raise failure[0]

@@ -49,6 +49,7 @@ import torch
 from vqatpu_torch.data.native import dataset_members
 from vqatpu_torch.data.upload import PinnedUploader
 from vqatpu_torch.parallel.collectives import Group
+from vqatpu_torch.train.profiling import span
 from vqatpu_torch.train.steps import wire_cast
 
 # box rows cast or quantized at a time while a store is built, so that no
@@ -372,18 +373,21 @@ class DeviceFeatureStore:
     def gather(self, ds_idx) -> dict:
         """The batch's slabs on the card: ``{"v", "b", "v_mask"[,
         "v_scale"]}`` in the dtypes the wire ships (see :meth:`build`).
-        The ``rows`` slab goes up from a page-locked double buffer."""
-        rows = self._upload({"rows": self.rows_for(ds_idx)})["rows"]
-        if self.group is not None:
-            return self._gather_sharded(rows)
-        flat = rows.reshape(-1)
-        shape = tuple(rows.shape)
-        out = {"v": self.feats.index_select(0, flat).view(*shape, -1),
-               "b": self.spats.index_select(0, flat).view(*shape, -1),
-               "v_mask": rows != self.sentinel}
-        if self.scales is not None:
-            out["v_scale"] = self.scales.index_select(0, flat).view(shape)
-        return out
+        The ``rows`` slab goes up from a page-locked double buffer.  The
+        whole call is a ``feed.gather`` span
+        (:mod:`vqatpu_torch.train.profiling`)."""
+        with span("feed.gather"):
+            rows = self._upload({"rows": self.rows_for(ds_idx)})["rows"]
+            if self.group is not None:
+                return self._gather_sharded(rows)
+            flat = rows.reshape(-1)
+            shape = tuple(rows.shape)
+            out = {"v": self.feats.index_select(0, flat).view(*shape, -1),
+                   "b": self.spats.index_select(0, flat).view(*shape, -1),
+                   "v_mask": rows != self.sentinel}
+            if self.scales is not None:
+                out["v_scale"] = self.scales.index_select(0, flat).view(shape)
+            return out
 
     def _gather_sharded(self, rows: torch.Tensor) -> dict:
         """The row-sharded gather: ``rows`` are this rank's ``[b,

@@ -26,6 +26,7 @@ import numpy as np
 
 from vqatpu_torch.data.dictionary import Dictionary
 from vqatpu_torch.data.features import FeatureStore, ZeroArray
+from vqatpu_torch.train.profiling import span
 
 MC_QUESTION_LEN = 12
 MC_ANS_LEN = 6  # MC/dataset.py:189
@@ -161,21 +162,24 @@ def expand_mc_batch(batch: dict) -> dict:
     to ``a`` [4B, 6], and ``target`` is ``[label, 1 - label]`` [4B, 2].  A
     ``fields_only`` batch (the card-resident store's wire) repeats its
     ``ds_idx`` instead, so that the store's gather gives the expanded slabs
-    directly."""
-    B = batch["q"].shape[0]
-    n = NUM_CANDIDATES
+    directly.  A ``feed.expand`` span (:mod:`vqatpu_torch.train.
+    profiling`)."""
+    with span("feed.expand"):
+        B = batch["q"].shape[0]
+        n = NUM_CANDIDATES
 
-    def tile(x):
-        return np.repeat(x[:, None], n, axis=1).reshape((B * n,) + x.shape[1:])
+        def tile(x):
+            return np.repeat(x[:, None], n, axis=1).reshape(
+                (B * n,) + x.shape[1:])
 
-    a = batch["label"].reshape(B * n, 1)
-    out = {
-        "q": tile(batch["q"]),
-        "a": batch["ans_mc"].reshape(B * n, -1),
-        "target": np.concatenate([a, 1.0 - a], axis=1).astype(np.float32),
-        "qid": tile(batch["qid"]),
-    }
-    for k in ("v", "b", "v_mask", "v_scale", "ds_idx"):
-        if k in batch:
-            out[k] = tile(batch[k])
-    return out
+        a = batch["label"].reshape(B * n, 1)
+        out = {
+            "q": tile(batch["q"]),
+            "a": batch["ans_mc"].reshape(B * n, -1),
+            "target": np.concatenate([a, 1.0 - a], axis=1).astype(np.float32),
+            "qid": tile(batch["qid"]),
+        }
+        for k in ("v", "b", "v_mask", "v_scale", "ds_idx"):
+            if k in batch:
+                out[k] = tile(batch[k])
+        return out

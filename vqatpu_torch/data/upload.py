@@ -8,8 +8,10 @@ PERF.md §5).  :class:`PinnedUploader` copies from page-locked buffers with
 the copy by an event, not the host.
 
 Two buffers (``DEPTH``) take turns.  A buffer is refilled only after the
-event of its last copy has completed.  A source already in page-locked
-memory (a pinned ring buffer of
+event of its last copy has completed; where it has not yet, the host waits
+in a ``feed.upload_wait`` span, counted as ``upload_blocked``
+(:mod:`vqatpu_torch.train.profiling`; each call is a ``feed.upload``
+span).  A source already in page-locked memory (a pinned ring buffer of
 :class:`~vqatpu_torch.data.native.NativeBatchLoader`) is copied from where
 it lies, and the uploader holds it until its copy is done: so long the
 native loader does not hand its buffers to the C++ worker again.  Values
@@ -20,6 +22,8 @@ without a copy, as the steps' own ``torch.as_tensor`` would make them.
 from __future__ import annotations
 
 import torch
+
+from vqatpu_torch.train.profiling import count, span
 
 DEPTH = 2  # staging buffers that take turns
 
@@ -39,14 +43,21 @@ class PinnedUploader:
             self._sources = [[] for _ in range(DEPTH)]
 
     def __call__(self, batch: dict) -> dict:
+        with span("feed.upload"):
+            return self._upload(batch)
+
+    def _upload(self, batch: dict) -> dict:
         self.uploads += 1
         if self.device.type != "cuda":
             return {k: torch.as_tensor(x).to(self.device)
                     for k, x in batch.items()}
         slot = self.uploads % DEPTH
-        if self._done[slot] is not None:
+        done = self._done[slot]
+        if done is not None and not done.query():
             # the slot's last copies must be done before it is refilled
-            self._done[slot].synchronize()
+            with span("feed.upload_wait"):
+                count("upload_blocked")
+                done.synchronize()
         staging, sources, out = self._staging[slot], [], {}
         with torch.cuda.stream(self._stream):
             for k, x in batch.items():

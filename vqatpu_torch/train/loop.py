@@ -44,8 +44,9 @@ Where batches come from (JAX's rules and log lines, ``loop.py:47-160``):
 
 ``profile_dir`` traces steps 1 to ``min(6, n_batches - 1)`` of the first
 epoch (JAX's window, ``vqatpu/train/loop.py:377-385``) with
-``torch.profiler`` (:mod:`vqatpu_torch.train.profiling`), each step in a
-``train_step`` range, the card synchronized before the trace stops.
+``torch.profiler`` (:mod:`vqatpu_torch.train.profiling`), each step a
+``train_step`` range around its ``.forward``, ``.backward`` and
+``.optimizer`` ranges, the card synchronized before the trace stops.
 
 Several devices (``vqatpu/train/loop.py:232-271``): one process a device,
 joined by :func:`vqatpu_torch.parallel.distributed.init_distributed`
@@ -107,7 +108,7 @@ from vqatpu_torch.train.checkpoints import (save_checkpoint,
                                            save_checkpoint_orbax)
 from vqatpu_torch.train.logging import Logger, time_since
 from vqatpu_torch.train.optim import lr_for_epoch
-from vqatpu_torch.train.profiling import annotate, start_trace, stop_trace
+from vqatpu_torch.train.profiling import start_trace, stop_trace
 from vqatpu_torch.train.steps import (TrainState, make_train_state,
                                       make_train_step, wire_cast)
 
@@ -399,11 +400,7 @@ def _train(model, train_ds, eval_ds, cfg, output, task, state, start_epoch,
             if i in prof_steps and prof is None:
                 prof = start_trace(profile_dir)
             try:
-                if prof is None:
-                    metrics = step_fn(state, db, lr, gen, force)
-                else:
-                    with annotate("train_step"):
-                        metrics = step_fn(state, db, lr, gen, force)
+                metrics = step_fn(state, db, lr, gen, force)
             except torch.cuda.OutOfMemoryError:
                 num_oom += 1
                 logger.write(f"| WARNING: out of memory, skipping batch {i}")

@@ -27,6 +27,12 @@ reference's ``Trainer`` hot loop (``FFOE/trainer.py:97-272``).
   or from the masks of ``ctx_factory``'s :class:`~vqatpu_torch.ops.module.
   MaskSource`.
 
+The step is a ``train_step`` span around its ``train_step.forward``
+(the forward and the loss), ``.backward`` (``torch.autograd.grad`` and the
+loss's all-reduce) and ``.optimizer`` (the non-finite filter, the
+accumulation and the update) spans, each with a device side
+(:mod:`vqatpu_torch.train.profiling`).
+
 The update cadence is decided on the host (the microbatch count is known
 there), where the JAX step uses ``lax.cond``.  Compute is float32 with TF32
 off for cuBLAS and cuDNN, as in serving (:mod:`vqatpu_torch.numerics`).
@@ -61,6 +67,7 @@ from vqatpu_torch.ops.losses import bce_with_logits_sum, distillation_loss
 from vqatpu_torch.ops.module import Ctx
 from vqatpu_torch.parallel.sharding import split_flags
 from vqatpu_torch.train.optim import Adamax, clip_flat_grads
+from vqatpu_torch.train.profiling import STEP, span
 from vqatpu_torch.weights import load_jax_params, numpy_params
 
 
@@ -283,6 +290,10 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
     def step(state: TrainState, batch: dict, lr: Union[float, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              force_update: bool = False) -> Dict[str, torch.Tensor]:
+        with span(STEP, device=True):
+            return _step(state, batch, lr, generator, force_update)
+
+    def _step(state, batch, lr, generator, force_update):
         if state.model is not model:
             raise ValueError("the state holds another model than the step's")
         if state.optimizer.state_dtype != state_dtype:
@@ -304,39 +315,43 @@ def make_train_step(model: nn.Module, cfg: TrainConfig,
         ctx = (ctx_factory() if ctx_factory is not None else
                Ctx(train=not cfg.deterministic, generator=generator,
                    mask_bits=cfg.mask_bits, mask_replay=cfg.mask_replay))
-        logits = forward_in(model, half, batch, ctx)
-        target = batch["target"].float()
-        if distill:
-            loss = distillation_loss(logits, batch["t_logits"].float(), target,
-                                     cfg.T, cfg.alpha)
-        else:
-            loss = bce_with_logits_sum(logits, target) / logits.shape[0]
-        if dp > 1:
-            loss = loss / dp  # this rank's share of the global batch's loss
-        grads = list(torch.autograd.grad(loss, params))
-        loss = loss.detach()
-        if data is not None:
-            loss = data.all_reduce(loss.clone())
-        finite = torch.isfinite(loss)
-        if cfg.skip_nonfinite:
-            zero = torch.zeros((), dtype=torch.float32, device=dev)
-            grads = [torch.where(finite, g, zero) for g in grads]
-
-        if cfg.update_freq == 1:
-            count = 1
-            grad_norm = apply_update(state, grads, lr, 1)
-        else:
-            if state.grad_accum is None:
-                state.grad_accum = grads
+        with span(f"{STEP}.forward", device=True):
+            logits = forward_in(model, half, batch, ctx)
+            target = batch["target"].float()
+            if distill:
+                loss = distillation_loss(logits, batch["t_logits"].float(),
+                                         target, cfg.T, cfg.alpha)
             else:
-                torch._foreach_add_(state.grad_accum, grads)
-            state.accum_count += 1
-            count = state.accum_count
-            if force_update or count >= cfg.update_freq:
-                grad_norm = apply_update(state, state.grad_accum, lr, count)
-                state.grad_accum, state.accum_count = None, 0
+                loss = bce_with_logits_sum(logits, target) / logits.shape[0]
+            if dp > 1:
+                loss = loss / dp  # this rank's share of the global loss
+        with span(f"{STEP}.backward", device=True):
+            grads = list(torch.autograd.grad(loss, params))
+            loss = loss.detach()
+            if data is not None:
+                loss = data.all_reduce(loss.clone())
+        with span(f"{STEP}.optimizer", device=True):
+            finite = torch.isfinite(loss)
+            if cfg.skip_nonfinite:
+                zero = torch.zeros((), dtype=torch.float32, device=dev)
+                grads = [torch.where(finite, g, zero) for g in grads]
+            if cfg.update_freq == 1:
+                count = 1
+                grad_norm = apply_update(state, grads, lr, 1)
             else:
-                grad_norm = torch.zeros((), dtype=torch.float32, device=dev)
+                if state.grad_accum is None:
+                    state.grad_accum = grads
+                else:
+                    torch._foreach_add_(state.grad_accum, grads)
+                state.accum_count += 1
+                count = state.accum_count
+                if force_update or count >= cfg.update_freq:
+                    grad_norm = apply_update(state, state.grad_accum, lr,
+                                             count)
+                    state.grad_accum, state.accum_count = None, 0
+                else:
+                    grad_norm = torch.zeros((), dtype=torch.float32,
+                                            device=dev)
         updated = int(force_update or count >= cfg.update_freq)
         score = score_fn(logits.detach(), target)
         if data is not None:
