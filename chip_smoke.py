@@ -230,6 +230,22 @@ at ``compute_dtype="bfloat16"``).  Then:
     ``restore_train_state_orbax`` into a fresh state on the card, bit-equal,
     with the bytes and the write and read seconds.
 
+16. the split-bf16 GEMM (``csrc/linear_f32.cu``, :func:`phase16_linear`):
+    through ``routed_linear`` and autograd at every cell product the route
+    takes (the v-, q- and a-side tuckers, M from 1,024 to 51,200) and
+    through ``linear_f32`` at ragged M, N and K: the output, the input
+    gradient and the weight gradient each within twice cuBLAS float32's
+    largest error against float64 (``F.linear``'s autograd, TF32 off) and
+    within twice cuBLAS's distance from the plain version
+    (``split_bf16x6_mm``) on the same inputs, one launch of each instance
+    counted; the weight gradient bitwise the same over two calls; then
+    each instance timed (L2 flushed) beside cuBLAS float32, the plain
+    version and the bound (six bf16 products at 989 TFLOP/s; float32 at
+    67), and the route's sweep over every float32 product shape of the two
+    cells, from which ``ROUTE_MIN_TILES`` is read.  Its own JSON line
+    ``{"linear_f32": [...]}``.  Alone: ``import chip_smoke as cs;
+    cs.phase16_linear(smi)`` (about 45 s of command time).
+
 K2's backward kernel (``csrc/tri_pool_backward.cu``, on the tensor cores)
 adds to the phases: 3c holds it to
 ``trilinear_pool_grads`` (the four ``torch.bmm`` it replaces) at the
@@ -243,7 +259,8 @@ plain version's (cuBLAS in full float32); 4c times it alone (float32, bf16 at bo
 forward+backward rows puts the forward kernel followed by the four
 ``torch.bmm`` (``bmm_ms``); 12b does both at Visual7W's shapes and 14 at
 tp's D=512 (rows of the JSON line); every training path checks its
-launches, one a glimpse a step (BAN and SAN none).
+launches, one a glimpse a step (BAN and SAN none; the split-bf16 GEMM's
+launches are recorded beside them and left out of these checks).
 
 Each path (serving at each wire and compute dtype, the logits path in
 float32 and bf16, by-id serving, training in float32 and bf16, each entry
@@ -1149,13 +1166,24 @@ def check_ban_counter_bf16(mcfg, cpu_model, labels, sess16, z) -> None:
     del dev_model
 
 
+# the split-bf16 GEMM's instances in the launch counts
+GEMM_KERNELS = ("linear_f32", "linear_f32_wgrad", "linear_f32_dgrad")
+
+
+def cti_kernels(counts: dict) -> dict:
+    """``counts`` without the split-bf16 GEMM's launches, which any model's
+    large float32 products make (BAN's v-projection among them)."""
+    return {k: v for k, v in counts.items() if k not in GEMM_KERNELS}
+
+
 def zero_launches(label, path_counts):
     """The launch counts of a phase-11 path, which runs none of the CTI
-    kernels: recorded beside the other paths and checked to be zero."""
+    kernels: recorded beside the other paths (the split-bf16 GEMM's
+    included) and checked to be zero for the CTI kernels."""
     from vqatpu_torch.kernels import trilinear as K
     torch.cuda.synchronize()
     path_counts[label] = counts = dict(K.launches)
-    assert sum(counts.values()) == 0, (label, counts)
+    assert sum(cti_kernels(counts).values()) == 0, (label, counts)
 
 
 def phase11_logits(path_counts) -> dict:
@@ -1515,7 +1543,7 @@ def phase11_kd_loop(path_counts, p9) -> None:
               f"{statistics.mean(secs[1:]):.3f} s an epoch (log.txt); training "
               f"{steps * TRAIN_B / train_s:.1f} samples/s, the loader "
               f"{wait_s / train_s:.1%}; losses {log_losses}; eval {scores}")
-        assert sum(counts.values()) == 0, counts
+        assert sum(cti_kernels(counts).values()) == 0, counts
         assert len(losses[label]) == KD_EPOCHS * steps
         assert all(np.isfinite(losses[label]))
         assert ("device feature store: " in text) == label.startswith("(i)")
@@ -1581,7 +1609,7 @@ def mc_launches(label, path_counts, forwards, dtype, backwards=0):
             f"trilinear_pool{sfx}": CFG["gamma"] * forwards,
             "softmax_vqa_backward": backwards,
             f"trilinear_pool_backward{sfx}": CFG["gamma"] * backwards}
-    assert {k: v for k, v in counts.items() if v} == {
+    assert {k: v for k, v in cti_kernels(counts).items() if v} == {
         k: v for k, v in want.items() if v}, (label, counts, want)
     return counts
 
@@ -2105,7 +2133,8 @@ def phase13_large_v(cfg, params, path_counts, smi) -> dict:
         assert (att is None) == (knob == "blockwise")
         want = ({"fused_rank_softmax": 1, "trilinear_pool": cfg.gamma}
                 if knob == "standard" else {})
-        assert {k: c for k, c in counts.items() if c} == want, (knob, counts)
+        assert {k: c for k, c in cti_kernels(counts).items() if c} == want, (
+            knob, counts)
         del model
     err = float((logits["blockwise"] - logits["standard"]).abs().max())
     print(f"phase 13a logits at B={BIG_LOGITS_B}, V={BIG_V} ({BIG_REAL} real "
@@ -2157,7 +2186,7 @@ def phase13_large_v(cfg, params, path_counts, smi) -> dict:
         path_counts[f"phase 13b {run} training V={BIG_V}"] = counts = dict(
             K.launches)
         n = BIG_STEPS + 1
-        assert {k: c for k, c in counts.items() if c} == {
+        assert {k: c for k, c in cti_kernels(counts).items() if c} == {
             k: n * c for k, c in per_step[run].items()}, (run, counts)
         ms = statistics.median(s.elapsed_time(e) for s, e in times)
         out[run] = dict(loss=float(first["loss"]),
@@ -2858,7 +2887,7 @@ def phase14_parallel(path_counts) -> dict:
     t = time.perf_counter()
     want_bw = p14_run(state, None, p14_batches(cfg))
     one_bw_s = time.perf_counter() - t
-    assert sum(K.launches.values()) == 0, dict(K.launches)
+    assert sum(cti_kernels(K.launches).values()) == 0, dict(K.launches)
     del state
     # the control: one process, each batch as two microbatches of 128 rows
     # (update_freq 2), the gradients summed in another order as DDP's are
@@ -2981,7 +3010,7 @@ def phase14_parallel(path_counts) -> dict:
               f"launches {c}")
         assert max(errs["blockwise"]) <= P14_TOL, (got, want_bw)
         assert max(errs["standard"]) <= TRAIN_TOL, (got, want)
-        assert sum(c.values()) == 0, c
+        assert sum(cti_kernels(c).values()) == 0, c
         assert got["local_rows"] == TRAIN_B
         assert got["split"] == results[0]["tp"]["split"]
     split = results[0]["tp"]["split"]
@@ -3145,6 +3174,132 @@ def phase15_orbax(path_counts, smi) -> None:
     assert equal
 
 
+# every float32 product shape (M, N, K) of the two cells that WNLinear can
+# route (CTI B=1024 x V=50, the grid's 256 rows x 196 cells; K = v_dim or
+# num_hid), then two near the rule's edge: 32 and 64 output tiles at N = 512
+P16_SWEEP = [(51200, 512, 2048), (51200, 1024, 2048), (50176, 512, 2048),
+             (50176, 1024, 2048), (12288, 512, 1024), (12288, 1024, 1024),
+             (3072, 512, 1024), (3072, 1024, 1024), (1536, 512, 1024),
+             (1536, 1024, 1024), (1024, 1024, 1024), (1024, 2048, 1024),
+             (256, 1024, 1024), (256, 2048, 1024), (1024, 512, 1024),
+             (2048, 512, 1024)]
+# ragged M, N and K, through linear_f32 (the route leaves them to cuBLAS)
+P16_RAGGED = [(1000, 196, 2048), (777, 260, 100), (130, 1024, 2048)]
+
+
+def phase16_linear(smi) -> list:
+    """The split-bf16 GEMM against float64, cuBLAS and its plain version,
+    timed beside cuBLAS float32 and the plain version, and the route's
+    sweep (module docstring, 16)."""
+    from vqatpu_torch.kernels import linear as L
+    from vqatpu_torch.kernels.trilinear import launches
+    from vqatpu_torch.kernels.timing import sleep_cycles_per_ms, time_ms
+    from vqatpu_torch.numerics import require_f32_math
+
+    require_f32_math()
+    dev = torch.device("cuda")
+    _, (peak_bw, peak_f32, peak_bf16) = peaks_for(torch.cuda.get_device_name(0))
+
+    def operands(M, N, K, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn(M, K, device=dev, generator=g).relu()  # features >= 0
+        w = torch.randn(N, K, device=dev, generator=g) / K ** 0.5
+        dy = torch.randn(M, N, device=dev, generator=g) / M ** 0.5
+        return x, w, dy
+
+    def gemms(x, w, dy):
+        M, K = x.shape
+        N = w.shape[0]
+        return {"forward": lambda: L._gemm("forward", x, w, M, N, K),
+                "wgrad": lambda: L._gemm("wgrad", dy, x, M, N, K),
+                "dgrad": lambda: L._gemm("dgrad", dy, w, M, N, K)}
+
+    def cublas(x, w, dy):
+        return {"forward": lambda: torch.nn.functional.linear(x, w),
+                "wgrad": lambda: dy.t().mm(x), "dgrad": lambda: dy.mm(w)}
+
+    def with_autograd(fn, x, w, dy):
+        """fn(x, w), and its input and weight gradients for cotangent dy"""
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(xg, wg)
+        dx, dw = torch.autograd.grad(y, (xg, wg), dy)
+        return {"forward": y.detach(), "dgrad": dx, "wgrad": dw}
+
+    def largest(a, b):
+        return (a.double() - b.double()).abs().max().item()
+
+    routed = [s for s in P16_SWEEP if L.fits_kernel(*s)]
+    for M, N, Kd in routed + P16_RAGGED:
+        x, w, dy = operands(M, N, Kd, M + N + Kd)
+        fn = L.routed_linear if (M, N, Kd) in routed else L.linear_f32
+        before = dict(launches)
+        got = with_autograd(fn, x, w, dy)
+        torch.cuda.synchronize()
+        moved = {k: launches[k] - before[k] for k in GEMM_KERNELS}
+        if moved != dict.fromkeys(GEMM_KERNELS, 1):
+            raise SystemExit(f"{fn.__name__} at {(M, N, Kd)}: launches {moved}")
+        lib = with_autograd(torch.nn.functional.linear, x, w, dy)
+        plain = {"forward": L.split_bf16x6_mm(x, w),
+                 "wgrad": L.split_bf16x6_mm(dy.T.contiguous(), x.T.contiguous()),
+                 "dgrad": L.split_bf16x6_mm(dy, w.T.contiguous())}
+        xd, wd, dyd = x.double(), w.double(), dy.double()
+        refs = {"forward": xd @ wd.T, "wgrad": dyd.T @ xd, "dgrad": dyd @ wd}
+        ratios, to_plain = {}, {}
+        for k, ref in refs.items():
+            err, err_lib = largest(got[k], ref), largest(lib[k], ref)
+            gap, gap_lib = largest(got[k], plain[k]), largest(lib[k], plain[k])
+            ratios[k], to_plain[k] = round(err / err_lib, 3), round(gap / gap_lib, 3)
+            if err > 2 * err_lib or gap > 2 * gap_lib:
+                raise SystemExit(
+                    f"{fn.__name__} {k} at {(M, N, Kd)}: float64 error {err:.3e} "
+                    f"(cuBLAS float32's {err_lib:.3e}), from the plain version "
+                    f"{gap:.3e} (cuBLAS's {gap_lib:.3e})")
+        again = with_autograd(fn, x, w, dy)["wgrad"]
+        if not torch.equal(got["wgrad"], again):
+            raise SystemExit(f"{fn.__name__} wgrad at {(M, N, Kd)}: two calls differ")
+        print(f"16: {fn.__name__} {(M, N, Kd)} with autograd: float64 error / "
+              f"cuBLAS float32's {ratios}; distance from the plain version / "
+              f"cuBLAS's {to_plain}; wgrad bitwise repeatable")
+        del x, w, dy, xd, wd, dyd, refs, got, lib, plain, again
+
+    cycles = sleep_cycles_per_ms()
+    flush = torch.empty(128 * 2**20 // 4, device=dev)  # > the 50 MB L2
+    rows = []
+    for M, N, K in P16_SWEEP:
+        x, w, dy = operands(M, N, K, 16)
+        ours, lib = gemms(x, w, dy), cublas(x, w, dy)
+        row = {"shape": [M, N, K], "tiles": -(-M // L.TILE) * -(-N // L.TILE)}
+        for k in ("forward", "wgrad", "dgrad"):
+            row[f"{k}_ms"] = time_ms(ours[k], flush, cycles)[0]
+            row[f"cublas_{k}_ms"] = time_ms(lib[k], flush, cycles)[0]
+        flop = 2 * M * N * K
+        bytes_fwd = 4 * (M * K + N * K + M * N)
+        row["bound_ms"] = max(bytes_fwd / peak_bw, 6 * flop / peak_bf16) * 1e3
+        row["f32_bound_ms"] = max(bytes_fwd / peak_bw, flop / peak_f32) * 1e3
+        row["fwd_wgrad_over_cublas"] = (
+            (row["forward_ms"] + row["wgrad_ms"])
+            / (row["cublas_forward_ms"] + row["cublas_wgrad_ms"]))
+        row["all_over_cublas"] = (
+            sum(row[f"{k}_ms"] for k in ("forward", "wgrad", "dgrad"))
+            / sum(row[f"cublas_{k}_ms"] for k in ("forward", "wgrad", "dgrad")))
+        row["routed"] = L.fits_kernel(M, N, K)
+        if M >= 50000:
+            row["plain_forward_ms"] = time_ms(
+                lambda: L.split_bf16x6_mm(x, w), flush, cycles, runs=5)[0]
+        print(f"16: {(M, N, K)}: forward {row['forward_ms']:.4f} ms (cuBLAS "
+              f"{row['cublas_forward_ms']:.4f}), wgrad {row['wgrad_ms']:.4f} "
+              f"({row['cublas_wgrad_ms']:.4f}), dgrad {row['dgrad_ms']:.4f} "
+              f"({row['cublas_dgrad_ms']:.4f}); forward + wgrad "
+              f"{row['fwd_wgrad_over_cublas']:.3f}x cuBLAS's, all three "
+              f"{row['all_over_cublas']:.3f}x; bound {row['bound_ms']:.4f} ms "
+              f"(float32 {row['f32_bound_ms']:.4f}); routed {row['routed']}")
+        rows.append(row)
+        del x, w, dy
+    print(f"16: {smi}")
+    print(json.dumps({"linear_f32": rows}))
+    return rows
+
+
 def sass_hmma(lib: Path) -> dict:
     """Each kernel of the built library ``lib`` and its number of HMMA
     (tensor-core) instructions, from ``cuobjdump -sass``."""
@@ -3230,7 +3385,8 @@ def main() -> int:
                 fn = m.group(1)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                               line)
-            if (spill and fn and ("mma_kernel" in fn or "tri_pool_backward" in fn)
+            if (spill and fn and ("mma_kernel" in fn or "tri_pool_backward" in fn
+                                  or "linear_f32" in fn)
                     and spill.groups() != ("0", "0")):
                 raise SystemExit(f"{fn} spills: {line.strip()}")
     # the tensor-core kernels (K1's and K2's bf16 instances, every
@@ -4125,7 +4281,8 @@ def main() -> int:
         sfx = "_bf16" if compute == "bfloat16" else ""
         assert counts["fused_rank_softmax" + sfx] == sess.forwards == 3, counts
         assert counts["trilinear_pool" + sfx] == cfg.gamma * sess.forwards, counts
-        assert sum(counts.values()) == (1 + cfg.gamma) * sess.forwards, counts
+        assert (sum(cti_kernels(counts).values())
+                == (1 + cfg.gamma) * sess.forwards), counts
         path_counts[f"serving wire={wire} compute={compute}"] = counts
         err32 = float(np.abs(logits_g - golden["logits"]).max())
         if compute == "bfloat16":
@@ -4923,6 +5080,9 @@ def main() -> int:
 
     # -- 15. JAX's .orbax checkpoints, read and written on the card's host -
     phase15_orbax(path_counts, smi)
+
+    # -- 16. the split-bf16 GEMM of the tucker products -------------------
+    phase16_linear(smi)
 
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in path_counts.values())

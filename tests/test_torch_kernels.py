@@ -195,7 +195,9 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing(rng):
                           "trilinear_pool_bf16": 0,
                           "masked_softmax_vqa_bf16": 0,
                           "trilinear_pool_backward": 0,
-                          "trilinear_pool_backward_bf16": 0}
+                          "trilinear_pool_backward_bf16": 0,
+                          "linear_f32": 0, "linear_f32_wgrad": 0,
+                          "linear_f32_dgrad": 0}
 
 
 # -- gradients ----------------------------------------------------------------

@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("rank_softmax", "tri_pool", "softmax_vqa", "tri_pool_backward")
+SOURCES = ("rank_softmax", "tri_pool", "softmax_vqa", "tri_pool_backward",
+           "linear_f32")
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # each library's entry points and their argument types; all return a
 # cudaError_t as an int
@@ -58,6 +59,18 @@ ENTRY_POINTS = {
         "masked_softmax_vqa_forward": [_PTR] * 3 + [_INT] * 5 + [_PTR],
         "masked_softmax_vqa_forward_bf16": [_PTR] * 3 + [_INT] * 5 + [_PTR],
         "softmax_vqa_backward": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+    },
+    "linear_f32": {
+        # the two operands, out, M, N, K, device, stream; the weight
+        # gradient takes, before the device, its scratch and the scratch's
+        # floats
+        "linear_f32_forward": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+        "linear_f32_dgrad": [_PTR] * 3 + [_INT] * 4 + [_PTR],
+        # M, N, K, device, out: the floats of scratch the weight gradient
+        # needs
+        "linear_f32_wgrad_scratch": [_INT] * 4 + [_PTR],
+        "linear_f32_wgrad": [_PTR] * 3 + [_INT] * 3 + [_PTR, _I64, _INT,
+                                                       _PTR],
     },
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,8 +3,8 @@
 // tri_pool.cu and by tri_pool_backward.cu: fragments loaded from shared
 // memory by ldmatrix, one m16n8k16 product a call, and split_bf16x3, which
 // makes a float32 operand three bf16 ones.  Also the tensor-map copies (TMA, sm_90) that
-// feed rank_softmax.cu's ring: one thread asks for a whole box, and the
-// copy reports its bytes to an mbarrier in shared memory.
+// feed rank_softmax.cu's and linear_f32.cu's rings: one thread asks for a
+// whole box, and the copy reports its bytes to an mbarrier in shared memory.
 //
 // Fragments of mma.sync.m16n8k16.row.col (lane = 4 * group + tig):
 //   A (16 x 16, row-major): a0 rows group, k 2*tig..+1; a1 rows group+8;
@@ -114,6 +114,24 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, 
       "[%0], [%1, {%2, %3, %4}], [%5];\n"
       ::"r"(d), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(b)
       : "memory");
+}
+
+// The same for a 2-d tensor map, at coordinates (c0, c1), c0 the inner one.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            unsigned long long* bar) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const unsigned b = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(d), "l"(map), "r"(c0), "r"(c1), "r"(b)
+      : "memory");
+}
+
+// one plain arrival
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(s) : "memory");
 }
 
 // Order this thread's earlier shared-memory accesses before its later

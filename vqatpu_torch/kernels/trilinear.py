@@ -64,7 +64,9 @@ launches = {"fused_rank_softmax": 0, "trilinear_pool": 0,
             "masked_softmax_vqa": 0, "softmax_vqa_backward": 0,
             "fused_rank_softmax_bf16": 0, "trilinear_pool_bf16": 0,
             "masked_softmax_vqa_bf16": 0, "trilinear_pool_backward": 0,
-            "trilinear_pool_backward_bf16": 0}
+            "trilinear_pool_backward_bf16": 0,
+            # the split-bf16 GEMM of kernels/linear.py
+            "linear_f32": 0, "linear_f32_wgrad": 0, "linear_f32_dgrad": 0}
 _launch_lock = threading.Lock()
 
 

@@ -13,6 +13,11 @@ parameters' dtype (``vqatpu/ops/linear.py:55``), and a float32 input
 against bf16 weights is promoted to float32, as jnp promotes ``x @ v.T``
 (``:56``).
 
+:class:`WNLinear`'s product is
+:func:`~vqatpu_torch.kernels.linear.routed_linear`: the split-bf16 GEMM of
+``csrc/linear_f32.cu`` for large float32 products on the card, else
+``F.linear``.
+
 Under tensor parallelism :class:`WNLinear` runs column- or row-parallel
 (see its docstring), and :class:`FCNet` drops out a row-parallel layer's
 split input with the whole input's mask.
@@ -26,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqatpu_torch.kernels.linear import routed_linear
 from vqatpu_torch.numerics import promote
 from vqatpu_torch.ops.activation import get_activation
 from vqatpu_torch.ops.module import Ctx, dropout
@@ -83,14 +89,14 @@ class WNLinear(nn.Module):
         # (x @ vᵀ)·s rather than x @ (s·v)ᵀ, as the JAX package does: the
         # scale multiplies the GEMM output and no scaled weight is formed
         if self.tp is None:
-            y = F.linear(*promote(x, self.v)) * (self.g / frobenius(self.v))
+            y = routed_linear(*promote(x, self.v)) * (self.g / frobenius(self.v))
         elif self.tp_dim == 0:
             sq = all_reduce_both(self.v.square().sum(), self.tp)
-            y = (F.linear(*promote(copy_to(x, self.tp), self.v))
+            y = (routed_linear(*promote(copy_to(x, self.tp), self.v))
                  * (copy_to(self.g, self.tp) / sq.sqrt()))
         else:
             sq = reduce_from(self.v.square().sum(), self.tp)
-            y = (reduce_from(F.linear(*promote(x, self.v)), self.tp)
+            y = (reduce_from(routed_linear(*promote(x, self.v)), self.tp)
                  * (self.g / sq.sqrt()))
         if self.b is not None:
             y = y + self.b

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vqatpu_torch.kernels.linear import routed_linear
 from vqatpu_torch.kernels.trilinear import attention_logits_ref, trilinear_pool
 from vqatpu_torch.numerics import promote
 from vqatpu_torch.ops.activation import get_activation
@@ -33,18 +34,18 @@ def fused_tucker_projection(nets: Sequence[FCNet], x: torch.Tensor,
                             rate: float, act: str,
                             ctx: Optional[Ctx] = None) -> List[torch.Tensor]:
     """Several single-layer tucker FCNets over the same ``x`` as one GEMM
-    over their concatenated weights, each net's weight-norm scale ``g /
-    ||v||_F`` applied to its output columns, and one dropout mask on ``x``
-    instead of one per net (``vqatpu/ops/trilinear.py:41-71``); -> the
-    per-net outputs, each contiguous (K2 takes its ``vt`` so; XLA's
-    slices are copies too)."""
+    over their concatenated weights (:func:`routed_linear`), each net's
+    weight-norm scale ``g / ||v||_F`` applied to its output columns, and
+    one dropout mask on ``x`` instead of one per net
+    (``vqatpu/ops/trilinear.py:41-71``); -> the per-net outputs, each
+    contiguous (K2 takes its ``vt`` so; XLA's slices are copies too)."""
     ls = [n.l0 for n in nets]
     scale = torch.cat([(l.g / frobenius(l.v)).expand(l.v.shape[0])
                        for l in ls])
     w_all = torch.cat([l.v for l in ls], 0)
     b_all = torch.cat([l.b for l in ls])
     x = dropout(x, rate, ctx)
-    out = get_activation(act)(F.linear(*promote(x, w_all)) * scale + b_all)
+    out = get_activation(act)(routed_linear(*promote(x, w_all)) * scale + b_all)
     return [t.contiguous() for t in out.split([l.v.shape[0] for l in ls], -1)]
 
 
